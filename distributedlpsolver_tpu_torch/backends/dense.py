@@ -1,0 +1,194 @@
+"""Dense single-device torch backend — the port's main execution path.
+
+The port of the JAX package's ``backends/dense.py::DenseJaxBackend``
+(single device, direct factorization). The constraint matrix lives in
+device memory; each IPM iteration queues, on one device:
+
+* the normal-equations assembly ``M = A·diag(d)·Aᵀ`` through the CUDA
+  kernel of ``ops/normal_eq.py`` (its plain version on the CPU),
+* the regularized Cholesky ``torch.linalg.cholesky_ex`` and the solves
+  ``torch.cholesky_solve`` (plus ``refine_steps`` rounds of
+  normal-equations refinement),
+* GEMVs with A and Aᵀ (``A @ v``, ``A.T @ y``), which the JAX package
+  also leaves to its compiler outside any kernel,
+
+and returns only the convergence scalars, copied to the host in one
+transfer per iteration.
+
+The H100 has native FP64, so ``factor_dtype="auto"`` resolves to the
+iterate dtype (f64) and there is no two-phase schedule
+(``SolverConfig.two_phase_enabled("cuda")`` is False). A precast copy of
+A is kept only when ``factor_dtype`` differs from ``dtype``; the
+assembly then runs in ``factor_dtype`` on that copy.
+
+Not ported yet: sharded placement, the fused on-device loop
+(``solve_full`` returns None, so ``ipm/driver.py`` runs its host loop), the
+two-phase and PCG schedules, the primal-row closure and the dense
+endgame.
+
+Failure semantics: ``torch.linalg.cholesky`` raises on a matrix that is
+not positive definite, where the JAX package's Cholesky returns NaN. The
+factorization here uses ``cholesky_ex`` and turns ``info != 0`` into a
+NaN factor on the device, so the step's finite check flags the step as
+bad and the IPM host loop escalates the regularization exactly as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from distributedlpsolver_tpu_torch.backends.base import SolverBackend, register_backend
+from distributedlpsolver_tpu_torch.ipm import core
+from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+from distributedlpsolver_tpu_torch.ipm.state import IPMState, StepStats
+from distributedlpsolver_tpu_torch.models.problem import InteriorForm
+from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq
+
+_DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the first CUDA card unless the
+    caller names another. Raises when CUDA is asked for (or left to the
+    default) and there is no card — there is no CPU fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", 0)
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r} is not supported (float64 or float32)")
+    return _DTYPES[name]
+
+
+def _cholesky_ops(A, factor_dtype, refine_steps, Af=None):
+    """Build factorize/solve closures over the matrix ``A``.
+
+    ``factorize(d, reg)`` returns ``(L, M)`` with ``M = A·diag(d)·Aᵀ``
+    plus a per-row relative diagonal perturbation and ``L`` its Cholesky
+    factor in ``factor_dtype``. With ``Af`` (the precast copy, present
+    only when ``factor_dtype`` differs from A's dtype) the assembly runs
+    on it in ``factor_dtype``.
+    """
+
+    def factorize(d, reg):
+        src = A if Af is None else Af
+        M = normal_eq(src, d.to(src.dtype))
+        # Per-row *relative* diagonal perturbation (in place: at the
+        # reference shape M is 0.8 GB, and M + diag(·) would copy it).
+        diag = M.diagonal()
+        diag.add_(diag * reg)
+        L, info = torch.linalg.cholesky_ex(M if M.dtype == factor_dtype else M.to(factor_dtype))
+        # A failed factorization becomes a NaN factor on the device (no
+        # host sync), as the JAX package's Cholesky reports it.
+        L = torch.where(info == 0, L, float("nan"))
+        if refine_steps and M.dtype != A.dtype:
+            M = M.to(A.dtype)  # refinement residuals at iterate precision
+        return L, M
+
+    def _apply_inv(L, rhs):
+        return torch.cholesky_solve(rhs.to(factor_dtype)[:, None], L, upper=False)[:, 0].to(rhs.dtype)
+
+    def solve(factors, rhs):
+        L, M = factors
+        y = _apply_inv(L, rhs)
+        for _ in range(refine_steps):
+            y = y + _apply_inv(L, rhs - M @ y)
+        return y
+
+    return factorize, solve
+
+
+def _make_ops(A, reg, factor_dtype, refine_steps, Af=None) -> core.LinOps:
+    factorize, solve = _cholesky_ops(A, factor_dtype, refine_steps, Af)
+    return core.LinOps(
+        matvec=lambda v: A @ v,
+        rmatvec=lambda v: A.T @ v,
+        factorize=functools.partial(factorize, reg=reg),
+        solve=solve,
+    )
+
+
+@register_backend("cuda", "dense", "torch")
+class DenseTorchBackend(SolverBackend):
+    """Single-device dense path on one CUDA card (or the CPU when asked
+    for with ``device="cpu"``)."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._reg: float = 0.0
+        self._cfg: Optional[SolverConfig] = None
+
+    # -- SolverBackend ------------------------------------------------------
+    def setup(self, inf: InteriorForm, config: SolverConfig) -> None:
+        if config.solve_mode == "pcg":
+            raise NotImplementedError("solve_mode='pcg' is not ported to the torch package yet")
+        self._cfg = config
+        self._reg = config.reg_dual
+        dtype = _torch_dtype(config.dtype)
+        self._factor_dtype = _torch_dtype(config.factor_dtype_resolved())
+        self._refine = config.refine_steps
+        self._dtype = dtype
+        if self.device.type == "cuda":
+            # Library matmuls in true fp32, never TF32 (~1e-3 relative
+            # error), for the f32 configurations.
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+        A_host = inf.A.toarray() if sp.issparse(inf.A) else np.asarray(inf.A)
+        dev = self.device
+        self._A = torch.as_tensor(A_host, dtype=dtype, device=dev).contiguous()
+        self._Af = (
+            self._A.to(self._factor_dtype) if self._factor_dtype != dtype else None
+        )
+        self._data = core.make_problem_data(
+            np.asarray(inf.c, dtype=np.float64), np.asarray(inf.b, dtype=np.float64),
+            np.asarray(inf.u, dtype=np.float64), dtype, dev,
+        )
+        self._params = config.step_params()
+
+    def _ops(self) -> core.LinOps:
+        return _make_ops(self._A, self._reg, self._factor_dtype, self._refine, self._Af)
+
+    def starting_point(self) -> IPMState:
+        return core.starting_point(self._ops(), self._data, self._params)
+
+    def iterate(self, state: IPMState) -> Tuple[IPMState, StepStats]:
+        new_state, stats = core.mehrotra_step(self._ops(), self._data, self._params, state)
+        # One device→host copy of every scalar per iteration: the host loop
+        # reads them all, and ten .item() calls would be ten syncs.
+        host = torch.stack([v.to(self._dtype) for v in stats]).cpu().tolist()
+        return new_state, StepStats(*host[:-1], bad=bool(host[-1]))
+
+    def bump_regularization(self) -> bool:
+        if self._reg * self._cfg.reg_grow > 1e-2:
+            return False
+        self._reg = max(self._reg, 1e-12) * self._cfg.reg_grow
+        return True
+
+    def to_host(self, state: IPMState) -> IPMState:
+        return IPMState(*(v.detach().cpu().numpy() for v in state))
+
+    def from_host(self, state: IPMState) -> IPMState:
+        return IPMState(
+            *(torch.tensor(np.asarray(v, dtype=np.float64), dtype=self._dtype,
+                           device=self.device) for v in state)
+        )
+
+    def block_until_ready(self, obj) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -1,0 +1,64 @@
+"""Carry state across from the JAX package.
+
+The JAX package hands its data out as numpy arrays and plain dicts
+(``InteriorForm`` fields, ``backend.to_host`` states, config fields); the
+functions here take exactly those and build this package's objects, so a
+problem, an iterate or a configuration moves between the two packages
+without importing either from the other. A v3 checkpoint file written by
+the JAX package needs nothing here: ``utils/checkpoint.py`` is the same
+format in both, and ``solve(..., checkpoint_path=...)`` resumes it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+from distributedlpsolver_tpu_torch.ipm.state import IPMState
+from distributedlpsolver_tpu_torch.models.problem import _SHIFT, InteriorForm
+
+
+def interior_form_from_arrays(A, b, c, u, name: str = "LP") -> InteriorForm:
+    """An :class:`InteriorForm` ``min cᵀx, Ax=b, 0≤x≤u`` from arrays, with
+    identity recovery (the interior variables are the original ones)."""
+    c = np.asarray(c, dtype=np.float64)
+    n = c.shape[0]
+    return InteriorForm(
+        c=c,
+        A=A if hasattr(A, "tocsr") else np.asarray(A, dtype=np.float64),
+        b=np.asarray(b, dtype=np.float64),
+        u=np.asarray(u, dtype=np.float64),
+        c0=0.0,
+        orig_n=n,
+        col_kind=np.full(n, _SHIFT, dtype=np.int8),
+        col_orig=np.arange(n),
+        col_shift=np.zeros(n),
+        col_sign=np.ones(n),
+        name=name,
+    )
+
+
+def state_from_arrays(x, y, s, w, z, *, device, dtype=torch.float64) -> IPMState:
+    """An :class:`IPMState` of tensors on ``device`` from host arrays —
+    the inverse of a backend's ``to_host``."""
+    return IPMState(
+        *(torch.tensor(np.asarray(v), dtype=dtype, device=device) for v in (x, y, s, w, z))
+    )
+
+
+def config_from_dict(d: dict) -> SolverConfig:
+    """A :class:`SolverConfig` from a dict of its fields (for example
+    ``dataclasses.asdict`` of the JAX package's config). Unknown keys
+    raise, so a field that has no meaning here is never dropped silently.
+    """
+    known = {f.name for f in dataclasses.fields(SolverConfig)}
+    unknown = sorted(set(d) - known)
+    if unknown:
+        raise ValueError(f"unknown SolverConfig fields: {unknown}")
+    kw = dict(d)
+    if kw.get("mesh_shape") is not None:
+        kw["mesh_shape"] = tuple(kw["mesh_shape"])
+    return SolverConfig(**kw)

@@ -1,0 +1,466 @@
+"""Host-side Mehrotra driver loop (SURVEY.md §1 L4, §3.1).
+
+The port of the JAX package's ``ipm/driver.py``. The outer
+predictor-corrector loop runs on the host; each ``backend.iterate`` call
+queues one full iteration on the device and returns only convergence
+scalars, copied to the host in one transfer. This loop owns convergence
+testing at the configured duality-gap tolerance, numerical-failure
+recovery (deterministic regularization escalation), per-iteration
+logging, checkpoint/resume, and recovery of the solution in the original
+variable space.
+
+Not ported yet: warm starts and the warm cache (``ipm/warm.py`` of the
+JAX package) — passing either raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import TYPE_CHECKING, Optional, Union
+
+import numpy as np
+
+from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+
+if TYPE_CHECKING:  # real import is deferred to solve() — backends import ipm
+    from distributedlpsolver_tpu_torch.backends.base import SolverBackend
+from distributedlpsolver_tpu_torch.ipm import core
+from distributedlpsolver_tpu_torch.ipm.state import (
+    IPMResult,
+    IterRecord,
+    Status,
+)
+from distributedlpsolver_tpu_torch.models.problem import (
+    InteriorForm,
+    LPProblem,
+    to_interior_form,
+)
+from distributedlpsolver_tpu_torch.obs import context as obs_context
+from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
+from distributedlpsolver_tpu_torch.obs import trace as obs_trace
+from distributedlpsolver_tpu_torch.utils import checkpoint as ckpt
+from distributedlpsolver_tpu_torch.utils.logging import IterLogger
+
+_DIVERGE = 1e30
+
+
+class SolveHooks:
+    """Per-iteration instrumentation seam of the host loop.
+
+    ``run_step`` executes one device step (a supervisor can put it under
+    a watchdog deadline); ``on_iterate`` inspects the host-side scalar
+    dict after each iteration, before the iterate is checkpointed. Both
+    may raise; an exception aborts the solve (the logger still closes)
+    and propagates to the caller.
+    """
+
+    def run_step(self, step_fn, iteration: int):
+        """Execute one device step (``step_fn`` returns (state, stats))."""
+        return step_fn()
+
+    def on_iterate(self, iteration: int, scalars: dict) -> None:
+        """Inspect the host-side scalar dict after iteration ``iteration``."""
+
+
+def solve(
+    problem: Union[LPProblem, InteriorForm],
+    backend: Union[str, "SolverBackend"] = "cuda",
+    config: Optional[SolverConfig] = None,
+    warm_start=None,
+    hooks: Optional[SolveHooks] = None,
+    warm_cache=None,
+    **config_overrides,
+) -> IPMResult:
+    """Solve an LP to the configured duality-gap tolerance.
+
+    ``problem`` may be a general-form :class:`LPProblem` (converted via
+    :func:`to_interior_form`; solution is recovered in the original space)
+    or an :class:`InteriorForm` directly. ``backend`` is a registry name
+    (``--backend=`` in the CLI) or an instance; the name ``"cuda"`` places
+    everything on the first CUDA card, and raises where there is none —
+    pass ``get_backend("cuda", device="cpu")`` to run on the CPU.
+
+    ``warm_start`` and ``warm_cache`` are not ported yet and raise
+    ``NotImplementedError``; a ``config.checkpoint_path`` resume works.
+    """
+    from distributedlpsolver_tpu_torch.backends.base import get_backend
+
+    if warm_start is not None or warm_cache is not None:
+        raise NotImplementedError(
+            "warm_start / warm_cache are not ported to the torch package yet"
+        )
+    cfg = config or SolverConfig()
+    if config_overrides:
+        cfg = cfg.replace(**config_overrides)
+    # Resolved first: a "cuda" backend without a card raises here, even
+    # for a problem presolve alone would settle.
+    be = get_backend(backend) if isinstance(backend, str) else backend
+
+    original: Optional[LPProblem] = problem if isinstance(problem, LPProblem) else None
+    presolve_info = None
+    if (
+        cfg.presolve
+        and original is not None
+        and original.block_structure is None  # reductions break the hint
+    ):
+        from distributedlpsolver_tpu_torch.models.presolve import presolve as _presolve
+
+        reduced, presolve_info = _presolve(original)
+        if presolve_info.status is not None:
+            return _presolved_result(original, presolve_info, backend)
+        inf = to_interior_form(reduced)
+    else:
+        inf = to_interior_form(problem) if isinstance(problem, LPProblem) else problem
+
+    scaling = None
+    inf_solve = inf
+    if cfg.scale:
+        from distributedlpsolver_tpu_torch.models.scaling import equilibrate
+
+        inf_solve, scaling = equilibrate(inf)
+
+    logger = IterLogger(
+        cfg.verbose, cfg.log_jsonl, fsync=cfg.log_fsync, append=cfg.log_append
+    )
+
+    t_setup0 = time.perf_counter()
+    be.setup(inf_solve, cfg)
+    fingerprint = ckpt.problem_fingerprint(inf) if cfg.checkpoint_path else ""
+    resumed = ckpt.maybe_load(cfg.checkpoint_path, fingerprint)
+    if (
+        resumed is not None
+        and resumed[2] == inf.name
+        and resumed[0].x.shape == (inf.n,)
+        and resumed[0].y.shape == (inf.m,)
+    ):
+        # Checkpoints are host-canonical (utils/checkpoint.py v3), so a
+        # file written by either package resumes here: from_host places
+        # the iterate on this backend's device.
+        host_state = scaling.scale_state(resumed[0]) if scaling else resumed[0]
+        state, start_iter = be.from_host(host_state), resumed[1]
+    else:
+        state, start_iter = be.starting_point(), 0
+    setup_time = time.perf_counter() - t_setup0
+
+    use_fused = cfg.fused_loop
+    if use_fused is None:
+        use_fused = not (cfg.checkpoint_every and cfg.checkpoint_path)
+    if hooks is not None or cfg.profile_dir:
+        use_fused = False  # both need iteration boundaries on the host
+    if use_fused:
+        fused = _try_fused(be, state, cfg, logger)
+        if fused is not None:
+            state, status, history, last, solve_time, fused_iters = fused
+            return _finalize(
+                be, state, status, history, last, solve_time, setup_time,
+                inf, original, backend, start_iter, scaling=scaling,
+                presolve_info=presolve_info, extra_iters=fused_iters,
+            )
+
+    status = Status.ITERATION_LIMIT
+    history = []
+    last = None
+    it = start_iter
+    # Hot-path instruments, resolved ONCE before the loop. Disabled mode
+    # (the default NULL registry) makes every observe below a no-op.
+    _reg = obs_metrics.get_registry()
+    _m_iters = _reg.counter(
+        "ipm_iterations_total", help="completed IPM iterations"
+    )
+    _m_step = _reg.histogram(
+        "ipm_step_seconds", buckets=obs_metrics.SECONDS_BUCKETS,
+        help="device-synchronized wall time per IPM iteration",
+    )
+    _m_refactor = _reg.counter(
+        "ipm_refactorizations_total",
+        help="bad-step regularization-bump refactorization attempts",
+    )
+    _tracer = obs_trace.get_tracer()
+    _trace_args = (
+        obs_context.current().span_args()
+        if _tracer.enabled and obs_context.current() is not None
+        else None
+    )
+    t_solve0 = time.perf_counter()
+    profile_stack = contextlib.ExitStack()
+    try:
+        profile_stack.enter_context(_maybe_profiler(cfg.profile_dir))
+        while it < cfg.max_iter:
+            t_it0 = time.perf_counter()
+            refactor = 0
+            while True:
+                if hooks is None:
+                    new_state, stats = _step_once(be, state)
+                else:
+                    step_state = state  # freeze for the deferred closure
+                    new_state, stats = hooks.run_step(
+                        lambda: _step_once(be, step_state), it + 1
+                    )
+                bad = bool(stats.bad)
+                if not bad:
+                    break
+                refactor += 1
+                _m_refactor.inc()
+                if refactor > cfg.max_refactor or not be.bump_regularization():
+                    status = Status.NUMERICAL_ERROR
+                    break
+            if bad:
+                break
+            state = new_state
+            it += 1
+            t_it = time.perf_counter() - t_it0
+            _m_iters.inc()
+            _m_step.observe(t_it)
+            if _tracer.enabled:
+                it_args = {"iter": it, "refactor": refactor}
+                if _trace_args is not None:
+                    it_args.update(_trace_args)
+                _tracer.complete(
+                    f"ipm.iter {it}", t_it, cat="ipm", args=it_args
+                )
+            last = _to_floats(stats)
+            rec = IterRecord(iter=it, t_iter=t_it, **last)
+            history.append(rec)
+            logger.log(rec)
+            if hooks is not None:
+                hooks.on_iterate(it, last)
+            if cfg.checkpoint_every and it % cfg.checkpoint_every == 0 and cfg.checkpoint_path:
+                host_state = be.to_host(state)
+                if scaling is not None:
+                    host_state = scaling.unscale_state(host_state)
+                ckpt.save_state(
+                    cfg.checkpoint_path, host_state, it, inf.name, fingerprint
+                )
+            if (
+                last["rel_gap"] <= cfg.tol
+                and last["pinf"] <= cfg.tol
+                and last["dinf"] <= cfg.tol
+            ):
+                status = Status.OPTIMAL
+                break
+            pinfeas, dinfeas = core.classify_divergence(
+                last["mu"], last["pinf"], last["dinf"], last["rel_gap"],
+                last["pobj"], last["dobj"],
+            )
+            if pinfeas:
+                status = Status.PRIMAL_INFEASIBLE
+                break
+            if dinfeas:
+                status = Status.DUAL_INFEASIBLE
+                break
+            if not np.isfinite(last["mu"]) or last["mu"] > _DIVERGE:
+                status = Status.NUMERICAL_ERROR
+                break
+    finally:
+        profile_stack.close()
+        solve_time = time.perf_counter() - t_solve0
+        logger.close()
+
+    return _finalize(
+        be, state, status, history, last, solve_time, setup_time,
+        inf, original, backend, start_iter, extra_iters=it - start_iter,
+        scaling=scaling, presolve_info=presolve_info,
+    )
+
+
+def _step_once(be, state):
+    """One synchronized device step — the unit of work a watchdog would
+    deadline."""
+    new_state, stats = be.iterate(state)
+    # The one sanctioned per-iteration sync: the convergence test needs
+    # the step to have actually finished.
+    be.block_until_ready(stats.mu)
+    return new_state, stats
+
+
+_STAT_FIELDS = (
+    "mu", "gap", "rel_gap", "pinf", "dinf", "pobj", "dobj",
+    "alpha_p", "alpha_d", "sigma",
+)
+
+
+def _try_fused(be, state, cfg: SolverConfig, logger: IterLogger):
+    """Run the backend's fused on-device loop; None if unsupported (the
+    dense torch backend has none yet, so the host loop runs)."""
+    t0 = time.perf_counter()
+    out = be.solve_full(state)
+    if out is None:
+        return None
+    state, it_dev, status_code, buf = out
+    be.block_until_ready(it_dev)
+    solve_time = time.perf_counter() - t0
+
+    iters = int(np.asarray(it_dev))
+    buf = np.asarray(buf)[: min(iters, len(np.asarray(buf)))]
+    status = {
+        core.STATUS_OPTIMAL: Status.OPTIMAL,
+        core.STATUS_MAXITER: Status.ITERATION_LIMIT,
+        core.STATUS_NUMERR: Status.NUMERICAL_ERROR,
+        core.STATUS_PINFEAS: Status.PRIMAL_INFEASIBLE,
+        core.STATUS_DINFEAS: Status.DUAL_INFEASIBLE,
+        core.STATUS_STALL: Status.STALLED,
+    }.get(int(np.asarray(status_code)), Status.NUMERICAL_ERROR)
+
+    # Fused-loop records carry the AVERAGE seconds/iteration.
+    t_avg = solve_time / max(iters, 1)
+    obs_metrics.get_registry().counter(
+        "ipm_iterations_total", help="completed IPM iterations"
+    ).inc(iters)
+    history, last = [], None
+    for i in range(len(buf)):
+        last = dict(zip(_STAT_FIELDS, (float(v) for v in buf[i])))
+        rec = IterRecord(iter=i + 1, t_iter=t_avg, **last)
+        history.append(rec)
+        logger.log(rec)
+    logger.close()
+    return state, status, history, last, solve_time, iters
+
+
+def _finalize(
+    be, state, status, history, last, solve_time, setup_time,
+    inf, original, backend, start_iter, extra_iters=None, scaling=None,
+    presolve_info=None,
+):
+    n_iters = extra_iters if extra_iters is not None else len(history)
+    _reg = obs_metrics.get_registry()
+    _reg.counter(
+        "ipm_solves_total", labels={"status": status.value},
+        help="finished IPM solves by terminal status",
+    ).inc()
+    _reg.histogram(
+        "ipm_iterations", buckets=obs_metrics.ITER_BUCKETS,
+        labels={"start": "cold"},
+        help="IPM iterations per finished solve, by start kind",
+    ).observe(n_iters)
+    _tracer = obs_trace.get_tracer()
+    solve_args = {
+        "backend": getattr(be, "name", str(backend)),
+        "status": status.value,
+        "iterations": n_iters,
+    }
+    _ctx = obs_context.current() if _tracer.enabled else None
+    if _ctx is not None:
+        solve_args.update(_ctx.span_args())
+    _tracer.complete(
+        f"ipm.solve {inf.name}", solve_time, cat="ipm", args=solve_args
+    )
+    host = be.to_host(state)
+    if scaling is not None:
+        host = scaling.unscale_state(host)
+    certificate = None
+    if status in (
+        Status.PRIMAL_INFEASIBLE,
+        Status.DUAL_INFEASIBLE,
+        Status.ITERATION_LIMIT,
+        Status.STALLED,
+        Status.NUMERICAL_ERROR,
+    ):
+        # Farkas-ray extraction (ipm/certificates.py): a passing
+        # certificate is a mathematical proof, so it may UPGRADE a
+        # heuristic/indeterminate status — never the other way around.
+        try:
+            from distributedlpsolver_tpu_torch.ipm import certificates as _certs
+
+            certificate = _certs.extract_certificate(
+                inf, host, status.value
+            )
+        except Exception:  # certificates must never sink a solve
+            certificate = None
+        if certificate is not None and certificate.certified:
+            status = (
+                Status.PRIMAL_INFEASIBLE
+                if certificate.kind == "primal_infeasible"
+                else Status.DUAL_INFEASIBLE
+            )
+    x_t = np.asarray(host.x, dtype=np.float64)
+    obj_min = inf.objective(x_t)
+    y = np.asarray(host.y, dtype=np.float64)
+    s = np.asarray(host.s, dtype=np.float64)
+    if original is not None:
+        x_orig = inf.recover(x_t)
+        if presolve_info is not None:
+            # ``inf`` was built from the presolve-reduced problem: expand
+            # the primal back to the full variable space and recover exact
+            # duals for the removed rows (models/presolve.py).
+            x_orig = presolve_info.postsolve_x(x_orig)
+            y, s = presolve_info.postsolve_duals(original, x_orig, y)
+            obj_min = float(original.c @ x_orig) + original.c0
+        else:
+            s = original.c - np.asarray(original.A.T @ y).ravel()
+        objective = -obj_min if original.maximize else obj_min
+    else:
+        x_orig = x_t
+        objective = obj_min
+
+    return IPMResult(
+        status=status,
+        x=x_orig,
+        objective=objective,
+        iterations=n_iters,
+        rel_gap=last["rel_gap"] if last else np.inf,
+        pinf=last["pinf"] if last else np.inf,
+        dinf=last["dinf"] if last else np.inf,
+        solve_time=solve_time,
+        setup_time=setup_time,
+        history=history,
+        backend=getattr(be, "name", str(backend)),
+        name=inf.name,
+        y=y,
+        s=s,
+        certificate=certificate,
+    )
+
+
+def _presolved_result(original: LPProblem, info, backend) -> IPMResult:
+    """Result for a problem presolve settled without running the IPM."""
+    optimal = info.status == Status.OPTIMAL
+    x = info.postsolve_x(np.empty(0)) if optimal else None
+    y = s = None
+    if optimal:
+        y, s = info.postsolve_duals(original, x, None)
+        obj = -info.objective if original.maximize else info.objective
+    elif info.status == Status.DUAL_INFEASIBLE:
+        obj = np.inf if original.maximize else -np.inf
+    else:  # infeasible: no attainable objective
+        obj = -np.inf if original.maximize else np.inf
+    return IPMResult(
+        status=info.status,
+        x=x,
+        objective=obj,
+        iterations=0,
+        rel_gap=0.0 if optimal else np.inf,
+        pinf=0.0 if optimal else np.inf,
+        dinf=0.0 if optimal else np.inf,
+        solve_time=0.0,
+        setup_time=0.0,
+        history=[],
+        backend=f"presolve+{backend if isinstance(backend, str) else getattr(backend, 'name', '')}",
+        name=original.name,
+        y=y,
+        s=s,
+    )
+
+
+def _to_floats(stats):
+    return {f: float(getattr(stats, f)) for f in stats._fields if f != "bad"}
+
+
+@contextlib.contextmanager
+def _maybe_profiler(profile_dir: Optional[str]):
+    """``torch.profiler`` over the host loop when ``profile_dir`` is set;
+    the Chrome trace lands in ``profile_dir/torch_trace.json``."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "torch_trace.json"))

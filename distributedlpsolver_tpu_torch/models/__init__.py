@@ -1,0 +1,12 @@
+from distributedlpsolver_tpu_torch.models.problem import InteriorForm, LPProblem, to_interior_form
+from distributedlpsolver_tpu_torch.models.generators import (
+    random_dense_lp,
+    random_general_lp,
+    random_sparse_lp,
+)
+from distributedlpsolver_tpu_torch.models.presolve import presolve
+
+__all__ = [
+    "LPProblem", "InteriorForm", "to_interior_form",
+    "random_dense_lp", "random_general_lp", "random_sparse_lp", "presolve",
+]

@@ -1,0 +1,88 @@
+"""The port stands alone: it never imports JAX or the JAX package, its
+entry points refuse to run on a missing card unless asked for the CPU,
+and its CLI gives the JAX CLI's answer."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from distributedlpsolver_tpu import cli as jax_cli
+from distributedlpsolver_tpu_torch import cli
+from distributedlpsolver_tpu_torch.backends import get_backend
+from distributedlpsolver_tpu_torch.ipm import solve
+from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "distributedlpsolver_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "distributedlpsolver_tpu"}
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    files = _port_sources()
+    assert len(files) > 20 and os.path.exists(files[0])
+    bad = {(os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f) if r in FORBIDDEN}
+    assert not bad
+
+
+def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import distributedlpsolver_tpu_torch, distributedlpsolver_tpu_torch.cli\n"
+        "import distributedlpsolver_tpu_torch.backends, distributedlpsolver_tpu_torch.interop\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cuda_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_backend("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(random_dense_lp(4, 10, seed=0), backend="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["solve", os.path.join(ROOT, "tests", "fixtures", "maximize.mps"), "--json"])
+    assert get_backend("cuda", device="cpu").device.type == "cpu"
+
+
+def test_cli_json_matches_the_jax_cli(capsys):
+    path = os.path.join(ROOT, "tests", "fixtures", "maximize.mps")
+    rc = cli.main(["solve", path, "--device", "cpu", "--json"])
+    port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rc_j = jax_cli.main(["solve", path, "--backend", "tpu", "--json", "--quiet"])
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == rc_j == 0
+    assert port["status"] == ref["status"] == "optimal"
+    assert abs(port["objective"] - ref["objective"]) <= 1e-8 * (1 + abs(ref["objective"]))
+    assert port["backend"] == "cuda"
+
+
+def test_cli_lists_the_ports_backends(capsys):
+    assert cli.main(["backends"]) == 0
+    assert capsys.readouterr().out.split() == ["cuda", "dense", "torch"]
