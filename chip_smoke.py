@@ -6,21 +6,28 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
 
 1. prints the card (``nvidia-smi`` name and power limit), builds the
    normal-equations kernel from ``distributedlpsolver_tpu_torch/csrc`` into
-   ``build/dlps_torch/`` and prints nvcc's register/shared-memory report;
-2. holds the kernel against its plain PyTorch version on the card
-   (Frobenius-relative error ≤ 1e-12 f64, ≤ 1e-5 f32, ≤ 1e-4 bf16, and
-   in bf16 at most a tenth of the distance to the product taken without
-   rounding A·d to bf16) at the main path's shape 2048×10240, a ragged
-   1000×3001, and in f64 at the reference shape 10000×50000;
+   ``build/dlps_torch/``, prints nvcc's register/shared-memory report, and
+   counts the ``DMMA`` (FP64 tensor-core) instructions in the f64
+   kernel's SASS (``cuobjdump -sass``); none is a failure;
+2. holds the kernel's lower triangle against its plain PyTorch version's
+   on the card (the kernel mirrors it into the upper half; Frobenius-relative
+   error ≤ 1e-12 f64, ≤ 1e-5 f32, ≤ 1e-4 bf16, and in bf16 at most a
+   tenth of the distance to the product taken without rounding A·d to
+   bf16) at the main path's shape 2048×10240, a ragged 1000×3001 (odd
+   n), one row past two tiles (2·edge+1 rows), and in f64 at the
+   reference shape 10000×50000; at each, M must equal Mᵀ bit for bit
+   and a second launch must give the same bits;
 3. times the kernel, its plain version and one library call
    (``torch.einsum``) with CUDA events after warm-up, beside the bound
    ``max(m·(m+1)·n / peak FLOP/s, bytes / 3.35 TB/s)`` (M is symmetric:
-   its lower triangle is all the work the function needs);
+   its lower triangle is all the work the function needs) and the bound
+   share (bound over kernel time);
 4. drives the main path, ``solve(random_dense_lp(2048, 10240, seed=0),
    backend="cuda")`` at tol 1e-8, with the kernel's launch count reset
    just before and read just after (it must equal the factorization
-   count), checks the answer on the host in numpy, and solves a
-   256×1024 problem against HiGHS;
+   count), checks the answer on the host in numpy, solves a 256×1024
+   problem against HiGHS, and solves the main path again warm (same
+   iterations, objective within 1e-9 relative);
 5. runs the CLI, ``cli solve tests/fixtures/maximize.mps --backend cuda``;
 6. profiles a second main-path solve with ``torch.profiler`` and prints
    its device-time breakdown by kernel (Chrome trace written to
@@ -102,20 +109,28 @@ def make_inputs(torch, m, n, dtype, seed):
 
 def kernel_parity(torch, ne, m, n, dtype_name, seed=0):
     """Kernel vs plain version on the card; returns (rel_err, max_abs_err).
-    In bf16 the kernel must also sit ten times closer to the plain version
-    than the product without the bf16 rounding of A·d does, so that the
-    rounding is shown to happen."""
+    M must equal Mᵀ bit for bit, and a second launch must give the same
+    bits. In bf16 the kernel must also sit ten times closer to the plain
+    version than the product without the bf16 rounding of A·d does, so
+    that the rounding is shown to happen."""
     dtype = getattr(torch, dtype_name)
     A, d = make_inputs(torch, m, n, dtype, seed)
     M = ne.normal_eq(A, d)
+    M2 = ne.normal_eq(A, d)
     torch.cuda.synchronize()
-    R = ne.normal_eq_reference(A, d).double()
-    diff = M.double() - R
+    if not torch.equal(M, M.T):
+        fail(f"normal_eq {dtype_name} {m}x{n}: M is not bitwise symmetric")
+    if not torch.equal(M, M2):
+        fail(f"normal_eq {dtype_name} {m}x{n}: two launches differ")
+    del M2
+    # The kernel computes the lower triangle and mirrors it (checked above).
+    R = torch.tril(ne.normal_eq_reference(A, d)).double()
+    diff = torch.tril(M).double() - R
     rel = (diff.norm() / R.norm()).item()
     mx = diff.abs().max().item()
     del diff, M
     if dtype == torch.bfloat16:
-        unrounded = (A.double() * d.double()[None, :]) @ A.double().T
+        unrounded = torch.tril((A.double() * d.double()[None, :]) @ A.double().T)
         rounding = ((unrounded - R).norm() / R.norm()).item()
         del unrounded
         if not rel <= rounding / 10:
@@ -139,11 +154,32 @@ def kernel_timing(torch, ne, m, n, dtype_name, iters, warm):
     }
     out_bytes = 4 if dtype == torch.bfloat16 else A.element_size()
     row["bound_ms"], row["bound_by"] = bound_ms(m, n, dtype_name, out_bytes)
-    # Rate of the flops the kernel issues: both triangles, 2·m²·n.
-    row["issued_tflops"] = 2.0 * m * m * n / (row["ms"] * 1e-3) / 1e12
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    # Rate of the flops the kernel issues: its T·(T+1)/2 lower-triangle
+    # tiles, diagonal tiles whole, each edge²·n multiply-adds.
+    edge = ne.tile_edge(dtype)
+    tiles = -(-m // edge)
+    row["issued_tflops"] = tiles * (tiles + 1) * edge * edge * n / (row["ms"] * 1e-3) / 1e12
     del A, d
     torch.cuda.empty_cache()
     return row
+
+
+def dmma_count(ne) -> int:
+    """DMMA instructions in the SASS of the f64 kernel (both copy-width
+    instances) of the built library, read with the toolkit's
+    ``cuobjdump -sass``."""
+    cuda_bin = os.path.dirname(ne._nvcc())
+    tool = os.path.join(cuda_bin, "cuobjdump")
+    sass = subprocess.run([tool, "-sass", ne.build_info["path"]], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    count, in_f64 = 0, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            in_f64 = "normal_eq_dmma_kernel" in ln
+        elif in_f64 and "DMMA" in ln:
+            count += 1
+    return count
 
 
 def main_path(m, n, seed):
@@ -274,15 +310,21 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {ne.build_info.get('seconds', 0.0):.2f} s) -> {ne.build_info['path']}")
     for ln in ne.build_info.get("ptxas", []):
         print(f"  {ln}")
+    dmma = dmma_count(ne)
+    print(f"sass: {dmma} DMMA instructions in normal_eq_dmma_kernel (f64)")
+    if dmma <= 0:
+        fail("the f64 kernel's SASS holds no DMMA instruction")
 
     # 2. Parity on the card.
     parity = {}
-    for (m, n) in [(2048, 10240), (1000, 3001)]:
-        for dt in ("float64", "float32", "bfloat16"):
+    for dt in ("float64", "float32", "bfloat16"):
+        past_edge = 2 * ne.tile_edge(getattr(torch, dt)) + 1  # one row past two tiles
+        for (m, n) in [(2048, 10240), (1000, 3001), (past_edge, 515)]:
             parity[f"{dt}_{m}x{n}"] = kernel_parity(torch, ne, m, n, dt)
     parity["float64_10000x50000"] = kernel_parity(torch, ne, 10000, 50000, "float64")
     for k, (rel, mx) in parity.items():
-        print(f"parity normal_eq {k}: rel_err {rel:.3e} max_abs_err {mx:.3e} (tol {TOL[k.split('_')[0]]:.0e})")
+        print(f"parity normal_eq {k}: rel_err {rel:.3e} max_abs_err {mx:.3e} (tol {TOL[k.split('_')[0]]:.0e}), "
+              "M = Mᵀ bitwise, two launches bitwise equal")
 
     # 3. Timing (card and power limit printed above and below).
     timings = [
@@ -294,7 +336,8 @@ def main() -> int:
     for t in timings:
         print(f"timing normal_eq {t['dtype']} {t['shape'][0]}x{t['shape'][1]}: kernel {t['ms']:.3f} ms "
               f"({t['issued_tflops']:.2f} TFLOP/s issued), plain {t['plain_ms']:.3f} ms, library(einsum) "
-              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}) [{card}]")
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+              f"bound share {t['bound_share']:.3f} [{card}]")
 
     # 4. The main path, counts reset just before and read just after.
     row, _, _ = main_path(2048, 10240, seed=0)
@@ -306,6 +349,13 @@ def main() -> int:
         fail(f"256x1024 objective {r_small.objective!r} vs HiGHS {h_obj!r}: {rel:.3e}")
     print(f"small_path {small['problem']}: {small['status']} {small['iterations']} it, "
           f"objective vs HiGHS rel {rel:.3e}")
+    # The same main-path solve again, warm (libraries loaded, kernels built).
+    warm_row, _, _ = main_path(2048, 10240, seed=0)
+    drift = abs(warm_row["objective"] - row["objective"]) / (1.0 + abs(row["objective"]))
+    if drift > 1e-9 or warm_row["iterations"] != row["iterations"]:
+        fail(f"main path: warm solve {warm_row['objective']!r}/{warm_row['iterations']} it "
+             f"differs from the cold one {row['objective']!r}/{row['iterations']} it")
+    print("main_path_warm " + json.dumps(warm_row))
 
     # 5. The CLI on a fixture.
     fixture = os.path.join(ROOT, "tests", "fixtures", "maximize.mps")
@@ -334,11 +384,13 @@ def main() -> int:
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
+        "bound_share": main_t["bound_share"],
         "library_ms": main_t["library_ms"],
         "kernel_ms": main_t["ms"],
         "dtypes": ["float64", "float32", "bfloat16"],
         "shape": main_t["shape"],
         "timings": timings,
+        "dmma_instructions": dmma,
     }]}
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

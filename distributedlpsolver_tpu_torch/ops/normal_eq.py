@@ -3,11 +3,22 @@ kernel for the H100 and its plain PyTorch version.
 
 The kernel (``csrc/normal_eq.cu``) replaces the JAX package's Pallas TPU
 kernel ``ops/normal_eq.py::_ne_kernel``: it never materializes the scaled
-m×n matrix ``A·diag(d)``, scales each staged A tile by d in shared memory
-and accumulates the 64×64 output tile a block owns over an in-block k
-loop. It takes unpadded ``A`` (m, n) and ``d`` (n,) and returns (m, m);
-the TPU tiling artefacts (``pad_for_pallas``, ``out_m``) have no
-counterpart here. The source note in ``normal_eq.cu`` says what bounds it.
+m×n matrix ``A·diag(d)`` and accumulates each output tile over an
+in-block k loop. It takes unpadded ``A`` (m, n) and ``d`` (n,) and
+returns the full (m, m) ``M``; the TPU tiling artefacts
+(``pad_for_pallas``, ``out_m``) have no counterpart here.
+
+What bounds it and what the design does about it (the source note in
+``normal_eq.cu`` has the details):
+
+* M is symmetric, so only the tiles of its lower triangle are computed,
+  each stored with its mirror image; ``M`` equals ``M.T`` bit for bit,
+  and two launches on the same inputs give the same bits.
+* f64, the main path's type, runs on the FP64 tensor cores (``mma.sync``
+  m16n8k8 f64), fed by a ``cp.async`` ring of k-chunks in shared memory;
+  A·d is rounded in f64 and scaled on the chip as fragments are loaded.
+* f32 (true fp32, never TF32) and bf16→f32 use CUDA-core FMAs on the
+  same lower-triangle grid.
 
 :func:`normal_eq` launches the kernel for a CUDA tensor (or raises), and
 uses :func:`normal_eq_reference` for a CPU tensor. There is no fallback
@@ -105,8 +116,17 @@ def load_library():
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
+        lib.dlps_normal_eq_tile.argtypes = [ctypes.c_int]
+        lib.dlps_normal_eq_tile.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def tile_edge(dtype) -> int:
+    """Output tile edge of the kernel instance for input ``dtype``: a
+    launch computes T·(T+1)/2 tiles of edge² entries, T = ceil(m/edge)."""
+    order = [a for a, _ in _ENTRY]
+    return int(load_library().dlps_normal_eq_tile(order.index(dtype)))
 
 
 def normal_eq_reference(A: torch.Tensor, d: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
@@ -114,7 +134,10 @@ def normal_eq_reference(A: torch.Tensor, d: torch.Tensor, *, out_dtype=None) -> 
 
     It rounds where the kernel rounds: the scaled product in A's dtype,
     then a product accumulated in A's dtype (f32 for bf16 inputs, which
-    is also the default output type there)."""
+    is also the default output type there). Its lower triangle is what
+    the kernel computes; the kernel mirrors that into the upper half,
+    which here rounds A·d on the other operand (in bf16 that moves the
+    upper half by the size of the bf16 rounding itself)."""
     acc = torch.float32 if A.dtype == torch.bfloat16 else A.dtype
     M = (A * d[None, :]).to(acc) @ A.to(acc).T
     return M.to(out_dtype or acc)
