@@ -23,16 +23,28 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    its lower triangle is all the work the function needs) and the bound
    share (bound over kernel time);
 4. drives the main path, ``solve(random_dense_lp(2048, 10240, seed=0),
-   backend="cuda")`` at tol 1e-8, with the kernel's launch count reset
-   just before and read just after (it must equal the factorization
-   count), checks the answer on the host in numpy, solves a 256×1024
+   backend="cuda")`` at tol 1e-8 — the fused loop, one captured CUDA
+   graph of the Mehrotra step replayed by the host — with the kernel's
+   launch count reset just before and read just after (it must equal 1
+   for the starting point plus the loop's bodies, at most 2 of them past
+   the exit), checks the answer on the host in numpy, solves a 256×1024
    problem against HiGHS, and solves the main path again warm (same
    iterations, objective within 1e-9 relative);
-5. runs the CLI, ``cli solve tests/fixtures/maximize.mps --backend cuda``;
-6. profiles a second main-path solve with ``torch.profiler`` and prints
-   its device-time breakdown by kernel (Chrome trace written to
-   ``build/dlps_torch/main_path_trace.json``);
-7. prints the ``kernels`` JSON line, the card line, and last the result
+5. solves the main path with the host loop (``fused_loop=False``) and
+   host-segmented (``segment_iters=4``): same status and iterations as
+   the fused loop, objective within 1e-12 relative, launches equal to the
+   factorizations; prints whether x is bitwise equal. Cold solves (the
+   first in a process) of the fused and the host loop run in fresh
+   processes (``chip_smoke.py --one-solve``). The zero-row LP
+   (presolve off, no regularization) must end ``numerical_error`` at 0
+   iterations through the fused loop;
+6. runs the CLI, ``cli solve tests/fixtures/maximize.mps --backend cuda``;
+7. profiles a warm main-path solve of the fused and of the host loop
+   with ``torch.profiler``: device busy ms, idle share, host-clock solve
+   s, device operations and host launch calls per solve, and the
+   device-time breakdown by kernel (Chrome traces written to
+   ``build/dlps_torch/main_path_trace_{fused,host}.json``);
+8. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -182,49 +194,151 @@ def dmma_count(ne) -> int:
     return count
 
 
-def main_path(m, n, seed):
-    """solve(random_dense_lp(m, n, seed), backend="cuda") with the launch
-    count reset just before and read just after, plus the host check."""
-    import numpy as np
+# Bodies the fused loop may run past its exit (the graph runner queues
+# two replays ahead of the host's read).
+MAX_MASKED = 2
 
-    from distributedlpsolver_tpu_torch.ipm import Status, solve
-    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+def solve_counted(p, **kw):
+    """``solve(p, backend=<a cuda backend>, **kw)`` with the kernel's
+    launch count reset just before and read just after. Returns the
+    result, the count, the backend's phase rows (fused loop) or None
+    (host loop), the host loop's refactorizations and the wall time."""
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
     from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
     from distributedlpsolver_tpu_torch.ops import normal_eq
 
-    p = random_dense_lp(m, n, seed=seed)
+    be = get_backend("cuda")
     reg = obs_metrics.MetricsRegistry()
     prev = obs_metrics.set_registry(reg)
     try:
         normal_eq.launches = 0
         t0 = time.perf_counter()
-        r = solve(p, backend="cuda", tol=1e-8)
+        r = solve(p, backend=be, **kw)
         wall = time.perf_counter() - t0
         launches = normal_eq.launches
     finally:
         obs_metrics.set_registry(prev)
     refactors = int(reg.snapshot().get("ipm_refactorizations_total", 0))
-    factorizations = 1 + r.iterations + refactors  # starting point + one per step attempt
+    return r, launches, getattr(be, "phase_report", None), refactors, wall
+
+
+def launch_accounting(r, launches, phases, refactors, fused: bool) -> dict:
+    """The kernel launches of a solve against its factorizations: the
+    starting point plus, in the fused loop, one per body (accepted, bad,
+    or masked past the exit); in the host loop, one per step attempt."""
+    if fused:
+        if phases is None:
+            fail("the fused loop did not run (no phase report)")
+        acc = {k: sum(row[k] for row in phases)
+               for k in ("bodies", "eager", "replays", "masked", "bad_steps", "runs")}
+        for k in ("eager_ms", "capture_ms", "replay_ms"):
+            acc[k] = [row[k] for row in phases]
+        factorizations = 1 + acc["bodies"]
+        if acc["bodies"] != r.iterations + acc["bad_steps"] + acc["masked"]:
+            fail(f"fused loop: {acc['bodies']} bodies for {r.iterations} iterations, "
+                 f"{acc['bad_steps']} bad and {acc['masked']} masked")
+        if acc["masked"] > MAX_MASKED * acc["runs"]:
+            fail(f"fused loop: {acc['masked']} bodies past the exit over {acc['runs']} runs")
+    else:
+        if phases is not None:
+            fail("the host loop was asked for, but the fused loop ran")
+        acc = {"refactorizations": refactors}
+        factorizations = 1 + r.iterations + refactors
+    if not (launches == factorizations and launches > 0):
+        fail(f"{launches} kernel launches for {factorizations} factorizations ({acc})")
+    return {"normal_eq_launches": launches, "factorizations": factorizations, **acc}
+
+
+def main_path(m, n, seed, **kw):
+    """solve(random_dense_lp(m, n, seed), backend="cuda", **kw) with the
+    launch accounting and the host check; the fused loop unless ``kw``
+    turns it off."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.ipm import Status
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    p = random_dense_lp(m, n, seed=seed)
+    r, launches, phases, refactors, wall = solve_counted(p, tol=1e-8, **kw)
+    acc = launch_accounting(r, launches, phases, refactors, kw.get("fused_loop", True))
     x, y = np.asarray(r.x), np.asarray(r.y)
     viol = p.max_violation(x)
     pobj, dobj = float(p.c @ x), float(p.rlb @ y)
     gap = abs(pobj - dobj) / (1.0 + abs(pobj))
     row = {
-        "problem": p.name, "status": r.status.value, "iterations": r.iterations,
-        "objective": r.objective, "wall_s": wall, "setup_s": r.setup_time,
-        "solve_s": r.solve_time, "iters_per_s": r.iters_per_sec,
-        "normal_eq_launches": launches, "factorizations": factorizations,
-        "refactorizations": refactors, "max_violation": viol, "host_rel_gap": gap,
+        "problem": p.name, "loop": loop_name(kw), "status": r.status.value,
+        "iterations": r.iterations, "objective": r.objective, "wall_s": wall,
+        "setup_s": r.setup_time, "solve_s": r.solve_time, "iters_per_s": r.iters_per_sec,
+        **acc, "max_violation": viol, "host_rel_gap": gap,
     }
     if r.status != Status.OPTIMAL:
-        fail(f"main path {p.name}: status {r.status.value}")
-    if not (launches == factorizations and launches > 0):
-        fail(f"main path: {launches} kernel launches for {factorizations} factorizations")
+        fail(f"main path {p.name} ({row['loop']}): status {r.status.value}")
     if not viol <= 1e-6:
-        fail(f"main path: max_violation {viol:.3e} > 1e-6")
+        fail(f"main path ({row['loop']}): max_violation {viol:.3e} > 1e-6")
     if not gap <= 1e-7:
-        fail(f"main path: host |cᵀx - bᵀy| relative {gap:.3e} > 1e-7")
+        fail(f"main path ({row['loop']}): host |cᵀx - bᵀy| relative {gap:.3e} > 1e-7")
     return row, p, r
+
+
+def loop_name(kw) -> str:
+    if kw.get("fused_loop") is False:
+        return "host"
+    return f"segmented({kw['segment_iters']})" if kw.get("segment_iters") else "fused"
+
+
+def same_answer(name, ref, ref_row, r, row) -> bool:
+    """Status, iterations and objective (1e-12 relative) of ``r`` against
+    the fused loop's ``ref``; returns whether x is bitwise equal."""
+    import numpy as np
+
+    rel = abs(r.objective - ref.objective) / (1.0 + abs(ref.objective))
+    if r.status != ref.status or r.iterations != ref.iterations or not rel <= 1e-12:
+        fail(f"{name}: {r.status.value} {r.iterations} it objective {r.objective!r} against the "
+             f"fused loop's {ref.status.value} {ref.iterations} it {ref.objective!r} ({rel:.3e})")
+    return bool(np.array_equal(np.asarray(r.x), np.asarray(ref.x)))
+
+
+def cold_solve(loop_kw: dict) -> dict:
+    """The main path as the first solve of a fresh process (the kernel
+    library is already built), through ``chip_smoke.py --one-solve``."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--one-solve", json.dumps(loop_kw)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+    )
+    if proc.returncode != 0:
+        fail(f"cold solve {loop_kw}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def one_solve(loop_kw: dict) -> int:
+    """The body of ``--one-solve``: one main-path solve, its row on the
+    last line of standard output."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    row, _, _ = main_path(2048, 10240, seed=0, **loop_kw)
+    print(json.dumps(row))
+    return 0
+
+
+def zero_row_lp():
+    """A zero row that presolve would remove: with presolve off and no
+    regularization, every Cholesky of M fails."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.models.problem import LPProblem
+
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((4, 10))
+    A[2] = 0.0
+    b = A @ rng.uniform(0.5, 2.0, 10)
+    c = A.T @ rng.standard_normal(4) + rng.uniform(0.5, 2.0, 10)
+    return LPProblem(c=c, A=A, rlb=b, rub=b, lb=np.zeros(10), ub=np.full(10, np.inf),
+                     name="zero_row")
 
 
 def highs_objective(p) -> float:
@@ -240,10 +354,17 @@ def highs_objective(p) -> float:
     return -obj if p.maximize else obj
 
 
-def profile_main_path(torch, m, n, seed):
-    """Device-time breakdown of one main-path solve: kernel time by
-    category and by kernel, device busy time, and the idle share of the
-    backend's host-clock window (setup + iterations)."""
+# Host calls that each put one operation on the card: kernel launches
+# (runtime and driver API), graph launches, copies and fills.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def profile_main_path(torch, m, n, seed, tag, **loop_kw):
+    """Device-time breakdown of one warm main-path solve: kernel time by
+    category and by kernel, device busy time, the idle share of the
+    backend's host-clock window (setup + iterations), the operations on
+    the card and the host calls that launched them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,14 +374,20 @@ def profile_main_path(torch, m, n, seed):
     p = random_dense_lp(m, n, seed=seed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r = solve(p, backend="cuda", tol=1e-8)
+        r = solve(p, backend="cuda", tol=1e-8, **loop_kw)
         torch.cuda.synchronize()
+    events = prof.key_averages()
     kernels = [
         (ev.key, ev.self_device_time_total / 1e3, ev.count)
-        for ev in prof.key_averages()
+        for ev in events
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
     ]
     kernels.sort(key=lambda t: -t[1])
+    calls = {}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.key.startswith(LAUNCH_CALLS):
+            name = next(c for c in LAUNCH_CALLS if ev.key.startswith(c))
+            calls[name] = calls.get(name, 0) + ev.count
     categories = {}
     for key, ms, _ in kernels:
         k = key.lower()
@@ -275,12 +402,13 @@ def profile_main_path(torch, m, n, seed):
     busy_ms = sum(t[1] for t in kernels)
     out_dir = os.path.join(ROOT, "build", "dlps_torch")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "main_path_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"main_path_trace_{tag}.json"))
     return {
-        "iterations": r.iterations, "solve_s_profiled": r.solve_time,
+        "loop": tag, "iterations": r.iterations, "solve_s_profiled": r.solve_time,
         "setup_s_profiled": r.setup_time, "device_busy_ms": busy_ms,
         # Over the backend's window: setup (copy, starting point) + loop.
         "device_idle_share": 1.0 - busy_ms / (1e3 * (r.setup_time + r.solve_time)),
+        "device_ops": sum(t[2] for t in kernels), "host_launch_calls": calls,
         "by_category_ms": categories,
         "top": [{"kernel": k[:80], "ms": ms, "count": c} for k, ms, c in kernels[:10]],
     }
@@ -339,8 +467,10 @@ def main() -> int:
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
               f"bound share {t['bound_share']:.3f} [{card}]")
 
-    # 4. The main path, counts reset just before and read just after.
-    row, _, _ = main_path(2048, 10240, seed=0)
+    # 4. The main path (the fused loop), counts reset just before and read
+    # just after.
+    print(f"linalg: preferred library {torch.backends.cuda.preferred_linalg_library()}")
+    row, _, r_fused = main_path(2048, 10240, seed=0)
     print("main_path " + json.dumps(row))
     small, p_small, r_small = main_path(256, 1024, seed=0)
     h_obj = highs_objective(p_small)
@@ -357,7 +487,23 @@ def main() -> int:
              f"differs from the cold one {row['objective']!r}/{row['iterations']} it")
     print("main_path_warm " + json.dumps(warm_row))
 
-    # 5. The CLI on a fixture.
+    # 5. The host loop and the segmented loop against the fused one, then
+    # cold solves in fresh processes, then the bad-step path.
+    for kw in ({"fused_loop": False}, {"segment_iters": 4}):
+        other_row, _, r_other = main_path(2048, 10240, seed=0, **kw)
+        other_row["x_bitwise_equal_to_fused"] = same_answer(
+            other_row["loop"], r_fused, row, r_other, other_row)
+        print(f"main_path_{other_row['loop']} " + json.dumps(other_row))
+    for kw in ({}, {"fused_loop": False}):
+        cold = cold_solve(kw)
+        print(f"main_path_cold_{cold['loop']} " + json.dumps(cold))
+    r_bad, launches, phases, _, _ = solve_counted(zero_row_lp(), presolve=False, reg_dual=0.0)
+    acc = launch_accounting(r_bad, launches, phases, 0, fused=True)
+    if r_bad.status.value != "numerical_error" or r_bad.iterations != 0:
+        fail(f"zero-row LP: {r_bad.status.value} at {r_bad.iterations} iterations")
+    print(f"bad_step_path zero_row: {r_bad.status.value} at {r_bad.iterations} iterations " + json.dumps(acc))
+
+    # 6. The CLI on a fixture.
     fixture = os.path.join(ROOT, "tests", "fixtures", "maximize.mps")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -369,8 +515,9 @@ def main() -> int:
     print(f"cli: {out['name']} {out['status']} objective {out['objective']!r} (HiGHS {h_cli!r}) "
           f"iterations {out['iterations']}")
 
-    # 6. Where the main path's device time goes (a second, warm solve).
-    print("profile " + json.dumps(profile_main_path(torch, 2048, 10240, 0)))
+    # 7. Where the main path's device time goes (warm solves, both loops).
+    for tag, kw in (("fused", {}), ("host", {"fused_loop": False})):
+        print(f"profile_{tag} " + json.dumps(profile_main_path(torch, 2048, 10240, 0, tag, **kw)))
 
     main_t = timings[0]
     kernels = {"kernels": [{
@@ -401,4 +548,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--one-solve"]:
+        sys.exit(one_solve(json.loads(sys.argv[2])))
     sys.exit(main())

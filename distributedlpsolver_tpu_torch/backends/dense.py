@@ -12,8 +12,8 @@ device memory; each IPM iteration queues, on one device:
 * GEMVs with A and Aᵀ (``A @ v``, ``A.T @ y``), which the JAX package
   also leaves to its compiler outside any kernel,
 
-and returns only the convergence scalars, copied to the host in one
-transfer per iteration.
+and reads nothing on the host (the host loop copies the convergence
+scalars back in one transfer per iteration).
 
 The H100 has native FP64, so ``factor_dtype="auto"`` resolves to the
 iterate dtype (f64) and there is no two-phase schedule
@@ -21,22 +21,30 @@ iterate dtype (f64) and there is no two-phase schedule
 A is kept only when ``factor_dtype`` differs from ``dtype``; the
 assembly then runs in ``factor_dtype`` on that copy.
 
-Not ported yet: sharded placement, the fused on-device loop
-(``solve_full`` returns None, so ``ipm/driver.py`` runs its host loop), the
-two-phase and PCG schedules, the primal-row closure and the dense
-endgame.
+The fused loop is the default path (``solve_full``, as in the JAX
+package): one masked Mehrotra iteration (``core.fused_body``) run by
+``ipm/device_loop.py``, on the card as a captured CUDA graph replayed by
+the host, with the regularization a device scalar of the loop's carry.
+``segment_iters > 0`` cuts it into host-driven segments
+(``core.drive_phase_plan``); ``fused_loop=False`` runs the driver's host
+loop over :meth:`DenseTorchBackend.iterate`, whose regularization is a
+host float escalated by :meth:`~DenseTorchBackend.bump_regularization`.
+
+Not ported yet: sharded placement, the two-phase and PCG schedules, the
+primal-row closure and the dense endgame.
 
 Failure semantics: ``torch.linalg.cholesky`` raises on a matrix that is
 not positive definite, where the JAX package's Cholesky returns NaN. The
 factorization here uses ``cholesky_ex`` and turns ``info != 0`` into a
 NaN factor on the device, so the step's finite check flags the step as
-bad and the IPM host loop escalates the regularization exactly as in the
-reference.
+bad and the loop (fused or host) escalates the regularization exactly as
+in the reference.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -68,6 +76,11 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _mode(factor_dtype) -> str:
+    """A phase's mode name in ``phase_report`` (the JAX package's)."""
+    return "f32" if factor_dtype == torch.float32 else "f64"
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -115,6 +128,8 @@ def _cholesky_ops(A, factor_dtype, refine_steps, Af=None):
 
 
 def _make_ops(A, reg, factor_dtype, refine_steps, Af=None) -> core.LinOps:
+    """The step's linear algebra at regularization ``reg``: a host float
+    (the host loop) or a device scalar (the fused loop)."""
     factorize, solve = _cholesky_ops(A, factor_dtype, refine_steps, Af)
     return core.LinOps(
         matvec=lambda v: A @ v,
@@ -122,6 +137,51 @@ def _make_ops(A, reg, factor_dtype, refine_steps, Af=None) -> core.LinOps:
         factorize=functools.partial(factorize, reg=reg),
         solve=solve,
     )
+
+
+def _step_fn(A, data, params, factor_dtype, refine_steps, Af=None):
+    """``(state, reg) -> (state', stats)``: one Mehrotra step, the fused
+    loop's ``step_fn``."""
+    def step(state, reg):
+        ops = _make_ops(A, reg, factor_dtype, refine_steps, Af)
+        return core.mehrotra_step(ops, data, params, state)
+
+    return step
+
+
+def _dense_solve_full(
+    A, data, state0, reg0, params, factor_dtype, refine_steps, max_iter,
+    max_refactor, reg_grow, buf_cap, Af=None, stall_window=0, report=None,
+):
+    """The whole solve as one fused loop (the JAX package's
+    ``_dense_solve_full``). Returns ``(state, it, status, buf)`` on the
+    device; ``report`` gets the loop's body counts."""
+    return core.fused_solve(
+        _step_fn(A, data, params, factor_dtype, refine_steps, Af),
+        state0, reg0, params, max_iter, max_refactor, reg_grow, buf_cap,
+        stall_window=stall_window, stall_patience_floor=1e3 * params.tol,
+        counters=(normal_eq,), report=report,
+    )
+
+
+def _dense_loop(A, data, params, factor_dtype, refine_steps, buf_cap, Af=None,
+                stall_window=0, patience=0.0):
+    """One phase's fused loop, captured once and replayed by every
+    segment of the phase (see :func:`_dense_segment`)."""
+    return core.fused_loop(
+        _step_fn(A, data, params, factor_dtype, refine_steps, Af), params,
+        buf_cap, A.device, A.dtype, stall_window=stall_window,
+        stall_patience_floor=patience, counters=(normal_eq,),
+    )
+
+
+def _dense_segment(loop, carry, it_stop, max_iter, max_refactor, reg_grow):
+    """One bounded continuation of the fused loop (the JAX package's
+    ``_dense_segment``): ``carry`` is the raw loop carry, ``max_iter``
+    the phase's global iteration bound. Returns ``(carry, meta)``, the
+    meta ``[it, status, best_err, since]`` on the host."""
+    return loop.run(carry, max_iter=max_iter, it_stop=it_stop,
+                    max_refactor=max_refactor, reg_grow=reg_grow)
 
 
 @register_backend("cuda", "dense", "torch")
@@ -166,6 +226,90 @@ class DenseTorchBackend(SolverBackend):
 
     def starting_point(self) -> IPMState:
         return core.starting_point(self._ops(), self._data, self._params)
+
+    def _phase_plan(self):
+        """Per-phase specs of the fused solve: ``(params, factor_dtype,
+        refine_steps, Af, stall_window, stall_patience_floor)``. One
+        phase: the two-phase and PCG plans are not ported."""
+        cfg = self._cfg
+        w = cfg.stall_window
+        # The only phase gets the JAX package's final-phase stall
+        # semantics: window 2·w with the near-tol patience floor.
+        return [
+            (self._params, self._factor_dtype, self._refine, self._Af,
+             2 * w if w else 0, 1e3 * cfg.tol)
+        ]
+
+    def _reg0(self) -> torch.Tensor:
+        return torch.full((), self._reg, dtype=self._dtype, device=self.device)
+
+    def _solve_segmented(self, state: IPMState):
+        """Host-driven segmented fused solve: the phase plan feeds the
+        shared driver (``core.drive_phase_plan``). Each phase captures its
+        loop once; every segment of the phase replays it."""
+        cfg = self._cfg
+        buf_cap = core.buffer_cap(cfg.max_iter)
+        m, n = self._A.shape
+        flops = 2.0 * m * m * n + m**3 / 3.0  # per-iteration FLOP estimate
+        loops = []
+
+        def make_phase(spec):
+            params, fdt, refine, Af, window, patience = spec
+            rate = core.SEG_RATE_F32 if fdt == torch.float32 else core.SEG_RATE_F64
+
+            def make_run_seg(bound):
+                loop = _dense_loop(self._A, self._data, params, fdt, refine,
+                                   buf_cap, Af, window, patience)
+                loops.append(loop)
+
+                def run_seg(c, stop):
+                    return _dense_segment(loop, c, stop, bound, cfg.max_refactor,
+                                          cfg.reg_grow)
+
+                return run_seg
+
+            return (make_run_seg, window, patience, core.seg_open(cfg.segment_iters, flops / rate))
+
+        plan = self._phase_plan()
+        self.phase_report = []
+        try:
+            st, it, status, buf, _ = core.drive_phase_plan(
+                [make_phase(s) for s in plan], state, self._reg0(),
+                cfg.max_iter, buf_cap, self._dtype, report=self.phase_report,
+            )
+            for row, spec, loop in zip(self.phase_report, plan, loops):
+                row.update(mode=_mode(spec[1]), **loop.report())
+        finally:
+            for loop in loops:
+                loop.close()
+        return st, it, status, buf
+
+    def solve_full(self, state: IPMState):
+        """The fused loop from ``state``: host-segmented when
+        ``segment_iters > 0``, else one run. Returns ``(state, it,
+        status, buf)``, the last three on the host; ``self.phase_report``
+        gets one row per phase with the JAX package's keys (``phase``,
+        ``iters``, ``wall_s``, ``mode``) plus ``bad_steps`` and the
+        loop's report (``DeviceLoop.report``): each body launches K1
+        once, so K1 runs ``1 + bodies`` times a solve."""
+        cfg = self._cfg
+        if core.use_segments(cfg.segment_iters, self.device.type):
+            st, it, status, buf = self._solve_segmented(state)
+        else:
+            (params, fdt, refine, Af, window, _), = self._phase_plan()
+            loop = {}
+            t0 = time.perf_counter()
+            st, it, status, buf = _dense_solve_full(
+                self._A, self._data, state, self._reg0(), params, fdt, refine,
+                cfg.max_iter, cfg.max_refactor, cfg.reg_grow,
+                core.buffer_cap(cfg.max_iter), Af, window, report=loop,
+            )
+            it = int(it)
+            self.phase_report = [{
+                "phase": 0, "iters": it, "wall_s": round(time.perf_counter() - t0, 3),
+                "mode": _mode(fdt), **loop,
+            }]
+        return st, torch.tensor(int(it)), status.cpu(), buf.cpu()
 
     def iterate(self, state: IPMState) -> Tuple[IPMState, StepStats]:
         new_state, stats = core.mehrotra_step(self._ops(), self._data, self._params, state)

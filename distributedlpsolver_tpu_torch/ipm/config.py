@@ -8,10 +8,11 @@ Platform strings in this package are ``"cuda"`` and ``"cpu"``. Every
 TPU-keyed resolution below therefore takes its off-TPU branch: on the card
 ``factor_dtype="auto"`` resolves to plain ``dtype`` (f64) and
 :meth:`SolverConfig.two_phase_enabled` is False, because the H100 has
-native FP64. Fields that only the JAX package's TPU schedules read
-(``solve_mode``, ``endgame_*``, ``bucket_schedule``, ``fused_*``,
-``segment_iters``, ``mesh_*``) are kept so configs stay interchangeable;
-the port's dense backend ignores them.
+native FP64, and ``segment_iters=None`` leaves the fused loop
+unsegmented. Fields that only the JAX package's TPU and serving schedules
+read (``endgame_*``, ``bucket_schedule``, ``fused_iters``, ``mesh_*``)
+are kept so configs stay interchangeable; the port's dense backend
+ignores them, and raises for ``solve_mode="pcg"``.
 """
 
 from __future__ import annotations

@@ -28,17 +28,28 @@ Newton system and its elimination to normal equations::
        dx = (Aᵀdy - h)/dinv ;  ds = (r_xs - s∘dx)/x
        dw = r_u - dx ;  dz = (r_wz - z∘dw)/w
 
-Not ported here (they serve the JAX package's fused and TPU schedules):
-``fused_solve``, ``drive_segments`` and the phase plans, the df32
+The fused loop (:func:`fused_solve`, the host segmentation of
+:func:`drive_segments` and :func:`drive_phase_plan`) is here too. Where the
+JAX package traces one ``lax.while_loop``, the port splits the loop into
+:func:`fused_cond` and a pure, masked :func:`fused_body`, and
+``ipm/device_loop.py`` runs the body: eagerly on the CPU, as one captured
+CUDA graph replayed by the host on a card.
+
+Not ported here (they serve the JAX package's TPU schedules): the df32
 ``elementwise`` engine and ``pcg_solve``.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from distributedlpsolver_tpu_torch.ipm import device_loop
 from distributedlpsolver_tpu_torch.ipm.config import StepParams
 from distributedlpsolver_tpu_torch.ipm.state import IPMState, StepStats
 
@@ -366,7 +377,9 @@ DIVERGE_MU = 1e30
 
 
 def classify_divergence(mu, pinf, dinf, rel_gap, pobj, dobj):
-    """Heuristic infeasibility/unboundedness signals on host floats.
+    """Heuristic infeasibility/unboundedness signals, on host floats (the
+    host loop) or on 0-d tensors (the fused body, which reads nothing on
+    the host).
 
     * Primal infeasible: complementarity has converged (μ ≈ 0) while primal
       infeasibility is stuck far above tolerance, or the dual objective
@@ -387,6 +400,394 @@ def classify_divergence(mu, pinf, dinf, rel_gap, pobj, dobj):
         pobj < -1e12 * scale_d
     )
     return pinfeas, dinfeas
+
+
+def buffer_cap(max_iter: int, quantum: int = 512) -> int:
+    """Rows of the fused loop's stats buffer, bucketed as in the JAX
+    package (there the cap is a compile key; here it only sizes a
+    (cap, N_STAT) buffer of ~40 KB)."""
+    return ((max(int(max_iter), 1) + quantum - 1) // quantum) * quantum
+
+
+def _scalar(value, like):
+    """A 0-d tensor of ``like``'s dtype and device holding ``value``."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def fused_cond(carry, max_iter, buf_cap, it_stop=None, stall_window=0,
+               stall_patience_floor=0.0):
+    """Whether the fused loop runs another iteration from ``carry`` (the
+    JAX package's while-loop ``cond``), as a 0-d bool tensor.
+    ``max_iter`` and ``it_stop`` may be device scalars."""
+    _, it, _, _, status, _, best_err, since = carry
+    go = (status == STATUS_RUNNING) & (it < max_iter) & (it < buf_cap)
+    if it_stop is not None:
+        go = go & (it < it_stop)
+    if stall_window:
+        stall = since > stall_window
+        if stall_patience_floor:
+            stall = stall & (best_err > stall_patience_floor)
+        go = go & ~stall
+    return go
+
+
+def fused_body(carry, step_fn, params, max_iter, max_refactor, reg_grow,
+               buf_cap, *, it_stop=None, stall_window=0,
+               stall_patience_floor=0.0):
+    """One iteration of the fused loop, ``carry ↦ carry'``: the JAX
+    package's while-loop ``body`` with every update masked by
+    ``go = fused_cond(carry)``.
+
+    A body run after the loop has exited returns the carry bit for bit
+    unchanged, which is what lets the CUDA-graph runner queue replays
+    past the exit before the host has seen it. The body reads nothing on
+    the host: the stats row is written at the device scalar ``it``.
+    ``step_fn(state, reg) -> (state', stats)`` is one Mehrotra step at
+    regularization ``reg`` (a device scalar). The carry is ``(state, it,
+    reg, badcount, status, buf, best_err, since)``.
+    """
+    go = fused_cond(carry, max_iter, buf_cap, it_stop, stall_window,
+                    stall_patience_floor)
+    state, it, reg, badcount, status, buf, best_err, since = carry
+    new_state, stats = step_fn(state, reg)
+    bad = stats.bad
+    conv = (
+        (stats.rel_gap <= params.tol)
+        & (stats.pinf <= params.tol)
+        & (stats.dinf <= params.tol)
+    )
+    state1 = IPMState(*(torch.where(bad, o, n) for n, o in zip(new_state, state)))
+    row = torch.stack(
+        [stats.mu, stats.gap, stats.rel_gap, stats.pinf, stats.dinf,
+         stats.pobj, stats.dobj, stats.alpha_p, stats.alpha_d, stats.sigma]
+    ).to(buf.dtype)
+    # Clamped: a masked body may run at it == buf_cap.
+    at = it.clamp(0, buf.shape[0] - 1).reshape(1).long()
+    buf1 = buf.index_copy(0, at, torch.where(bad, buf.index_select(0, at), row[None]))
+    it1 = torch.where(bad, it, it + 1)
+    badcount1 = torch.where(bad, badcount + 1, badcount)
+    numerr = _scalar(STATUS_NUMERR, status)
+    status1 = torch.where(
+        bad & ((badcount1 > max_refactor) | (reg * reg_grow > 1e-2)),
+        numerr,
+        torch.where(conv & ~bad, _scalar(STATUS_OPTIMAL, status), status),
+    )
+    ok = ~bad & (status1 == STATUS_RUNNING)
+    pinfeas, dinfeas = classify_divergence(
+        stats.mu, stats.pinf, stats.dinf, stats.rel_gap, stats.pobj, stats.dobj
+    )
+    status1 = torch.where(ok & pinfeas, _scalar(STATUS_PINFEAS, status), status1)
+    status1 = torch.where(ok & dinfeas, _scalar(STATUS_DINFEAS, status), status1)
+    status1 = torch.where(
+        ok & (~torch.isfinite(stats.mu) | (stats.mu > DIVERGE_MU)), numerr, status1
+    )
+    err = torch.maximum(stats.rel_gap, torch.maximum(stats.pinf, stats.dinf))
+    improved = ~bad & (err < 0.9 * best_err)
+    best_err1 = torch.where(improved, err, best_err)
+    since1 = torch.where(bad, since, torch.where(improved, torch.zeros_like(since), since + 1))
+    reg1 = torch.where(bad, reg.clamp_min(1e-12) * reg_grow, reg)
+    new = (state1, it1, reg1, badcount1, status1, buf1, best_err1, since1)
+    leaves_new, rebuild = device_loop.flatten(new)
+    leaves_old, _ = device_loop.flatten(carry)
+    return rebuild([torch.where(go, n, o) for n, o in zip(leaves_new, leaves_old)])
+
+
+def fused_loop(step_fn, params, buf_cap, device, dtype, *, stall_window=0,
+               stall_patience_floor=0.0, counters=()):
+    """The fused loop's masked body in a :class:`device_loop.DeviceLoop`.
+
+    Its inputs ``max_iter``, ``it_stop``, ``max_refactor`` and
+    ``reg_grow`` are device scalars that each ``run`` sets in place, so a
+    new segment bound needs no new capture. ``counters`` are the launch
+    counters of the kernels the step launches (see ``DeviceLoop``)."""
+    def i32():
+        return torch.zeros((), dtype=torch.int32, device=device)
+
+    inputs = {
+        "max_iter": i32(), "it_stop": i32(), "max_refactor": i32(),
+        "reg_grow": torch.zeros((), dtype=dtype, device=device),
+    }
+
+    def cond(carry, s):
+        return fused_cond(carry, s["max_iter"], buf_cap, s["it_stop"],
+                          stall_window, stall_patience_floor)
+
+    def body(carry, s):
+        return fused_body(
+            carry, step_fn, params, s["max_iter"], s["max_refactor"],
+            s["reg_grow"], buf_cap, it_stop=s["it_stop"],
+            stall_window=stall_window, stall_patience_floor=stall_patience_floor,
+        )
+
+    return device_loop.DeviceLoop(body, cond, pack_segment_meta, inputs, counters)
+
+
+def fused_solve(
+    step_fn,
+    state0,
+    reg0,
+    params,
+    max_iter,
+    max_refactor,
+    reg_grow,
+    buf_cap=None,
+    *,
+    stall_window=0,
+    stall_patience_floor=0.0,
+    carry_in=None,
+    finalize=True,
+    it_stop=None,
+    resume=None,
+    return_carry=False,
+    counters=(),
+    report=None,
+):
+    """The whole IPM solve as one device loop: :func:`fused_body` run by
+    ``ipm/device_loop.py`` until :func:`fused_cond` is false. Returns
+    ``(state, iterations, status, buffer)`` as device tensors.
+
+    Semantics are the JAX package's ``core.fused_solve``: deterministic
+    regularization escalation on bad steps (state frozen, reg ×= grow,
+    give up after ``max_refactor``), convergence at ``params.tol``, the
+    stall exit over ``stall_window`` accepted steps unless the best error
+    is at or below ``stall_patience_floor``, one stats row per accepted
+    iteration in a (buf_cap, N_STAT) buffer. ``carry_in`` continues a
+    phase, ``finalize=False`` leaves a non-terminal exit RUNNING,
+    ``it_stop`` bounds this call, ``resume``/``return_carry`` pass the raw
+    carry. ``max_iter``, ``max_refactor`` and ``reg_grow`` become device
+    scalars of the loop; ``buf_cap`` defaults to :func:`buffer_cap`.
+
+    ``counters`` go to the ``DeviceLoop``; ``report`` (a dict), when
+    given, receives the loop's body counts and the bad-step count.
+    """
+    if buf_cap is None:
+        buf_cap = buffer_cap(int(max_iter))
+    if resume is not None:
+        carry0 = resume
+    else:
+        x = state0.x
+        i32 = dict(dtype=torch.int32, device=x.device)
+        if carry_in is not None:
+            it0, status0, buf0 = carry_in
+            it0 = torch.as_tensor(it0, **i32)
+            status0 = torch.as_tensor(status0, **i32)
+        else:
+            it0 = torch.zeros((), **i32)
+            status0 = torch.full((), STATUS_RUNNING, **i32)
+            buf0 = torch.zeros((buf_cap, N_STAT), dtype=x.dtype, device=x.device)
+        carry0 = (
+            state0,
+            it0,
+            torch.as_tensor(reg0, dtype=x.dtype, device=x.device),
+            torch.zeros((), **i32),
+            status0,
+            buf0,
+            torch.full((), float("inf"), dtype=x.dtype, device=x.device),
+            torch.zeros((), **i32),
+        )
+    x = carry0[0].x
+    loop = fused_loop(
+        step_fn, params, buf_cap, x.device, x.dtype, stall_window=stall_window,
+        stall_patience_floor=stall_patience_floor, counters=counters,
+    )
+    try:
+        carry, _ = loop.run(
+            carry0, max_iter=max_iter,
+            it_stop=max_iter if it_stop is None else it_stop,
+            max_refactor=max_refactor, reg_grow=reg_grow,
+        )
+        if report is not None:
+            report.update(loop.report(), bad_steps=int(carry[3]))
+    finally:
+        loop.close()
+    if return_carry:
+        return carry
+    state, it, _, _, status, buf, _, since = carry
+    if finalize:
+        stalled = (
+            (since > stall_window) if stall_window
+            else torch.zeros((), dtype=torch.bool, device=x.device)
+        )
+        status = torch.where(
+            status == STATUS_RUNNING,
+            torch.where(stalled & (it < max_iter), _scalar(STATUS_STALL, status),
+                        _scalar(STATUS_MAXITER, status)),
+            status,
+        )
+    return state, it, status, buf
+
+
+def seg_trace_enabled() -> bool:
+    """Whether TPULP_SEG_VERBOSE asks for live progress lines
+    (conventional 0/1 contract: "", "0", "false", "no" disable)."""
+    return os.environ.get("TPULP_SEG_VERBOSE", "").lower() not in (
+        "", "0", "false", "no",
+    )
+
+
+def drive_segments(
+    run_seg, carry0, max_iter, stall_window, seg_init=16, target_s=15.0,
+    stall_patience_floor=0.0, it0_status0=(0, STATUS_RUNNING),
+    early_stop=None, seg_cap=256,
+):
+    """Host loop over bounded fused-loop segments (the JAX package's
+    ``core.drive_segments``, line for line).
+
+    ``run_seg(carry, it_stop) -> (carry, meta)`` continues the loop from
+    ``carry`` until the iteration count reaches ``it_stop`` or the loop
+    exits on its own; ``meta`` is the host copy of the packed ``[it,
+    status, best_err, since]``. Repeats, adapting the segment length
+    toward ``target_s`` seconds, until the status leaves RUNNING, the
+    stall window fires, ``early_stop(it, status, best_err, since)`` says
+    so, or ``max_iter`` is reached. Returns ``(carry, (it, status,
+    best_err, since))``.
+    """
+    trace = seg_trace_enabled()
+    carry = carry0
+    seg = max(int(seg_init), 1)
+    it, status = it0_status0
+    best_err, since = float("inf"), 0
+    first = True
+    while status == STATUS_RUNNING and it < max_iter:
+        prev_it = it
+        stop = min(it + seg, max_iter)
+        t0 = time.perf_counter()
+        carry, meta = run_seg(carry, stop)
+        meta = np.asarray(meta)
+        dt = time.perf_counter() - t0
+        it, status = int(meta[0]), int(meta[1])
+        best_err, since = float(meta[2]), int(meta[3])
+        if trace:
+            print(
+                f"[seg] it={it} status={status} best_err={best_err:.3e} "
+                f"since={since} dt={dt:.1f}s seg={seg}",
+                file=sys.stderr, flush=True,
+            )
+        if (
+            stall_window
+            and since > stall_window
+            and (not stall_patience_floor or best_err > stall_patience_floor)
+        ):
+            break
+        if early_stop is not None and early_stop(it, status, best_err, since):
+            break
+        if it == prev_it:  # no progress possible (defensive: avoid spinning)
+            break
+        if not first:  # the first call's time includes warm-up: don't adapt
+            seg = max(1, min(seg_cap, int(seg * target_s / max(dt, 1e-3))))
+        first = False
+    return carry, (it, status, best_err, since)
+
+
+def pack_segment_meta(carry):
+    """[it, status, best_err, since] as one tensor — see drive_segments."""
+    _, it, _, _, status, _, best_err, since = carry
+    f = best_err.dtype
+    return torch.stack([it.to(f), status.to(f), best_err, since.to(f)])
+
+
+def fresh_segment_carry(state, reg0, buf_cap, dtype):
+    """Initial drive_segments carry for a fused solve starting at
+    ``state`` (fused_solve's carry layout)."""
+    dev = state.x.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (
+        state,
+        torch.zeros((), **i32),
+        torch.as_tensor(reg0, dtype=dtype, device=dev),
+        torch.zeros((), **i32),
+        torch.full((), STATUS_RUNNING, **i32),
+        torch.zeros((buf_cap, N_STAT), dtype=dtype, device=dev),
+        torch.full((), float("inf"), dtype=dtype, device=dev),
+        torch.zeros((), **i32),
+    )
+
+
+def segment_phase_reset(carry, reg0):
+    """Phase-boundary reset: keep state, iteration count and stats
+    buffer; reset what is provisional (regularization, bad-count, status,
+    stall tracking)."""
+    st, it, _, badcount, status, buf, best_err, _ = carry
+    return (
+        st, it, torch.as_tensor(reg0, dtype=buf.dtype, device=buf.device),
+        torch.zeros_like(badcount), torch.full_like(status, STATUS_RUNNING), buf,
+        torch.full_like(best_err, float("inf")), torch.zeros_like(badcount),
+    )
+
+
+def drive_phase_plan(phases, state, reg0, max_iter, buf_cap, dtype,
+                     report=None):
+    """Host driver for a multi-phase segmented fused solve (the JAX
+    package's ``core.drive_phase_plan``).
+
+    ``phases`` is a list of ``(make_run_seg, stall_window,
+    stall_patience_floor, seg_init)``; ``make_run_seg(bound) ->
+    run_seg(carry, it_stop)`` builds the phase's runner around its global
+    iteration bound. Each phase gets its own ``max_iter`` budget; between
+    phases the carry is reset by :func:`segment_phase_reset`. Returns
+    ``(state, iterations, status, stats_buffer, reg)`` with the final
+    RUNNING status mapped to STALL/MAXITER as the fused loop maps it.
+
+    ``report`` (optional list) receives one ``{"phase", "iters",
+    "wall_s", "bad_steps"}`` row per phase.
+    """
+    carry = fresh_segment_carry(state, reg0, buf_cap, dtype)
+    it, status = 0, STATUS_RUNNING
+    window, patience, bound = 0, 0.0, max_iter
+    best, since = float("inf"), 0
+    for pi, (make_run_seg, window, patience, seg_init) in enumerate(phases):
+        bound = it + max_iter
+        it_before, t_ph = it, time.perf_counter()
+        carry, (it, status, best, since) = drive_segments(
+            make_run_seg(bound), carry, bound, window, seg_init,
+            stall_patience_floor=patience, it0_status0=(it, status),
+        )
+        if report is not None:
+            report.append({
+                "phase": pi, "iters": int(it - it_before),
+                "wall_s": round(time.perf_counter() - t_ph, 3),
+                "bad_steps": int(carry[3]),
+            })
+        if pi < len(phases) - 1:
+            carry = segment_phase_reset(carry, reg0)
+            status = STATUS_RUNNING
+    st, buf = carry[0], carry[5]
+    if status == STATUS_RUNNING:
+        stalled = (
+            window
+            and since > window
+            and it < bound
+            and (not patience or best > patience)
+        )
+        status = STATUS_STALL if stalled else STATUS_MAXITER
+    return st, it, torch.tensor(status, dtype=torch.int32), buf, carry[2]
+
+
+# Opening-segment cap in auto mode and the effective rates that seed the
+# segment length: the JAX package's values (its TPU watchdog model), kept
+# so that both packages cut the same segments. On a card they only size
+# the first segment; drive_segments adapts the rest to measured time.
+SEG_OPEN_CAP = 32
+SEG_RATE_F32 = 2e12
+SEG_RATE_F64 = 2.5e11
+
+
+def use_segments(seg_cfg, platform: str) -> bool:
+    """Whether a backend should host-segment its fused loop: explicit
+    ``segment_iters=0`` disables, any positive value enables, and auto
+    (None) enables exactly on TPU — so never in this package, whose
+    platforms are ``"cuda"`` and ``"cpu"``."""
+    if seg_cfg is None:
+        return platform == "tpu"
+    return seg_cfg > 0
+
+
+def seg_open(seg_cfg, est_iter_seconds, target_s: float = 15.0) -> int:
+    """Opening segment length: the FLOP-estimated iteration count toward
+    ``target_s``, capped by SEG_OPEN_CAP in auto mode or by the user's
+    explicit ``segment_iters``."""
+    cap = seg_cfg if seg_cfg is not None else SEG_OPEN_CAP
+    return max(1, min(cap, int(target_s / max(est_iter_seconds, 1e-3))))
 
 
 def starting_point(ops: LinOps, data: ProblemData, cfg: StepParams) -> IPMState:

@@ -1,13 +1,16 @@
 """Host-side Mehrotra driver loop (SURVEY.md §1 L4, §3.1).
 
-The port of the JAX package's ``ipm/driver.py``. The outer
-predictor-corrector loop runs on the host; each ``backend.iterate`` call
-queues one full iteration on the device and returns only convergence
-scalars, copied to the host in one transfer. This loop owns convergence
-testing at the configured duality-gap tolerance, numerical-failure
-recovery (deterministic regularization escalation), per-iteration
-logging, checkpoint/resume, and recovery of the solution in the original
-variable space.
+The port of the JAX package's ``ipm/driver.py``. By default, as there,
+:func:`solve` hands the whole iteration to the backend's fused loop
+(``backend.solve_full``; on a card, one captured CUDA graph of the
+Mehrotra step replayed by the host). Hooks, ``profile_dir``, periodic
+checkpoints or ``fused_loop=False`` select the host loop: each
+``backend.iterate`` call queues one full iteration on the device and
+returns only convergence scalars, copied to the host in one transfer,
+and this loop owns convergence testing at the configured duality-gap
+tolerance, numerical-failure recovery (deterministic regularization
+escalation), per-iteration logging and checkpoints. Both end in the
+recovery of the solution in the original variable space.
 
 Not ported yet: warm starts and the warm cache (``ipm/warm.py`` of the
 JAX package) — passing either raises ``NotImplementedError``.
@@ -282,8 +285,9 @@ _STAT_FIELDS = (
 
 
 def _try_fused(be, state, cfg: SolverConfig, logger: IterLogger):
-    """Run the backend's fused on-device loop; None if unsupported (the
-    dense torch backend has none yet, so the host loop runs)."""
+    """Run the backend's fused on-device loop; None only for a backend
+    with no fused loop. The dense backend's ``solve_full`` returns the
+    iteration count, status and stats buffer on the host."""
     t0 = time.perf_counter()
     out = be.solve_full(state)
     if out is None:

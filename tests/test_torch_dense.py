@@ -3,9 +3,10 @@
 Each problem is made by both packages' generators from the same seed (or
 read by both MPS readers from one fixture), solved by the port's
 ``solve(backend=get_backend("cuda", device="cpu"))`` and by the JAX
-package's ``solve(backend="tpu", fused_loop=False)`` — both then run the
-host loop — and held to HiGHS. Same status; objectives within 1e-8
-relative of each other and of HiGHS; iteration counts within ±1.
+package's ``solve(backend="tpu")`` and held to HiGHS, in two pairs: the
+default (both packages run their fused loop) and ``fused_loop=False``
+(both run the host loop). Same status; objectives within 1e-8 relative
+of each other and of HiGHS; iteration counts within ±1.
 """
 
 import os
@@ -54,11 +55,17 @@ def _rel(a, b):
     return abs(a - b) / (1.0 + abs(b))
 
 
+# The pairs of loops compared: the host loop in both packages, and each
+# package's default (its fused loop).
+LOOPS = {"host": {"fused_loop": False}, "fused": {}}
+
+
+@pytest.mark.parametrize("loop", list(LOOPS))
 @pytest.mark.parametrize("case", CASES)
-def test_solve_matches_jax_package_and_highs(case):
+def test_solve_matches_jax_package_and_highs(case, loop):
     pt, pj = _pair(case)
-    rt = solve(pt, backend=get_backend("cuda", device="cpu"), tol=1e-8)
-    rj = jax_solve(pj, backend="tpu", tol=1e-8, fused_loop=False)
+    rt = solve(pt, backend=get_backend("cuda", device="cpu"), tol=1e-8, **LOOPS[loop])
+    rj = jax_solve(pj, backend="tpu", tol=1e-8, **LOOPS[loop])
     h = highs_on_general(pj)
     assert h.status == 0
     # HiGHS reports cᵀx of the minimized form without the constant c0.
@@ -89,12 +96,13 @@ def test_failed_cholesky_takes_the_bad_step_path_like_jax():
     """A zero row, no presolve to remove it and no regularization: M is
     singular, Cholesky fails, and the port must report it as NaN (not
     raise), so the IPM host loop escalates the regularization through every
-    allowed refactorization and ends with the reference's verdict."""
+    allowed refactorization and ends with the reference's verdict. (The
+    fused loop's bad-step path is in test_torch_fused.py.)"""
     reg = obs_metrics.MetricsRegistry()
     prev = obs_metrics.set_registry(reg)
     try:
         rt = solve(LPProblem(**_zero_row_kwargs()), backend=get_backend("cuda", device="cpu"),
-                   presolve=False, reg_dual=0.0)
+                   presolve=False, reg_dual=0.0, fused_loop=False)
     finally:
         obs_metrics.set_registry(prev)
     rj = jax_solve(JaxLP(**_zero_row_kwargs()), backend="tpu", presolve=False, reg_dual=0.0,

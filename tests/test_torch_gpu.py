@@ -1,4 +1,6 @@
-"""The CUDA kernel against its plain version, on the card.
+"""The CUDA kernel against its plain version, and the fused loop (a
+captured CUDA graph of the Mehrotra step) against the host loop, on the
+card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -12,6 +14,7 @@ import torch
 from distributedlpsolver_tpu_torch.backends import get_backend
 from distributedlpsolver_tpu_torch.ipm import Status, solve
 from distributedlpsolver_tpu_torch.models import random_dense_lp
+from distributedlpsolver_tpu_torch.models.problem import LPProblem
 from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
 from distributedlpsolver_tpu_torch.ops import normal_eq, normal_eq_reference
 
@@ -119,16 +122,78 @@ def test_solve_on_the_card_launches_the_kernel(cuda):
 
 def test_main_path_launches_once_per_factorization(cuda):
     """One kernel launch for each factorization of the solve: the starting
-    point, one per iteration and one per bad-step refactorization."""
+    point and one per body of the fused loop (accepted, bad, or run past
+    the exit), the graph's replays included and its capture not."""
+    p = random_dense_lp(256, 1024, seed=0)
+    be = get_backend("cuda")
+    normal_eq.launches = 0
+    r = solve(p, backend=be, tol=1e-8)
+    launches = normal_eq.launches
+    (row,) = be.phase_report
+    assert r.status == Status.OPTIMAL
+    assert row["eager"] == 1 and row["replays"] >= 1 and row["capture_ms"] > 0
+    assert row["bodies"] == r.iterations + row["bad_steps"] + row["masked"]
+    assert row["masked"] <= 1
+    assert launches == 1 + row["bodies"]
+
+
+def test_host_loop_launches_once_per_factorization(cuda):
+    """The host loop: the starting point, one per iteration and one per
+    bad-step refactorization."""
     p = random_dense_lp(256, 1024, seed=0)
     reg = obs_metrics.MetricsRegistry()
     prev = obs_metrics.set_registry(reg)
     try:
         normal_eq.launches = 0
-        r = solve(p, backend="cuda", tol=1e-8)
+        r = solve(p, backend="cuda", tol=1e-8, fused_loop=False)
         launches = normal_eq.launches
     finally:
         obs_metrics.set_registry(prev)
     refactors = int(reg.snapshot().get("ipm_refactorizations_total", 0))
     assert r.status == Status.OPTIMAL
     assert launches == 1 + r.iterations + refactors
+
+
+@pytest.mark.parametrize("m,n", [(256, 1024), (1000, 3001)])
+def test_fused_loop_gives_the_host_loops_bits(cuda, m, n):
+    """The graph replays the kernels the host loop launches, on the same
+    data: same iterations, the same x bit for bit, segmented or not."""
+    p = random_dense_lp(m, n, seed=0)
+    rh = solve(p, backend="cuda", tol=1e-8, fused_loop=False)
+    rf = solve(p, backend="cuda", tol=1e-8)
+    rs = solve(p, backend="cuda", tol=1e-8, segment_iters=4)
+    assert rh.status == rf.status == rs.status == Status.OPTIMAL
+    assert rh.iterations == rf.iterations == rs.iterations
+    assert np.array_equal(rf.x, rh.x) and np.array_equal(rs.x, rf.x)
+    assert [h.rel_gap for h in rf.history] == [h.rel_gap for h in rh.history]
+
+
+def test_second_solve_recaptures_and_gives_the_same_bits(cuda):
+    p = random_dense_lp(256, 1024, seed=1)
+    runs = []
+    for _ in range(2):
+        be = get_backend("cuda")
+        normal_eq.launches = 0
+        r = solve(p, backend=be, tol=1e-8)
+        runs.append((r, normal_eq.launches, be.phase_report[0]))
+    (r1, l1, row1), (r2, l2, row2) = runs
+    assert row1["capture_ms"] > 0 and row2["capture_ms"] > 0
+    assert l1 == 1 + row1["bodies"] and l2 == 1 + row2["bodies"]
+    assert r1.iterations == r2.iterations and np.array_equal(r1.x, r2.x)
+
+
+def test_bad_step_path_in_the_graph(cuda):
+    """Zero row, no presolve, no regularization: every body's Cholesky
+    fails on the card too, and the fused loop gives up at 0 iterations."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((4, 10))
+    A[2] = 0.0
+    b = A @ rng.uniform(0.5, 2.0, 10)
+    c = A.T @ rng.standard_normal(4) + rng.uniform(0.5, 2.0, 10)
+    p = LPProblem(c=c, A=A, rlb=b, rub=b, lb=np.zeros(10), ub=np.full(10, np.inf))
+    be = get_backend("cuda")
+    normal_eq.launches = 0
+    r = solve(p, backend=be, presolve=False, reg_dual=0.0)
+    (row,) = be.phase_report
+    assert r.status == Status.NUMERICAL_ERROR and r.iterations == 0
+    assert row["bad_steps"] == 6 and normal_eq.launches == 1 + row["bodies"]
