@@ -43,8 +43,28 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    with ``torch.profiler``: device busy ms, idle share, host-clock solve
    s, device operations and host launch calls per solve, and the
    device-time breakdown by kernel (Chrome traces written to
-   ``build/dlps_torch/main_path_trace_{fused,host}.json``);
-8. prints the ``kernels`` JSON line, the card line, and last the result
+   ``build/dlps_torch/main_path_{fused,host}_trace.json``);
+8. the batched solver (``backends/batched.py::solve_batched``), with
+   vmap's per-sample fallback off: K1 with a lane axis at the full width
+   (1024 lanes of 128×512, f64) and on a ragged batch of 3 lanes of
+   100×333 (odd m·n) in all three types — every lane bit for bit the
+   unbatched kernel on its inputs, the lower triangle within the
+   tolerances above of the batched plain version, M = Mᵀ and two launches
+   bit for bit — timed beside its bound and ``torch.einsum``; then
+   ``solve_batched(random_batched_lp(1024, 128, 512, seed=0), tol=1e-8)``
+   cold and warm on the default configuration (one captured graph of the
+   vmapped step), segmented (``segment_iters=8``: same statuses,
+   objectives within 1e-9) and in the JAX package's TPU schedule
+   (``chunk=256, segment_iters=8``: every member OPTIMAL), each with its
+   K1 launches held to a start a chunk + its bodies (+ the solo
+   cleanup's bodies);
+   every member OPTIMAL at rel_gap ≤ 1e-8 and pinf ≤ 1e-7, or left at the
+   iteration limit with its budget spent (the JAX package's verdict);
+   every 32nd member, and any left unfinished, against HiGHS (1e-8) and
+   the dense solo solve on the card (1e-8, both stopping at a 1e-8 gap);
+   and a profiled warm solve
+   (trace ``build/dlps_torch/batched_trace.json``);
+9. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -100,41 +120,53 @@ def cuda_ms(torch, fn, iters: int, warm: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(m: int, n: int, dtype: str, out_bytes: int) -> tuple:
-    """Least time for M = A·diag(d)·Aᵀ: the larger of the operations
-    over the type's peak and the bytes (A and d read once, M written
-    once) over the memory rate. M is symmetric, so the operations are
-    those of its lower triangle, m·(m+1)/2 entries of n multiply-adds:
-    m·(m+1)·n. Returns (ms, "operations"|"bytes")."""
+def bound_ms(m: int, n: int, dtype: str, out_bytes: int, batch: int = 1) -> tuple:
+    """Least time for M = A·diag(d)·Aᵀ over ``batch`` lanes: the larger of
+    the operations over the type's peak and the bytes (A and d read once,
+    M written once) over the memory rate. M is symmetric, so the
+    operations are those of its lower triangle, m·(m+1)/2 entries of n
+    multiply-adds: m·(m+1)·n a lane. Returns (ms, "operations"|"bytes")."""
     elt = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
-    t_ops = float(m) * (m + 1) * n / PEAK_FLOPS[dtype]
-    t_bytes = (m * n * elt + n * elt + m * m * out_bytes) / PEAK_BYTES
+    t_ops = batch * float(m) * (m + 1) * n / PEAK_FLOPS[dtype]
+    t_bytes = batch * (m * n * elt + n * elt + m * m * out_bytes) / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
-def make_inputs(torch, m, n, dtype, seed):
+def make_inputs(torch, m, n, dtype, seed, batch=None):
+    """A (m, n) and d (n,), or with ``batch`` a leading lane axis on both."""
+    lead = () if batch is None else (batch,)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    A = torch.randn(m, n, dtype=torch.float64, device="cuda", generator=g).to(dtype)
-    d = (torch.rand(n, dtype=torch.float64, device="cuda", generator=g) + 0.1).to(dtype)
+    A = torch.randn(*lead, m, n, dtype=torch.float64, device="cuda", generator=g).to(dtype)
+    d = (torch.rand(*lead, n, dtype=torch.float64, device="cuda", generator=g) + 0.1).to(dtype)
     return A, d
 
 
-def kernel_parity(torch, ne, m, n, dtype_name, seed=0):
+def shape_name(m, n, batch=None) -> str:
+    return f"{m}x{n}" if batch is None else f"{batch}x{m}x{n}"
+
+
+def kernel_parity(torch, ne, m, n, dtype_name, seed=0, batch=None):
     """Kernel vs plain version on the card; returns (rel_err, max_abs_err).
     M must equal Mᵀ bit for bit, and a second launch must give the same
-    bits. In bf16 the kernel must also sit ten times closer to the plain
-    version than the product without the bf16 rounding of A·d does, so
-    that the rounding is shown to happen."""
+    bits. With ``batch`` the launch covers every lane, and each lane must
+    equal, bit for bit, the unbatched kernel on that lane's inputs. In
+    bf16 the kernel must also sit ten times closer to the plain version
+    than the product without the bf16 rounding of A·d does, so that the
+    rounding is shown to happen."""
     dtype = getattr(torch, dtype_name)
-    A, d = make_inputs(torch, m, n, dtype, seed)
+    name = f"normal_eq {dtype_name} {shape_name(m, n, batch)}"
+    A, d = make_inputs(torch, m, n, dtype, seed, batch)
     M = ne.normal_eq(A, d)
     M2 = ne.normal_eq(A, d)
     torch.cuda.synchronize()
-    if not torch.equal(M, M.T):
-        fail(f"normal_eq {dtype_name} {m}x{n}: M is not bitwise symmetric")
+    if not torch.equal(M, M.mT):
+        fail(f"{name}: M is not bitwise symmetric")
     if not torch.equal(M, M2):
-        fail(f"normal_eq {dtype_name} {m}x{n}: two launches differ")
+        fail(f"{name}: two launches differ")
     del M2
+    for i in range(batch or 0):
+        if not torch.equal(M[i], ne.normal_eq(A[i].contiguous(), d[i].contiguous())):
+            fail(f"{name}: lane {i} differs from the unbatched kernel on its inputs")
     # The kernel computes the lower triangle and mirrors it (checked above).
     R = torch.tril(ne.normal_eq_reference(A, d)).double()
     diff = torch.tril(M).double() - R
@@ -142,36 +174,38 @@ def kernel_parity(torch, ne, m, n, dtype_name, seed=0):
     mx = diff.abs().max().item()
     del diff, M
     if dtype == torch.bfloat16:
-        unrounded = torch.tril((A.double() * d.double()[None, :]) @ A.double().T)
+        unrounded = torch.tril((A.double() * d.double()[..., None, :]) @ A.double().mT)
         rounding = ((unrounded - R).norm() / R.norm()).item()
         del unrounded
         if not rel <= rounding / 10:
-            fail(f"normal_eq bfloat16 {m}x{n}: error {rel:.3e} vs the rounding's own {rounding:.3e}")
+            fail(f"{name}: error {rel:.3e} vs the rounding's own {rounding:.3e}")
     del A, d, R
     torch.cuda.empty_cache()
     if not rel <= TOL[dtype_name]:
-        fail(f"normal_eq {dtype_name} {m}x{n}: relative error {rel:.3e} > {TOL[dtype_name]:.0e}")
+        fail(f"{name}: relative error {rel:.3e} > {TOL[dtype_name]:.0e}")
     return rel, mx
 
 
-def kernel_timing(torch, ne, m, n, dtype_name, iters, warm):
+def kernel_timing(torch, ne, m, n, dtype_name, iters, warm, batch=None):
     dtype = getattr(torch, dtype_name)
-    A, d = make_inputs(torch, m, n, dtype, 1)
+    A, d = make_inputs(torch, m, n, dtype, 1, batch)
+    # One PyTorch call computing the same function (library yardstick).
+    spec = "ik,k,jk->ij" if batch is None else "bik,bk,bjk->bij"
     row = {
-        "shape": [m, n], "dtype": dtype_name,
+        "shape": [m, n] if batch is None else [batch, m, n], "dtype": dtype_name,
         "ms": cuda_ms(torch, lambda: ne.normal_eq(A, d), iters, warm),
         "plain_ms": cuda_ms(torch, lambda: ne.normal_eq_reference(A, d), iters, warm),
-        # One PyTorch call computing the same function (library yardstick).
-        "library_ms": cuda_ms(torch, lambda: torch.einsum("ik,k,jk->ij", A, d, A), iters, warm),
+        "library_ms": cuda_ms(torch, lambda: torch.einsum(spec, A, d, A), iters, warm),
     }
     out_bytes = 4 if dtype == torch.bfloat16 else A.element_size()
-    row["bound_ms"], row["bound_by"] = bound_ms(m, n, dtype_name, out_bytes)
+    row["bound_ms"], row["bound_by"] = bound_ms(m, n, dtype_name, out_bytes, batch or 1)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     # Rate of the flops the kernel issues: its T·(T+1)/2 lower-triangle
-    # tiles, diagonal tiles whole, each edge²·n multiply-adds.
+    # tiles a lane, diagonal tiles whole, each edge²·n multiply-adds.
     edge = ne.tile_edge(dtype)
     tiles = -(-m // edge)
-    row["issued_tflops"] = tiles * (tiles + 1) * edge * edge * n / (row["ms"] * 1e-3) / 1e12
+    row["issued_tflops"] = ((batch or 1) * tiles * (tiles + 1) * edge * edge * n
+                            / (row["ms"] * 1e-3) / 1e12)
     del A, d
     torch.cuda.empty_cache()
     return row
@@ -360,21 +394,17 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMe
                 "cudaMemsetAsync")
 
 
-def profile_main_path(torch, m, n, seed, tag, **loop_kw):
-    """Device-time breakdown of one warm main-path solve: kernel time by
-    category and by kernel, device busy time, the idle share of the
-    backend's host-clock window (setup + iterations), the operations on
-    the card and the host calls that launched them."""
+def device_profile(torch, run, tag):
+    """``run()`` under ``torch.profiler``: its result, and the kernel
+    time by category and by kernel, device busy time, the operations on
+    the card and the host calls that launched them. The Chrome trace goes
+    to ``build/dlps_torch/{tag}_trace.json``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from distributedlpsolver_tpu_torch.ipm import solve
-    from distributedlpsolver_tpu_torch.models import random_dense_lp
-
-    p = random_dense_lp(m, n, seed=seed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r = solve(p, backend="cuda", tol=1e-8, **loop_kw)
+        r = run()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = [
@@ -388,30 +418,227 @@ def profile_main_path(torch, m, n, seed, tag, **loop_kw):
         if ev.device_type == DeviceType.CPU and ev.key.startswith(LAUNCH_CALLS):
             name = next(c for c in LAUNCH_CALLS if ev.key.startswith(c))
             calls[name] = calls.get(name, 0) + ev.count
-    categories = {}
+    categories, names = {}, {}
     for key, ms, _ in kernels:
         k = key.lower()
         cat = next((c for c, words in (
             ("normal_eq", ("normal_eq",)),
             ("cholesky", ("potrf", "getrf", "chol", "syrk", "herk")),
             ("triangular_solve", ("trsv", "trsm", "potrs")),
-            ("gemv", ("gemv", "dot_kernel")),
+            ("gemv_bmv", ("gemv", "dot_kernel", "gemm")),
             ("memcpy", ("memcpy", "memset")),
         ) if any(w in k for w in words)), "elementwise_reduce_other")
         categories[cat] = categories.get(cat, 0.0) + ms
-    busy_ms = sum(t[1] for t in kernels)
+        names.setdefault(cat, []).append(key[:80])
     out_dir = os.path.join(ROOT, "build", "dlps_torch")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"main_path_trace_{tag}.json"))
-    return {
-        "loop": tag, "iterations": r.iterations, "solve_s_profiled": r.solve_time,
-        "setup_s_profiled": r.setup_time, "device_busy_ms": busy_ms,
-        # Over the backend's window: setup (copy, starting point) + loop.
-        "device_idle_share": 1.0 - busy_ms / (1e3 * (r.setup_time + r.solve_time)),
+    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
+    return r, {
+        "device_busy_ms": sum(t[1] for t in kernels),
         "device_ops": sum(t[2] for t in kernels), "host_launch_calls": calls,
         "by_category_ms": categories,
+        # Which library kernels factor and solve.
+        "linalg_kernels": {c: names[c] for c in ("cholesky", "triangular_solve") if c in names},
         "top": [{"kernel": k[:80], "ms": ms, "count": c} for k, ms, c in kernels[:10]],
     }
+
+
+def profile_main_path(torch, m, n, seed, tag, **loop_kw):
+    """Device-time breakdown of one warm main-path solve, and the idle
+    share of the backend's host-clock window (setup + iterations)."""
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    p = random_dense_lp(m, n, seed=seed)
+    r, prof = device_profile(torch, lambda: solve(p, backend="cuda", tol=1e-8, **loop_kw),
+                             f"main_path_{tag}")
+    return {
+        "loop": tag, "iterations": r.iterations, "solve_s_profiled": r.solve_time,
+        "setup_s_profiled": r.setup_time, "device_busy_ms": prof["device_busy_ms"],
+        # Over the backend's window: setup (copy, starting point) + loop.
+        "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * (r.setup_time + r.solve_time)),
+        **{k: v for k, v in prof.items() if k != "device_busy_ms"},
+    }
+
+
+# The batched solver's configuration (BASELINE.json:11): 1024 independent
+# standard-form LPs of 128×512, f64, tol 1e-8.
+BATCH, BM, BN = 1024, 128, 512
+# Members held against HiGHS and the dense solo solve: every 32nd.
+SAMPLE = range(0, BATCH, 32)
+
+
+def batched_solve(torch, batch, **kw):
+    """``solve_batched(batch, tol=1e-8, **kw)`` on the card with the
+    kernel's launch count reset just before and read just after, and its
+    accounting: K1 runs once for each chunk's batched start, once per body
+    of the batched loops (one launch for every lane of the loop) and once
+    per body of each solo cleanup solve (warm-started, so without a start
+    of its own)."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends.batched import solve_batched
+    from distributedlpsolver_tpu_torch.ops import normal_eq
+
+    torch.cuda.reset_peak_memory_stats()
+    normal_eq.launches = 0
+    t0 = time.perf_counter()
+    r = solve_batched(batch, tol=1e-8, **kw)
+    wall = time.perf_counter() - t0
+    launches = normal_eq.launches
+    loops = [row for row in r.phase_report if row["phase"] != "cleanup"]
+    cleanup = [row for row in r.phase_report if row["phase"] == "cleanup"]
+    acc = {k: sum(row[k] for row in loops) for k in ("bodies", "eager", "replays", "masked", "runs")}
+    for k in ("eager_ms", "capture_ms", "replay_ms"):
+        acc[k] = sum(row[k] for row in loops)
+    cleanup_bodies = sum(row["bodies"] for row in cleanup)
+    starts = len({row["chunk"] for row in loops})
+    if launches != starts + acc["bodies"] + cleanup_bodies:
+        fail(f"batched {kw}: {launches} K1 launches for {starts} starts + {acc['bodies']} bodies + "
+             f"{cleanup_bodies} cleanup bodies")
+    if acc["bodies"] != sum(row["iters"] for row in loops) + acc["masked"] or (
+            acc["masked"] > MAX_MASKED * acc["runs"]):
+        fail(f"batched {kw}: {acc['bodies']} bodies for {[row['iters'] for row in loops]} "
+             f"iterations, {acc['masked']} past the exit over {acc['runs']} runs")
+    its = r.iterations.astype(np.int64)
+    row = {
+        "kw": kw, "wall_s": wall, "setup_s": r.setup_time, "solve_s": r.solve_time,
+        "optimal": r.n_optimal, "members": len(its),
+        "member_iters": [int(its.min()), float(its.mean()), int(its.max())],
+        "normal_eq_launches": launches, "starts": starts, **acc,
+        "sizes": [row["sizes"] for row in loops],
+        "cleanup_solves": len(cleanup), "cleanup_members": [row["member"] for row in cleanup],
+        "cleanup_bodies": cleanup_bodies,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "member_iters_per_s": float(its.sum()) / r.solve_time,
+        "batch_bodies_per_s": acc["bodies"] / r.solve_time,
+    }
+    return row, r
+
+
+def check_members(name, r, max_iter):
+    """Every member OPTIMAL at the tolerance (rel_gap ≤ 1e-8, pinf ≤ 1e-7),
+    or left at the iteration limit with its whole budget spent — the JAX
+    package's verdict for a member still short of the tolerance after
+    max_iter batched iterations. Returns the indices of the latter."""
+    import numpy as np
+
+    status = np.array([s.value for s in r.status])
+    opt = status == "optimal"
+    if not (np.all(r.rel_gap[opt] <= 1e-8) and np.all(r.pinf[opt] <= 1e-7)
+            and np.all(np.isfinite(r.objective)) and np.all(np.isfinite(r.x))):
+        fail(f"{name}: an OPTIMAL member above the tolerance, or a non-finite answer")
+    limited = np.flatnonzero(~opt)
+    if not (np.all(status[limited] == "iteration_limit") and np.all(r.iterations[limited] == max_iter)):
+        fail(f"{name}: members {limited.tolist()} end {status[limited].tolist()} at "
+             f"{r.iterations[limited].tolist()} iterations")
+    return limited.tolist()
+
+
+def batched_phase(torch, ne, card):
+    """K1 with a lane axis on the card, then the batched solver at the
+    full width (see the module note, step 8). Returns the batched
+    kernel's parity rows, its timing rows and the default cold run's
+    row."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.models import random_batched_lp
+
+    # K1 batched: the full width in f64, and a ragged batch with an odd
+    # m·n (every odd f64 lane 8 bytes off a 16-byte boundary) in all three.
+    parity = {}
+    for dt, (B, m, n) in [("float64", (BATCH, BM, BN)), ("float64", (3, 100, 333)),
+                          ("float32", (3, 100, 333)), ("bfloat16", (3, 100, 333))]:
+        parity[f"{dt}_{shape_name(m, n, B)}"] = kernel_parity(torch, ne, m, n, dt, batch=B)
+    for k, (rel, mx) in parity.items():
+        print(f"parity normal_eq batched {k}: rel_err {rel:.3e} max_abs_err {mx:.3e} "
+              f"(tol {TOL[k.split('_')[0]]:.0e}), every lane bitwise equal to the unbatched kernel, "
+              "M = Mᵀ bitwise, two launches bitwise equal")
+    timings = [kernel_timing(torch, ne, BM, BN, "float64", iters=20, warm=3, batch=BATCH),
+               kernel_timing(torch, ne, 100, 333, "float64", iters=20, warm=3, batch=3)]
+    for t in timings:
+        print(f"timing normal_eq batched {t['dtype']} {'x'.join(map(str, t['shape']))}: kernel "
+              f"{t['ms']:.4f} ms ({t['issued_tflops']:.2f} TFLOP/s issued), plain {t['plain_ms']:.4f} ms, "
+              f"library(einsum) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"bound share {t['bound_share']:.3f} [{card}]")
+
+    # The full-width solve: cold (the first batched solve of the process)
+    # and warm, on the default configuration.
+    batch = random_batched_lp(BATCH, BM, BN, seed=0)
+    max_iter = SolverConfig().max_iter
+    print(f"linalg: preferred library {torch.backends.cuda.preferred_linalg_library()}")
+    runs = {}
+    for tag, kw in (("cold", {}), ("warm", {}), ("segmented", {"segment_iters": 8}),
+                    ("chunked", {"chunk": 256, "segment_iters": 8})):
+        row, r = batched_solve(torch, batch, **kw)
+        row["limited"] = check_members(f"batched {tag}", r, max_iter)
+        runs[tag] = (row, r)
+        print(f"batched_{tag} " + json.dumps(row) + f" [{card}]")
+    (cold, rc), (warm, rw), (seg, rs), (chunked, rk) = (runs[k] for k in ("cold", "warm", "segmented", "chunked"))
+    same = lambda a, b: [s.value for s in a.status] == [s.value for s in b.status]
+    rel = lambda a, b: np.abs(a - b) / (1.0 + np.abs(b))
+    if not (same(rw, rc) and np.array_equal(rw.iterations, rc.iterations)
+            and rel(rw.objective, rc.objective).max() <= 1e-9):
+        fail("batched: the warm solve differs from the cold one")
+    # Objectives are compared where both runs end OPTIMAL: a member left
+    # at the iteration limit keeps an unfinished iterate, which the
+    # segmented run's solo cleanup moves.
+    opt = np.array([s.value == "optimal" for s in rc.status])
+    seg_rel = rel(rs.objective[opt], rc.objective[opt]).max()
+    if not (same(rs, rc) and seg_rel <= 1e-9):
+        fail(f"batched segmented(8): statuses or objectives (max rel {seg_rel:.3e}) differ "
+             "from the unsegmented run")
+    # chunk=256 + segment_iters=8 is the JAX package's schedule on a TPU,
+    # the one BENCH_SUITE.json's 1024/1024 record ran: every member must
+    # end OPTIMAL.
+    if chunked["optimal"] != BATCH:
+        fail(f"batched chunk=256 segmented(8): {chunked['optimal']}/{BATCH} OPTIMAL")
+    print(f"batched: members the default run left at the iteration limit: {cold['limited']}; "
+          f"chunk=256 segmented(8) solves all {BATCH}, its objectives vs the default run's OPTIMAL "
+          f"members max rel {rel(rk.objective[opt], rc.objective[opt]).max():.3e}; segmented(8) vs "
+          f"default max rel {seg_rel:.3e}")
+
+    # Sampled members (and any the default run left unfinished) against
+    # HiGHS and against the dense solo solve on the card.
+    # Both the batched and the solo solve stop at a relative gap of 1e-8,
+    # by different paths, so their objectives may differ by about that
+    # much: the solo comparison holds them to 1e-8 and counts how many
+    # agree to 1e-9.
+    sample = sorted(set(SAMPLE) | set(cold["limited"]))
+    worst_h, worst_s, within_1e9 = 0.0, 0.0, 0
+    for k in sample:
+        ref = rk if k in cold["limited"] else rc
+        p = batch.problem(k)
+        h = highs_objective(p)
+        solo = solve(p, backend=get_backend("cuda"), tol=1e-8)
+        if solo.status.value != "optimal":
+            fail(f"batched member {k}: the dense solo solve ends {solo.status.value}")
+        eh = abs(ref.objective[k] - h) / (1.0 + abs(h))
+        es = abs(ref.objective[k] - solo.objective) / (1.0 + abs(solo.objective))
+        worst_h, worst_s = max(worst_h, eh), max(worst_s, es)
+        within_1e9 += es <= 1e-9
+        if not (eh <= 1e-8 and es <= 1e-8):
+            fail(f"batched member {k}: objective {ref.objective[k]!r} vs HiGHS {h!r} ({eh:.3e}) "
+                 f"and the dense solo solve {solo.objective!r} ({es:.3e})")
+    print(f"batched: {len(sample)} members {sample[:3]}…{sample[-2:]} vs HiGHS max rel {worst_h:.3e} "
+          f"(tol 1e-8), vs the dense solo solve on the card max rel {worst_s:.3e} (tol 1e-8; "
+          f"{within_1e9} of {len(sample)} within 1e-9)")
+
+    # Where a warm batched solve's device time goes.
+    from distributedlpsolver_tpu_torch.backends.batched import solve_batched
+
+    r, prof = device_profile(torch, lambda: solve_batched(batch, tol=1e-8), "batched")
+    prof_row = {
+        "solve_s_profiled": r.solve_time, "setup_s_profiled": r.setup_time,
+        "device_busy_ms": prof["device_busy_ms"],
+        "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * (r.setup_time + r.solve_time)),
+        **{k: v for k, v in prof.items() if k != "device_busy_ms"},
+    }
+    print("profile_batched " + json.dumps(prof_row) + f" [{card}]")
+    return parity, timings, cold
 
 
 def main() -> int:
@@ -519,7 +746,13 @@ def main() -> int:
     for tag, kw in (("fused", {}), ("host", {"fused_loop": False})):
         print(f"profile_{tag} " + json.dumps(profile_main_path(torch, 2048, 10240, 0, tag, **kw)))
 
+    # 8. The batched solver, with vmap's per-sample fallback off for the
+    # whole phase (solve_batched also turns it off for its own run).
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    b_parity, b_timings, b_cold = batched_phase(torch, ne, card)
+
     main_t = timings[0]
+    batched_t = b_timings[0]
     kernels = {"kernels": [{
         "name": "normal_eq",
         "route": "cuda",
@@ -538,6 +771,24 @@ def main() -> int:
         "shape": main_t["shape"],
         "timings": timings,
         "dmma_instructions": dmma,
+    }, {
+        "name": "normal_eq (batched)",
+        "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        # The batched path's launches: one for every lane at a time.
+        "launches": b_cold["normal_eq_launches"],
+        "max_abs_err": b_parity[f"float64_{shape_name(BM, BN, BATCH)}"][1],
+        "ms": batched_t["ms"],
+        "plain_ms": batched_t["plain_ms"],
+        "bound_ms": batched_t["bound_ms"],
+        "bound_by": batched_t["bound_by"],
+        "bound_share": batched_t["bound_share"],
+        "library_ms": batched_t["library_ms"],
+        "kernel_ms": batched_t["ms"],
+        "dtypes": ["float64", "float32", "bfloat16"],
+        "shape": batched_t["shape"],
+        "timings": b_timings,
     }]}
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -89,7 +89,7 @@ def _torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _cholesky_ops(A, factor_dtype, refine_steps, Af=None):
+def _cholesky_ops(A, factor_dtype, refine_steps, Af=None, tri_solves=False):
     """Build factorize/solve closures over the matrix ``A``.
 
     ``factorize(d, reg)`` returns ``(L, M)`` with ``M = A·diag(d)·Aᵀ``
@@ -97,6 +97,14 @@ def _cholesky_ops(A, factor_dtype, refine_steps, Af=None):
     factor in ``factor_dtype``. With ``Af`` (the precast copy, present
     only when ``factor_dtype`` differs from A's dtype) the assembly runs
     on it in ``factor_dtype``.
+
+    A solve is ``torch.cholesky_solve``, or with ``tri_solves`` two
+    ``torch.linalg.solve_triangular`` (the JAX package's ``cho_solve``).
+    The batched solver takes the second under ``torch.func.vmap``: on a
+    card the batched ``cholesky_solve`` goes to MAGMA's
+    ``dpotrs_batched``, which allocates device memory on every call and so
+    cannot be captured into a CUDA graph; the batched triangular solves
+    (cuBLAS ``trsmBatched``) can (``scripts/port_probe_batched_linalg.py``).
     """
 
     def factorize(d, reg):
@@ -115,7 +123,13 @@ def _cholesky_ops(A, factor_dtype, refine_steps, Af=None):
         return L, M
 
     def _apply_inv(L, rhs):
-        return torch.cholesky_solve(rhs.to(factor_dtype)[:, None], L, upper=False)[:, 0].to(rhs.dtype)
+        r = rhs.to(factor_dtype)[:, None]
+        if tri_solves:
+            y = torch.linalg.solve_triangular(L, r, upper=False)
+            out = torch.linalg.solve_triangular(L.mT, y, upper=True)
+        else:
+            out = torch.cholesky_solve(r, L, upper=False)
+        return out[:, 0].to(rhs.dtype)
 
     def solve(factors, rhs):
         L, M = factors
@@ -127,10 +141,11 @@ def _cholesky_ops(A, factor_dtype, refine_steps, Af=None):
     return factorize, solve
 
 
-def _make_ops(A, reg, factor_dtype, refine_steps, Af=None) -> core.LinOps:
+def _make_ops(A, reg, factor_dtype, refine_steps, Af=None, tri_solves=False) -> core.LinOps:
     """The step's linear algebra at regularization ``reg``: a host float
-    (the host loop) or a device scalar (the fused loop)."""
-    factorize, solve = _cholesky_ops(A, factor_dtype, refine_steps, Af)
+    (the host loop) or a device scalar (the fused loop, or one lane of the
+    batched solver's)."""
+    factorize, solve = _cholesky_ops(A, factor_dtype, refine_steps, Af, tri_solves)
     return core.LinOps(
         matvec=lambda v: A @ v,
         rmatvec=lambda v: A.T @ v,

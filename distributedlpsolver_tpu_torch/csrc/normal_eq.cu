@@ -55,6 +55,21 @@
 //
 // Offsets are 64-bit: m·n reaches 5·10⁸ at the 10000×50000 reference
 // shape.
+//
+// The batch axis (the batched solver: B independent lanes, each its own
+// A (m, n), d (n,) and M (m, m)): every instance takes a lane count and
+// the lane strides of A and d in elements (0 shares one A or one d
+// across the lanes); M's lanes are dense, m·m apart. The lane is
+// blockIdx.y, so one launch covers every lane, up to the grid's y-limit
+// of 65,535 lanes (more are refused). A block computes one tile of one
+// lane: it moves A, d and M to its lane and runs the unbatched kernel's
+// code, so a one-lane launch gives the bits it always gave, and lane i of
+// a batch gives the bits of a one-lane launch on lane i's inputs. At the
+// batched solver's shape (1024 lanes of 128×512) the grid is 3 triangle
+// tiles × 1024 lanes: each lane's A (512 KB) is read by its three
+// blocks, which are neighbours in the grid and meet in L2, and the
+// function is bound by bytes (A read once, 0.54 GB, against 8.7 GFLOP),
+// not by DMMA.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -121,6 +136,15 @@ __device__ __forceinline__ void store_mirrored(const Acc* S, int lds, Acc* M, in
 
 __host__ __forceinline__ int64_t triangle_blocks(int64_t tiles) {
   return tiles * (tiles + 1) / 2;
+}
+
+// Grid of a launch: the triangle tiles on x, the lanes on y.
+// dim3(0, 0, 0) when the tiles overflow x or the lanes y.
+constexpr int64_t MAX_LANES = 65535;
+__host__ __forceinline__ dim3 lane_grid(int64_t tiles, int64_t batch) {
+  const int64_t blocks = triangle_blocks(tiles);
+  if (blocks > 0x7fffffffLL || batch > MAX_LANES) return dim3(0, 0, 0);
+  return dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
 }
 
 // ---------------------------------------------------------------------------
@@ -212,8 +236,13 @@ __device__ __forceinline__ void load_stage(double* st, const double* __restrict_
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 normal_eq_dmma_kernel(const double* __restrict__ A, const double* __restrict__ d,
-                      double* __restrict__ M, int64_t m, int64_t n, int64_t tiles) {
+                      double* __restrict__ M, int64_t m, int64_t n, int64_t tiles,
+                      int64_t a_stride, int64_t d_stride) {
   extern __shared__ __align__(16) double smem[];
+  const int64_t member = blockIdx.y;
+  A += member * a_stride;
+  d += member * d_stride;
+  M += member * m * m;
   int64_t bi, bj;
   tile_of_block(blockIdx.x, tiles, bi, bj);
   const int64_t i0 = bi * BM, j0 = bj * BM;
@@ -313,28 +342,32 @@ cudaError_t opt_in_shared_memory() {
 }
 
 template <int VEC>
-int launch_vec(const double* A, const double* d, double* M, int64_t m, int64_t n,
-               cudaStream_t stream) {
+int launch_vec(const double* A, const double* d, double* M, int64_t batch, int64_t m,
+               int64_t n, int64_t a_stride, int64_t d_stride, cudaStream_t stream) {
   const cudaError_t err = opt_in_shared_memory<VEC>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = (m + BM - 1) / BM;
-  const int64_t blocks = triangle_blocks(tiles);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  normal_eq_dmma_kernel<VEC><<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, stream>>>(
-      A, d, M, m, n, tiles);
+  const dim3 grid = lane_grid(tiles, batch);
+  if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
+  normal_eq_dmma_kernel<VEC><<<grid, THREADS, SMEM_BYTES, stream>>>(A, d, M, m, n, tiles, a_stride,
+                                                                  d_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* A, const void* d, void* M, int64_t m, int64_t n, void* stream) {
-  if (m <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+int launch(const void* A, const void* d, void* M, int64_t batch, int64_t m, int64_t n,
+           int64_t a_stride, int64_t d_stride, void* stream) {
+  if (batch <= 0 || m <= 0 || n < 0 || a_stride < 0 || d_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const double* a = static_cast<const double*>(A);
   const double* dd = static_cast<const double*>(d);
   double* out = static_cast<double*>(M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte copies need every row and chunk start 16-byte aligned.
-  if (reinterpret_cast<uintptr_t>(A) % 16 == 0 && n % 2 == 0)
-    return launch_vec<16>(a, dd, out, m, n, s);
-  return launch_vec<8>(a, dd, out, m, n, s);
+  // 16-byte copies need every row and chunk start of every lane 16-byte
+  // aligned: the base, n and the lane stride (an odd m·n puts every odd
+  // lane 8 bytes off) all even in doubles. One width for the whole launch.
+  if (reinterpret_cast<uintptr_t>(A) % 16 == 0 && n % 2 == 0 && a_stride % 2 == 0)
+    return launch_vec<16>(a, dd, out, batch, m, n, a_stride, d_stride, s);
+  return launch_vec<8>(a, dd, out, batch, m, n, a_stride, d_stride, s);
 }
 
 }  // namespace dmma
@@ -374,10 +407,16 @@ __device__ __forceinline__ float widen<__nv_bfloat16, float>(__nv_bfloat16 a) {
 template <typename In>
 __global__ void __launch_bounds__(THREADS)
 normal_eq_fma_kernel(const In* __restrict__ A, const In* __restrict__ d,
-                     float* __restrict__ M, int64_t m, int64_t n, int64_t tiles) {
+                     float* __restrict__ M, int64_t m, int64_t n, int64_t tiles,
+                     int64_t a_stride, int64_t d_stride) {
   __shared__ float Ai[KCHUNK][TILE + PAD];  // A[i-tile, k-chunk]·d, k-major
   __shared__ float Aj[KCHUNK][TILE + PAD];  // A[j-tile, k-chunk], k-major
   __shared__ float S[TILE][TILE + 1];       // the output tile, for the store
+
+  const int64_t member = blockIdx.y;
+  A += member * a_stride;
+  d += member * d_stride;
+  M += member * m * m;
 
   const int t = threadIdx.x;
   const int tx = t % 16;
@@ -437,15 +476,16 @@ normal_eq_fma_kernel(const In* __restrict__ A, const In* __restrict__ d,
 }
 
 template <typename In>
-int launch(const void* A, const void* d, void* M, int64_t m, int64_t n, void* stream) {
-  if (m <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+int launch(const void* A, const void* d, void* M, int64_t batch, int64_t m, int64_t n,
+           int64_t a_stride, int64_t d_stride, void* stream) {
+  if (batch <= 0 || m <= 0 || n < 0 || a_stride < 0 || d_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles = (m + TILE - 1) / TILE;
-  const int64_t blocks = triangle_blocks(tiles);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  normal_eq_fma_kernel<In><<<static_cast<unsigned>(blocks), THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const In*>(A), static_cast<const In*>(d), static_cast<float*>(M), m, n,
-      tiles);
+  const dim3 grid = lane_grid(tiles, batch);
+  if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
+  normal_eq_fma_kernel<In><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const In*>(A), static_cast<const In*>(d), static_cast<float*>(M), m, n, tiles,
+      a_stride, d_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -453,24 +493,27 @@ int launch(const void* A, const void* d, void* M, int64_t m, int64_t n, void* st
 
 }  // namespace
 
-// Plain C entry points (ctypes). Each launches on ``stream`` without
-// synchronising or allocating and returns the CUDA error code (0 =
-// launched): of the shared-memory opt-in, or cudaGetLastError().
+// Plain C entry points (ctypes). Each computes ``batch`` lanes, lane i
+// from A + i·a_stride and d + i·d_stride (strides in elements, 0 = shared)
+// into M + i·m·m, in one launch on ``stream``, without synchronising or
+// allocating, and returns the CUDA error code (0 = launched): of the
+// shared-memory opt-in, or cudaGetLastError(); cudaErrorInvalidValue for
+// more than MAX_LANES lanes.
 extern "C" {
 
-int dlps_normal_eq_f64(const void* A, const void* d, void* M, int64_t m, int64_t n,
-                       void* stream) {
-  return dmma::launch(A, d, M, m, n, stream);
+int dlps_normal_eq_f64(const void* A, const void* d, void* M, int64_t batch, int64_t m,
+                       int64_t n, int64_t a_stride, int64_t d_stride, void* stream) {
+  return dmma::launch(A, d, M, batch, m, n, a_stride, d_stride, stream);
 }
 
-int dlps_normal_eq_f32(const void* A, const void* d, void* M, int64_t m, int64_t n,
-                       void* stream) {
-  return fp32::launch<float>(A, d, M, m, n, stream);
+int dlps_normal_eq_f32(const void* A, const void* d, void* M, int64_t batch, int64_t m,
+                       int64_t n, int64_t a_stride, int64_t d_stride, void* stream) {
+  return fp32::launch<float>(A, d, M, batch, m, n, a_stride, d_stride, stream);
 }
 
-int dlps_normal_eq_bf16_f32(const void* A, const void* d, void* M, int64_t m, int64_t n,
-                            void* stream) {
-  return fp32::launch<__nv_bfloat16>(A, d, M, m, n, stream);
+int dlps_normal_eq_bf16_f32(const void* A, const void* d, void* M, int64_t batch, int64_t m,
+                            int64_t n, int64_t a_stride, int64_t d_stride, void* stream) {
+  return fp32::launch<__nv_bfloat16>(A, d, M, batch, m, n, a_stride, d_stride, stream);
 }
 
 // Output tile edge of an instance (0: f64, 1: f32, 2: bf16→f32): the work

@@ -18,6 +18,7 @@ import torch
 
 from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
 from distributedlpsolver_tpu_torch.ipm.state import IPMState
+from distributedlpsolver_tpu_torch.models.generators import BatchedLP
 from distributedlpsolver_tpu_torch.models.problem import _SHIFT, InteriorForm
 
 
@@ -39,6 +40,21 @@ def interior_form_from_arrays(A, b, c, u, name: str = "LP") -> InteriorForm:
         col_sign=np.ones(n),
         name=name,
     )
+
+
+def batched_lp_from_arrays(A, b, c, name: str = "batched") -> BatchedLP:
+    """A :class:`BatchedLP` (B standard-form members ``min cᵀx, Ax=b,
+    x≥0``) from arrays of shape (B, m, n), (B, m) and (B, n) — the fields
+    of the JAX package's ``BatchedLP``."""
+    A = np.asarray(A, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    c = np.asarray(c, dtype=np.float64)
+    if A.ndim != 3 or b.shape != A.shape[:2] or c.shape != A.shape[:1] + A.shape[2:]:
+        raise ValueError(
+            f"batched_lp_from_arrays: A {A.shape}, b {b.shape}, c {c.shape} do not fit "
+            "(B, m, n), (B, m), (B, n)"
+        )
+    return BatchedLP(c=c, A=A, b=b, name=name)
 
 
 def state_from_arrays(x, y, s, w, z, *, device, dtype=torch.float64) -> IPMState:

@@ -12,8 +12,11 @@ tolerance, numerical-failure recovery (deterministic regularization
 escalation), per-iteration logging and checkpoints. Both end in the
 recovery of the solution in the original variable space.
 
-Not ported yet: warm starts and the warm cache (``ipm/warm.py`` of the
-JAX package) — passing either raises ``NotImplementedError``.
+Warm starts are the JAX package's two: a raw :class:`IPMState` is trusted
+verbatim (the checkpoint-resume contract; the batched solver's solo
+cleanup hands its iterates over so), a :class:`ipm.warm.WarmStart` is
+safeguarded by :func:`_init_warm_start`. Not ported yet: the warm cache
+(``warm_cache`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -85,15 +88,20 @@ def solve(
     everything on the first CUDA card, and raises where there is none —
     pass ``get_backend("cuda", device="cpu")`` to run on the CPU.
 
-    ``warm_start`` and ``warm_cache`` are not ported yet and raise
-    ``NotImplementedError``; a ``config.checkpoint_path`` resume works.
+    ``warm_start`` accepts a raw :class:`IPMState` of host arrays in the
+    interior space (trusted verbatim — the checkpoint-resume contract) or
+    an :class:`ipm.warm.WarmStart` (safeguarded: shifted into the strict
+    interior, recentred, and DROPPED for the cold start when its initial
+    residuals regress — see ipm/warm.py); presolve is skipped with either,
+    since a warm iterate lives in the unreduced space. ``warm_cache`` is
+    not ported yet and raises ``NotImplementedError``; a
+    ``config.checkpoint_path`` resume works.
     """
     from distributedlpsolver_tpu_torch.backends.base import get_backend
+    from distributedlpsolver_tpu_torch.ipm import warm as warm_mod
 
-    if warm_start is not None or warm_cache is not None:
-        raise NotImplementedError(
-            "warm_start / warm_cache are not ported to the torch package yet"
-        )
+    if warm_cache is not None:
+        raise NotImplementedError("warm_cache is not ported to the torch package yet")
     cfg = config or SolverConfig()
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
@@ -107,6 +115,7 @@ def solve(
         cfg.presolve
         and original is not None
         and original.block_structure is None  # reductions break the hint
+        and warm_start is None  # warm starts are in the unreduced space
     ):
         from distributedlpsolver_tpu_torch.models.presolve import presolve as _presolve
 
@@ -128,11 +137,28 @@ def solve(
         cfg.verbose, cfg.log_jsonl, fsync=cfg.log_fsync, append=cfg.log_append
     )
 
+    def to_solver_space(host_state):
+        return be.from_host(
+            scaling.scale_state(host_state) if scaling else host_state
+        )
+
     t_setup0 = time.perf_counter()
     be.setup(inf_solve, cfg)
     fingerprint = ckpt.problem_fingerprint(inf) if cfg.checkpoint_path else ""
-    resumed = ckpt.maybe_load(cfg.checkpoint_path, fingerprint)
-    if (
+    resumed = (
+        ckpt.maybe_load(cfg.checkpoint_path, fingerprint)
+        if warm_start is None
+        else None
+    )
+    warm_label = "cold"
+    if isinstance(warm_start, warm_mod.WarmStart):
+        state, warm_label = _init_warm_start(
+            be, warm_start, inf, inf_solve, scaling, to_solver_space
+        )
+        start_iter = 0
+    elif warm_start is not None:
+        state, start_iter = to_solver_space(warm_start), 0
+    elif (
         resumed is not None
         and resumed[2] == inf.name
         and resumed[0].x.shape == (inf.n,)
@@ -141,8 +167,7 @@ def solve(
         # Checkpoints are host-canonical (utils/checkpoint.py v3), so a
         # file written by either package resumes here: from_host places
         # the iterate on this backend's device.
-        host_state = scaling.scale_state(resumed[0]) if scaling else resumed[0]
-        state, start_iter = be.from_host(host_state), resumed[1]
+        state, start_iter = to_solver_space(resumed[0]), resumed[1]
     else:
         state, start_iter = be.starting_point(), 0
     setup_time = time.perf_counter() - t_setup0
@@ -160,6 +185,7 @@ def solve(
                 be, state, status, history, last, solve_time, setup_time,
                 inf, original, backend, start_iter, scaling=scaling,
                 presolve_info=presolve_info, extra_iters=fused_iters,
+                warm_label=warm_label,
             )
 
     status = Status.ITERATION_LIMIT
@@ -264,8 +290,47 @@ def solve(
     return _finalize(
         be, state, status, history, last, solve_time, setup_time,
         inf, original, backend, start_iter, extra_iters=it - start_iter,
-        scaling=scaling, presolve_info=presolve_info,
+        scaling=scaling, presolve_info=presolve_info, warm_label=warm_label,
     )
+
+
+def _init_warm_start(be, ws, inf, inf_solve, scaling, to_solver_space):
+    """Safeguarded warm-start initialization: shift-and-recentre the
+    prior iterate (ipm/warm.py), then accept it only when its initial
+    residual merit does not regress past the Mehrotra cold start's —
+    the fallback keeps an adversarial prior from costing more than the
+    warm start could save. Returns (device_state, "warm"|"rejected")."""
+    from distributedlpsolver_tpu_torch.ipm import warm as warm_mod
+
+    cold = be.starting_point()
+    try:
+        cand = warm_mod.interior_candidate(ws.state, inf)
+        cand_scaled = scaling.scale_state(cand) if scaling else cand
+        cold_host = be.to_host(cold)
+        merit_w = warm_mod.residual_merit(inf_solve, cand_scaled)
+        merit_c = warm_mod.residual_merit(inf_solve, cold_host)
+        mu_w = warm_mod.state_mu(cand_scaled, inf_solve.u)
+        mu_c = warm_mod.state_mu(cold_host, inf_solve.u)
+        accept = (
+            np.isfinite(merit_w)
+            and np.isfinite(mu_w)
+            and merit_w
+            <= warm_mod.WARM_ACCEPT_FACTOR * max(merit_c, 1e-12)
+            # μ guard: the primal/dual refresh makes even a far-off
+            # prior nearly feasible — complementarity is what still
+            # tells it apart from a useful start.
+            and mu_w <= warm_mod.MU_ACCEPT_FACTOR * max(mu_c, 1e-12)
+        )
+    except Exception:  # malformed prior (shape drift): cold start
+        accept = False
+    if accept:
+        return be.from_host(cand_scaled), "warm"
+    obs_metrics.get_registry().counter(
+        "warm_start_rejected_total",
+        help="safeguard fallbacks: warm starts whose initial residuals "
+        "regressed past the cold start's",
+    ).inc()
+    return cold, "rejected"
 
 
 def _step_once(be, state):
@@ -325,7 +390,7 @@ def _try_fused(be, state, cfg: SolverConfig, logger: IterLogger):
 def _finalize(
     be, state, status, history, last, solve_time, setup_time,
     inf, original, backend, start_iter, extra_iters=None, scaling=None,
-    presolve_info=None,
+    presolve_info=None, warm_label="cold",
 ):
     n_iters = extra_iters if extra_iters is not None else len(history)
     _reg = obs_metrics.get_registry()
@@ -333,9 +398,11 @@ def _finalize(
         "ipm_solves_total", labels={"status": status.value},
         help="finished IPM solves by terminal status",
     ).inc()
+    # Warm-vs-cold attribution: a safeguard-rejected warm start counts as
+    # cold — it ran the cold trajectory.
     _reg.histogram(
         "ipm_iterations", buckets=obs_metrics.ITER_BUCKETS,
-        labels={"start": "cold"},
+        labels={"start": "warm" if warm_label == "warm" else "cold"},
         help="IPM iterations per finished solve, by start kind",
     ).observe(n_iters)
     _tracer = obs_trace.get_tracer()
@@ -414,6 +481,7 @@ def _finalize(
         y=y,
         s=s,
         certificate=certificate,
+        warm=warm_label,
     )
 
 

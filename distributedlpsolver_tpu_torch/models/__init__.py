@@ -1,5 +1,7 @@
 from distributedlpsolver_tpu_torch.models.problem import InteriorForm, LPProblem, to_interior_form
 from distributedlpsolver_tpu_torch.models.generators import (
+    BatchedLP,
+    random_batched_lp,
     random_dense_lp,
     random_general_lp,
     random_sparse_lp,
@@ -9,4 +11,5 @@ from distributedlpsolver_tpu_torch.models.presolve import presolve
 __all__ = [
     "LPProblem", "InteriorForm", "to_interior_form",
     "random_dense_lp", "random_general_lp", "random_sparse_lp", "presolve",
+    "BatchedLP", "random_batched_lp",
 ]

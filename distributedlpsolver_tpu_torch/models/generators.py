@@ -1,9 +1,10 @@
 """Synthetic LP generators for the benchmark suite and tests.
 
-A copy of ``random_dense_lp``, ``random_sparse_lp`` and
-``random_general_lp`` from the JAX package's ``models/generators.py``:
-the same seed gives the same problem in both packages. The batched,
-block-angular and request-stream generators are not ported yet.
+A copy of ``random_dense_lp``, ``random_sparse_lp``, ``random_general_lp``
+and ``random_batched_lp`` (with ``BatchedLP``) from the JAX package's
+``models/generators.py``: the same seed gives the same problem in both
+packages. The block-angular and request-stream generators are not ported
+yet.
 
 All generators construct problems that are feasible and bounded *by
 construction* (primal point and dual certificate built first, data derived
@@ -11,6 +12,8 @@ from them), so tests can assert convergence unconditionally.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import scipy.sparse as sp
@@ -136,3 +139,50 @@ def random_general_lp(
         c=c, A=A, rlb=rlb, rub=rub, lb=lb, ub=ub,
         name=f"random_general_{m}x{n}_s{seed}",
     )
+
+
+@dataclasses.dataclass
+class BatchedLP:
+    """A batch of independent standard-form LPs with identical shapes.
+
+    ``A``: (B, m, n); ``b``: (B, m); ``c``: (B, n). Lower bounds are 0 and
+    there are no upper bounds — the batched backend consumes this
+    directly (BASELINE.json:11: 1024 × (m=128, n=512)).
+    """
+
+    c: np.ndarray
+    A: np.ndarray
+    b: np.ndarray
+    name: str = "batched"
+
+    @property
+    def batch(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.A.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[2]
+
+    def problem(self, k: int) -> LPProblem:
+        m, n = self.m, self.n
+        return LPProblem(
+            c=self.c[k], A=self.A[k], rlb=self.b[k], rub=self.b[k],
+            lb=np.zeros(n), ub=np.full(n, _INF), name=f"{self.name}[{k}]",
+        )
+
+
+def random_batched_lp(batch: int, m: int, n: int, seed: int = 0) -> BatchedLP:
+    """Batch of feasible+bounded standard-form LPs (same construction as
+    :func:`random_dense_lp`, vectorized over a leading batch axis)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((batch, m, n))
+    x0 = rng.uniform(0.5, 2.0, size=(batch, n))
+    b = np.einsum("bmn,bn->bm", A, x0)
+    y0 = rng.standard_normal((batch, m))
+    s0 = rng.uniform(0.5, 2.0, size=(batch, n))
+    c = np.einsum("bmn,bm->bn", A, y0) + s0
+    return BatchedLP(c=c, A=A, b=b, name=f"batched_{batch}x{m}x{n}_s{seed}")

@@ -138,7 +138,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         solve(pt, backend=get_backend("cuda", device="cpu"), solve_mode="pcg")
     with pytest.raises(NotImplementedError):
-        solve(pt, backend=get_backend("cuda", device="cpu"), warm_start=object())
+        solve(pt, backend=get_backend("cuda", device="cpu"), warm_cache=object())
 
 
 def test_hooks_see_every_iteration_and_the_profiler_writes_a_trace(tmp_path):

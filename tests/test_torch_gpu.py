@@ -1,6 +1,7 @@
-"""The CUDA kernel against its plain version, and the fused loop (a
-captured CUDA graph of the Mehrotra step) against the host loop, on the
-card.
+"""The CUDA kernel against its plain version (one matrix and a batch of
+lanes), the fused loop (a captured CUDA graph of the Mehrotra step)
+against the host loop, and the batched solver against its CPU path, on
+the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -11,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from distributedlpsolver_tpu_torch.backends import batched as tbatched
 from distributedlpsolver_tpu_torch.backends import get_backend
 from distributedlpsolver_tpu_torch.ipm import Status, solve
-from distributedlpsolver_tpu_torch.models import random_dense_lp
+from distributedlpsolver_tpu_torch.models import random_batched_lp, random_dense_lp
 from distributedlpsolver_tpu_torch.models.problem import LPProblem
 from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
 from distributedlpsolver_tpu_torch.ops import normal_eq, normal_eq_reference
@@ -197,3 +199,89 @@ def test_bad_step_path_in_the_graph(cuda):
     (row,) = be.phase_report
     assert r.status == Status.NUMERICAL_ERROR and r.iterations == 0
     assert row["bad_steps"] == 6 and normal_eq.launches == 1 + row["bodies"]
+
+
+def _batched_inputs(B, m, n, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    A = torch.tensor(rng.standard_normal((B, m, n)), device=device).to(dtype)
+    d = torch.tensor(rng.random((B, n)) + 0.1, device=device).to(dtype)
+    return A, d
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+# (3, 100, 333): odd m·n, so every odd lane of an f64 batch starts 8 bytes
+# off a 16-byte boundary; (1, 130, 514): one lane; (5, 64, 3): n < a chunk.
+@pytest.mark.parametrize("B,m,n", [(4, 128, 512), (3, 100, 333), (1, 130, 514), (5, 64, 3)])
+def test_batched_kernel_lanes_equal_the_unbatched_kernel(cuda, dtype, B, m, n):
+    """One launch for every lane; lane i is bit for bit the unbatched
+    kernel on lane i's inputs, symmetric bit for bit, and within the
+    tolerance of the batched plain version."""
+    A, d = _batched_inputs(B, m, n, dtype, cuda)
+    before = normal_eq.launches
+    M = normal_eq(A, d)
+    M2 = normal_eq(A, d)
+    torch.cuda.synchronize()
+    assert normal_eq.launches == before + 2 and M.shape == (B, m, m)
+    assert torch.equal(M, M2) and torch.equal(M, M.mT)
+    for i in range(B):
+        assert torch.equal(M[i], normal_eq(A[i].contiguous(), d[i].contiguous()))
+    L, R = torch.tril(M).double(), torch.tril(normal_eq_reference(A, d)).double()
+    assert ((L - R).norm() / R.norm()).item() <= TOL[dtype]
+
+
+def test_batched_kernel_takes_lanes_up_to_the_grid_y_limit(cuda):
+    """65,535 lanes (the grid's y-limit) in one launch, every lane
+    written; one more is refused before any launch."""
+    A, d = _batched_inputs(65_536, 3, 5, torch.float64, cuda, seed=2)
+    before = normal_eq.launches
+    M = normal_eq(A[:-1], d[:-1])
+    R = normal_eq_reference(A[:-1], d[:-1])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.tril(M), torch.tril(R), rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="65535"):
+        normal_eq(A, d)
+    assert normal_eq.launches == before + 1
+
+
+def test_vmap_of_the_kernel_is_one_batched_launch(cuda):
+    """Under ``torch.func.vmap`` (per-sample fallback off) the lanes go to
+    ONE launch through the op's vmap rule, with the batched call's bits."""
+    A, d = _batched_inputs(6, 40, 96, torch.float64, cuda, seed=4)
+    with tbatched._no_vmap_fallback():
+        before = normal_eq.launches
+        M = torch.func.vmap(normal_eq)(A, d)
+        torch.cuda.synchronize()
+        assert normal_eq.launches == before + 1
+        shared = torch.func.vmap(normal_eq, in_dims=(None, 0))(A[0], d)
+        assert normal_eq.launches == before + 2
+    assert torch.equal(M, normal_eq(A, d))
+    assert torch.equal(shared, normal_eq(A[0].expand(6, 40, 96).contiguous(), d))
+
+
+def test_batched_solve_on_the_card_matches_the_cpu_path(cuda):
+    """The batched loop as one captured graph: the CPU path's statuses and
+    iterations, objectives within 1e-9, and one K1 launch for the start
+    plus one per body of the loop."""
+    batch = random_batched_lp(12, 16, 40, seed=3)
+    normal_eq.launches = 0
+    r = tbatched.solve_batched(batch, tol=1e-8)
+    launches = normal_eq.launches
+    rc = tbatched.solve_batched(batch, device="cpu", tol=1e-8)
+    (row,) = r.phase_report
+    assert [s.value for s in r.status] == [s.value for s in rc.status] == ["optimal"] * 12
+    assert np.array_equal(r.iterations, rc.iterations)
+    assert np.all(np.abs(r.objective - rc.objective) <= 1e-9 * (1 + np.abs(rc.objective)))
+    assert row["eager"] == 1 and row["replays"] >= 1 and row["capture_ms"] > 0
+    assert row["iters"] == r.iterations.max() == rc.phase_report[0]["iters"]
+    assert row["bodies"] == row["iters"] + row["masked"] and row["masked"] <= 1
+    assert launches == 1 + row["bodies"]
+
+
+def test_batched_segmented_and_fused_give_the_unsegmented_bits(cuda):
+    batch = random_batched_lp(12, 16, 40, seed=3)
+    r1 = tbatched.solve_batched(batch, tol=1e-8)
+    r3 = tbatched.solve_batched(batch, tol=1e-8, fused_iters=3)
+    rs = tbatched.solve_batched(batch, tol=1e-8, segment_iters=4)
+    for r in (r3, rs):
+        assert np.array_equal(r.iterations, r1.iterations)
+        assert np.array_equal(r.x, r1.x)

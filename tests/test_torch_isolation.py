@@ -52,6 +52,7 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import distributedlpsolver_tpu_torch, distributedlpsolver_tpu_torch.cli\n"
         "import distributedlpsolver_tpu_torch.backends, distributedlpsolver_tpu_torch.interop\n"
+        "import distributedlpsolver_tpu_torch.backends.batched, distributedlpsolver_tpu_torch.ipm.warm\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -8,6 +8,10 @@ kernel itself is held against the plain version in tests/test_torch_gpu.py
 and in chip_smoke.py, on the card.
 """
 
+import os
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,7 +97,9 @@ def test_cpu_path_never_counts_a_launch():
         (torch.zeros(4, 6), torch.zeros(5), ValueError),  # n mismatch
         (torch.zeros(4, 6), torch.zeros(6, dtype=torch.float64), TypeError),  # dtype mismatch
         (torch.zeros(4, 6, dtype=torch.int32), torch.zeros(6, dtype=torch.int32), TypeError),
-        (torch.zeros(2, 4, 6), torch.zeros(6), ValueError),  # batched: not yet
+        (torch.zeros(2, 4, 6), torch.zeros(6), ValueError),  # batched A, unbatched d
+        (torch.zeros(2, 4, 6), torch.zeros(3, 6), ValueError),  # lane counts differ
+        (torch.zeros(2, 2, 4, 6), torch.zeros(2, 2, 6), ValueError),  # two batch axes
     ],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(A, d, err):
@@ -105,3 +111,75 @@ def test_reference_is_the_plain_expression():
     A, d = _inputs(12, 30, 6, np.float64)
     At, dt = torch.from_numpy(A), torch.from_numpy(d)
     torch.testing.assert_close(normal_eq_reference(At, dt), (At * dt[None, :]) @ At.T, rtol=0, atol=0)
+
+
+def _batched_inputs(B, m, n, seed, dtype):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, m, n)).astype(dtype)
+    d = (rng.random((B, n)) + 0.1).astype(dtype)
+    return A, d
+
+
+@pytest.mark.parametrize("B,m,n", [(4, 16, 40), (3, 37, 101)])
+def test_batched_plain_version_equals_the_per_lane_reference(B, m, n):
+    A, d = _batched_inputs(B, m, n, 8, np.float64)
+    At, dt = torch.from_numpy(A), torch.from_numpy(d)
+    M = normal_eq(At, dt)
+    assert M.shape == (B, m, m) and M.dtype == torch.float64
+    for i in range(B):
+        lane = normal_eq_reference(At[i], dt[i])
+        torch.testing.assert_close(M[i], lane, rtol=1e-12, atol=1e-12 * float(lane.abs().max()))
+        Mr = np.asarray(jax_reference(jnp.asarray(A[i]), jnp.asarray(d[i])))
+        np.testing.assert_allclose(M[i].numpy(), Mr, rtol=1e-12, atol=1e-12 * np.abs(Mr).max())
+
+
+def test_batched_f32_matches_pallas_lane_by_lane():
+    A, d = _batched_inputs(3, 37, 101, 9, np.float32)
+    M = normal_eq(torch.from_numpy(A), torch.from_numpy(d))
+    for i in range(3):
+        Mp = normal_eq_pallas(jnp.asarray(A[i]), jnp.asarray(d[i]), block_m=128, block_k=128,
+                              interpret=True)
+        # The tolerances of tests/test_ops.py for one k tile.
+        np.testing.assert_allclose(M[i].numpy(), np.asarray(Mp), rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shared", [None, "A", "d"])
+def test_vmap_of_the_op_equals_the_batched_plain_version(shared):
+    """``torch.func.vmap`` over lanes goes through the op's vmap rule (the
+    per-sample fallback is off); an input shared by every lane is
+    broadcast."""
+    A, d = _batched_inputs(5, 12, 30, 10, np.float64)
+    At, dt = torch.from_numpy(A), torch.from_numpy(d)
+    if shared == "A":
+        At = At[0]
+    elif shared == "d":
+        dt = dt[0]
+    in_dims = (None if shared == "A" else 0, None if shared == "d" else 0)
+    was = torch._C._functorch._is_vmap_fallback_enabled()
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        M = torch.func.vmap(normal_eq, in_dims=in_dims)(At, dt)
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(was)
+    Ab = At.expand(5, *At.shape) if shared == "A" else At
+    db = dt.expand(5, *dt.shape) if shared == "d" else dt
+    assert M.shape == (5, 12, 12)
+    torch.testing.assert_close(M, normal_eq_reference(Ab, db), rtol=0, atol=0)
+
+
+def test_first_call_loads_no_heavy_modules():
+    """The op's first call in a fresh process imports none of the modules
+    whose loading made ``torch.library.custom_op``'s first call cost
+    seconds of a cold solve's setup (sympy, torch._dynamo,
+    torch.distributed.tensor)."""
+    code = (
+        "import sys, torch\n"
+        "from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq\n"
+        "normal_eq(torch.ones(3, 5, dtype=torch.float64), torch.ones(5, dtype=torch.float64))\n"
+        "print([k for k in ('sympy', 'torch._dynamo', 'torch.distributed.tensor') if k in sys.modules])\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
