@@ -64,7 +64,30 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    the dense solo solve on the card (1e-8, both stopping at a 1e-8 gap);
    and a profiled warm solve
    (trace ``build/dlps_torch/batched_trace.json``);
-9. prints the ``kernels`` JSON line, the card line, and last the result
+9. the serve phase (``serve/service.py::SolveService`` over
+   ``backends/batched.py::solve_bucket``) at the batched member width,
+   every request padded into the bucket (128, 512, 256): K1 at the bucket
+   shape (256 lanes of 128×512, f64) against its plain version and
+   ``torch.einsum``; then ``SolveService(ServiceConfig(batch=256,
+   flush_s=0.02))`` on the card driven with three waves — a cold
+   ``random_request_stream(1024, shapes=((96, 384), (128, 512)),
+   seed=21)``, a warm one (``seed=22``) and
+   ``correlated_request_stream(512, shapes=((128, 512),), n_models=4,
+   seed=23)`` — with the K1 count reset just before each wave and read
+   just after: every request OPTIMAL, or at the iteration limit with its
+   bucket's and its solo solve's budgets spent (the JAX package's verdict
+   for such a request), every 32nd against HiGHS (1e-8; HiGHS at
+   feasibility tolerances of 1e-10), no
+   bucket program built and no graph captured over the warm and
+   correlated waves, warm starts taken in the correlated wave, and the K1
+   launches of each dispatch equal to its start + warm selection +
+   bodies; printed per wave: requests/s, p50/p99 latency, pack / compile /
+   solve / overlap ms, padding waste, bodies per dispatch, solo
+   fallbacks and peak device memory; then a fourth wave of 512 requests
+   under ``torch.profiler`` (device busy ms and idle share of its wall,
+   trace ``build/dlps_torch/serve_trace.json``). Then ``cli serve --requests`` on 8
+   requests of 128×512 in a subprocess, all ``optimal``;
+10. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -388,6 +411,22 @@ def highs_objective(p) -> float:
     return -obj if p.maximize else obj
 
 
+def highs_tight_objective(p) -> float:
+    """HiGHS on a standard-form request (min cᵀx, Ax = b, x ≥ 0) at primal
+    and dual feasibility tolerances of 1e-10. At its default 1e-7 HiGHS
+    can stop ~3e-8 from the optimum — more than the 1e-8 the serve phase
+    holds: request 480 of the correlated wave reads 3.0e-8 from the IPM's
+    answer at 1e-7 and 1.6e-9 at 1e-10 (rel_gap 1.8e-9, pinf 1e-12)."""
+    import scipy.optimize as sopt
+
+    h = sopt.linprog(p.c, A_eq=p.A, b_eq=p.rlb, bounds=(0, None), method="highs",
+                     options={"primal_feasibility_tolerance": 1e-10,
+                              "dual_feasibility_tolerance": 1e-10})
+    if h.status != 0:
+        fail(f"HiGHS did not solve {p.name}: {h.message}")
+    return h.fun
+
+
 # Host calls that each put one operation on the card: kernel launches
 # (runtime and driver API), graph launches, copies and fills.
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -641,6 +680,177 @@ def batched_phase(torch, ne, card):
     return parity, timings, cold
 
 
+# The serve phase: requests at the batched member width, padded into one
+# bucket shape of SERVE_BATCH slots (BASELINE.json:11's members).
+SERVE_BATCH = 256
+SERVE_SAMPLE = 32  # every 32nd request against HiGHS
+
+
+def serve_wave(torch, ne, svc, tag, problems, card):
+    """Submit ``problems`` to the running service and wait for all: the
+    wave's row (printed) and results. K1's launch count is reset just
+    before and read just after; each dispatch row must hold K1 = start +
+    warm selection + bodies (and the same for a cold bucket's
+    one-iteration warm-up), and the wave's count must equal the
+    dispatches' plus the solo solves'."""
+    from distributedlpsolver_tpu_torch.backends import batched as tb
+    from distributedlpsolver_tpu_torch.serve import latency_summary
+
+    rows0 = len(svc.dispatch_report())
+    size0, caps0 = tb.bucket_cache_size(), tb.bucket_capture_count()
+    torch.cuda.reset_peak_memory_stats()
+    ne.normal_eq.launches = 0
+    t0 = time.perf_counter()
+    futs = [svc.submit(p) for p in problems]
+    submit_s = time.perf_counter() - t0
+    if not svc.drain(timeout=900):
+        fail(f"serve {tag}: the service did not drain")
+    wall = time.perf_counter() - t0
+    launches = ne.normal_eq.launches
+    results = [f.result() for f in futs]
+    rows = svc.dispatch_report()[rows0:]
+    bucket_launches = sum(r["launches"] + r["warmup_launches"] for r in rows)
+    solo = [r for r in results if r.retried_solo or r.bucket is None]
+    summ = latency_summary(results)
+    n = max(len(rows), 1)
+    row = {
+        "wave": tag, "requests": len(results), "wall_s": wall,
+        "rps": len(results) / wall, "submit_s": submit_s,
+        "latency_ms_p50": summ["latency_ms_p50"],
+        "latency_ms_p99": summ["latency_ms_p99"], "dispatches": len(rows),
+        "live": [r["live"] for r in rows],
+        "pack_ms": [r["pack_ms"] for r in rows], "compile_ms": [r["compile_ms"] for r in rows],
+        "solve_ms": [r["solve_ms"] for r in rows], "overlap_ms": [r["overlap_ms"] for r in rows],
+        "padding_waste_mean": summ.get("mean_padding_waste"),
+        "bodies_per_dispatch": [r["bodies"] for r in rows],
+        "bodies_mean": sum(r["bodies"] for r in rows) / n,
+        "replays": sum(r["replays"] for r in rows),
+        "captures": sum(r["captures"] + r["warmup_captures"] for r in rows),
+        "normal_eq_launches": launches, "bucket_launches": bucket_launches,
+        "solo_fallbacks": len(solo), "solo_ms": [r.solve_ms for r in solo],
+        "solo_members": [(r.name, r.iterations, [f.detail[:60] for f in r.faults]) for r in solo],
+        "warm_used": sum(1 for r in results if r.warm == "warm"),
+        "iterations_mean": sum(r.iterations for r in results) / max(len(results), 1),
+        "programs_built": tb.bucket_cache_size() - size0,
+        "graphs_captured": tb.bucket_capture_count() - caps0,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "status": summ["status_breakdown"],
+    }
+    print(f"serve_{tag} " + json.dumps(row) + f" [{card}]")
+    for r in rows:
+        if r["launches"] != 2 + r["bodies"] or (
+                r["warmup_launches"] != (2 if r["warmup_bodies"] else 0) + r["warmup_bodies"]):
+            fail(f"serve {tag}: dispatch {r['dispatch']} K1 launches {r['launches']} "
+                 f"(+{r['warmup_launches']} warm-up) for start + warm selection + "
+                 f"{r['bodies']} bodies (+{r['warmup_bodies']})")
+    if launches == 0 or launches < bucket_launches or (not solo and launches != bucket_launches):
+        fail(f"serve {tag}: {launches} K1 launches in the wave, {bucket_launches} in its "
+             f"dispatches, {len(solo)} solo solves")
+    return row, results
+
+
+def serve_phase(torch, ne, card):
+    """The serve phase (see the module note, step 9). Returns K1's parity
+    and timing at the bucket shape and the waves' rows."""
+    import tempfile
+
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.models import (
+        correlated_request_stream,
+        random_request_stream,
+    )
+    from distributedlpsolver_tpu_torch.serve import ServiceConfig, SolveService
+
+    parity = kernel_parity(torch, ne, BM, BN, "float64", batch=SERVE_BATCH)
+    timing = kernel_timing(torch, ne, BM, BN, "float64", iters=20, warm=3, batch=SERVE_BATCH)
+    print(f"parity normal_eq serve bucket float64 {shape_name(BM, BN, SERVE_BATCH)}: rel_err "
+          f"{parity[0]:.3e} max_abs_err {parity[1]:.3e} (tol {TOL['float64']:.0e})")
+    print(f"timing normal_eq serve bucket float64 {shape_name(BM, BN, SERVE_BATCH)}: kernel "
+          f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, library(einsum) "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}), "
+          f"bound share {timing['bound_share']:.3f} [{card}]")
+
+    waves = [
+        ("cold", list(random_request_stream(1024, shapes=((96, 384), (BM, BN)), seed=21))),
+        ("warm", list(random_request_stream(1024, shapes=((96, 384), (BM, BN)), seed=22))),
+        ("correlated", list(correlated_request_stream(512, shapes=((BM, BN),), n_models=4, seed=23))),
+    ]
+    rows = {}
+    max_iter = SolverConfig().max_iter
+    with SolveService(ServiceConfig(batch=SERVE_BATCH, flush_s=0.02)) as svc:
+        for tag, problems in waves:
+            row, results = serve_wave(torch, ne, svc, tag, problems, card)
+            # OPTIMAL, or the JAX package's verdict for a request its bucket
+            # and its solo solve both left short of the tolerance after
+            # max_iter iterations (scripts/port_serve_jax_verdicts.py gives
+            # it on the CPU for these streams).
+            limited = [k for k, r in enumerate(results) if r.status.value != "optimal"]
+            bad = [(k, results[k].status.value, results[k].iterations) for k in limited
+                   if not (results[k].status.value == "iteration_limit" and results[k].retried_solo
+                           and results[k].iterations == max_iter)]
+            if bad:
+                fail(f"serve {tag}: requests neither OPTIMAL nor at the iteration limit with "
+                     f"the solo budget spent: {bad[:10]}")
+            if limited:
+                print(f"serve_{tag}: at the iteration limit after the solo ladder: "
+                      f"{[(k, results[k].name) for k in limited]}")
+            for r in results:
+                if r.bucket is not None and tuple(r.bucket) != (BM, BN, SERVE_BATCH):
+                    fail(f"serve {tag}: request {r.name} in bucket {r.bucket}")
+            worst = 0.0
+            for k in range(0, len(problems), SERVE_SAMPLE):
+                if results[k].status.value != "optimal":
+                    continue  # at the JAX package's verdict (checked above)
+                h = highs_tight_objective(problems[k])
+                e = abs(results[k].objective - h) / (1.0 + abs(h))
+                worst = max(worst, e)
+                if not e <= 1e-8:
+                    fail(f"serve {tag}: request {k} objective {results[k].objective!r} vs HiGHS {h!r}")
+            row["highs_max_rel"] = worst
+            print(f"serve_{tag}: {len(range(0, len(problems), SERVE_SAMPLE))} requests vs HiGHS max rel "
+                  f"{worst:.3e} (tol 1e-8)")
+            rows[tag] = row
+        # Where a warm wave's time goes: one more wave under the profiler.
+        extra = list(random_request_stream(512, shapes=((96, 384), (BM, BN)), seed=24))
+        (prow, _), prof = device_profile(
+            torch, lambda: serve_wave(torch, ne, svc, "profiled", extra, card), "serve")
+        print("profile_serve " + json.dumps({
+            "wall_s": prow["wall_s"], "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * prow["wall_s"]),
+            **{k: v for k, v in prof.items() if k != "device_busy_ms"},
+        }) + f" [{card}]")
+        stats = svc.stats()
+    for tag in ("warm", "correlated"):
+        if rows[tag]["programs_built"] or rows[tag]["graphs_captured"]:
+            fail(f"serve {tag}: {rows[tag]['programs_built']} bucket programs built, "
+                 f"{rows[tag]['graphs_captured']} graphs captured")
+    if rows["correlated"]["warm_used"] <= 0:
+        fail("serve correlated: no request started warm")
+    from distributedlpsolver_tpu_torch.backends.batched import bucket_donation_report
+
+    print("serve_bucket_memory " + json.dumps(bucket_donation_report(BM, BN, SERVE_BATCH))
+          + f" [{card}]")
+    print("serve_stats " + json.dumps({k: stats[k] for k in (
+        "requests", "dispatches", "programs_compiled", "pack_ms_total", "overlap_ms_total",
+        "warm_cache", "buckets")}) + f" [{card}]")
+
+    # The CLI, in a fresh process: 8 requests of 128×512.
+    with tempfile.TemporaryDirectory() as d:
+        req = os.path.join(d, "requests.jsonl")
+        with open(req, "w") as fh:
+            for k in range(8):
+                fh.write(json.dumps({"m": BM, "n": BN, "seed": k}) + "\n")
+        proc = subprocess.run(
+            [sys.executable, "-m", "distributedlpsolver_tpu_torch.cli", "serve", "--requests", req],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+        )
+    recs = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(recs) != 8 or any(r["status"] != "optimal" for r in recs):
+        fail(f"cli serve: rc {proc.returncode}, {[r.get('status') for r in recs]}\n{proc.stderr[-3000:]}")
+    print(f"cli serve: 8 requests of {BM}x{BN}, all optimal, iterations {[r['iterations'] for r in recs]}")
+    return parity, timing, rows
+
+
 def main() -> int:
     import torch
 
@@ -751,6 +961,9 @@ def main() -> int:
     torch._C._functorch._set_vmap_fallback_enabled(False)
     b_parity, b_timings, b_cold = batched_phase(torch, ne, card)
 
+    # 9. The serve phase.
+    s_parity, s_timing, s_rows = serve_phase(torch, ne, card)
+
     main_t = timings[0]
     batched_t = b_timings[0]
     kernels = {"kernels": [{
@@ -789,6 +1002,24 @@ def main() -> int:
         "dtypes": ["float64", "float32", "bfloat16"],
         "shape": batched_t["shape"],
         "timings": b_timings,
+    }, {
+        "name": "normal_eq (serve bucket)",
+        "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        # The serve path's launches over its three waves (one for every
+        # lane of a bucket at a time).
+        "launches": sum(r["normal_eq_launches"] for r in s_rows.values()),
+        "max_abs_err": s_parity[1],
+        "ms": s_timing["ms"],
+        "plain_ms": s_timing["plain_ms"],
+        "bound_ms": s_timing["bound_ms"],
+        "bound_by": s_timing["bound_by"],
+        "bound_share": s_timing["bound_share"],
+        "library_ms": s_timing["library_ms"],
+        "kernel_ms": s_timing["ms"],
+        "dtypes": ["float64"],
+        "shape": s_timing["shape"],
     }]}
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -35,16 +35,22 @@ compaction (B → B/2 → … → 32, each program size its own captured loop).
 Members left unfinished re-solve alone through the ``cuda`` backend on the
 same device, warm-started from their batched iterates.
 
+The serving half, :func:`solve_bucket`, solves one pre-padded bucket
+with a padding mask and per-slot warm lanes through ONE cached program per
+bucket key (:class:`_BucketProgram`: static device buffers and one
+captured graph of the same masked loop, replayed by every later dispatch).
+
 Not ported here: the two-phase and PCG batched schedules (reachable only
-on a TPU or by ``solve_mode="pcg"``, which raises), the mesh (``mesh=``
-raises), and the serving half of the JAX module — ``solve_bucket``, its
-placement, in-program warm selection and the compile-cache reports.
+on a TPU or by ``solve_mode="pcg"``, which raises), the bucket df32
+precision ladder and fused iterations (they raise), and the mesh
+(``mesh=`` raises).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Optional
 
@@ -57,6 +63,7 @@ from distributedlpsolver_tpu_torch.ipm import core, device_loop
 from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
 from distributedlpsolver_tpu_torch.ipm.state import IPMState, Status
 from distributedlpsolver_tpu_torch.models.generators import BatchedLP
+from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
 from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq
 
 _RUNNING, _OPTIMAL, _MAXITER, _NUMERR = 0, 1, 2, 3
@@ -84,7 +91,7 @@ class BatchedResult:
     phase_report: Optional[list] = None
     # Iterations fused per trip of the device loop (one graph body).
     fused_iters: int = 1
-    # Fields of the JAX package's bucket path (not ported): always None.
+    # Fields of the bucket path (solve_bucket); None from solve_batched.
     y: Optional[np.ndarray] = None
     s: Optional[np.ndarray] = None
     w: Optional[np.ndarray] = None
@@ -228,14 +235,14 @@ def _batched_meta(carry):
 
 
 def _batched_loop(A, Af, data, params, factor_dtype, stall_window, stall_status,
-                  fuse_iters=1):
+                  fuse_iters=1, **loop_kw):
     """One phase's masked batched loop at one program size, in a
     :class:`device_loop.DeviceLoop` (one captured graph on a card).
 
     ``fuse_iters`` = k puts k masked micro-steps into one body (one graph
     replay): each re-checks the guard on its own carry, so the results
     are the bits of k = 1, and at most k - 1 guarded no-op steps run where
-    a body straddles the finish."""
+    a body straddles the finish. ``loop_kw`` goes to the DeviceLoop."""
     step_v = _vstep(params, factor_dtype, Af is not None)
 
     def step(states, regs):
@@ -255,7 +262,8 @@ def _batched_loop(A, Af, data, params, factor_dtype, stall_window, stall_status,
         "max_refactor": torch.zeros((), **i32),
         "reg_grow": torch.zeros((), dtype=A.dtype, device=A.device),
     }
-    return device_loop.DeviceLoop(body, cond, _batched_meta, inputs, counters=(normal_eq,))
+    return device_loop.DeviceLoop(body, cond, _batched_meta, inputs, counters=(normal_eq,),
+                                  **loop_kw)
 
 
 def _run_loop(loop, carry, it_stop, cfg):
@@ -565,6 +573,463 @@ def _drive_compacting(mk_run_seg, carry, A, data, Af, cfg, seg, B, tail, cleanup
         iters_out[:B],
         torch.full((B,), float("inf"), dtype=dtype, device=dev),
         zi,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Bucket entry point (serve/): a pre-padded batch + active mask, one cached
+# program per bucket key, reused verbatim across service dispatches.
+
+
+def _warm_build_single(a, d, x, y, s, w, z, reg0, fdt):
+    """Twin of ipm.warm.interior_candidate for ONE bucket slot (vmapped
+    by :func:`_warm_select`): interior shift → primal projection onto the
+    new b (one AAᵀ solve) → dual slack refresh on the new c →
+    residual-aware centrality lift. Policy constants come from
+    ipm/warm.py. Returns (candidate, merit, μ_w).
+
+    The projection's solve is two triangular solves (``tri_solves``): the
+    batched ``cholesky_solve`` allocates on every call (see
+    ``dense._cholesky_ops``)."""
+    from distributedlpsolver_tpu_torch.ipm import warm as warm_mod
+
+    floor = warm_mod.INTERIOR_FLOOR
+    ops = dense._make_ops(a, reg0, fdt, 0, tri_solves=True)
+    xm = x.abs().mean().clamp_min(1.0)
+    sm = s.abs().mean().clamp_min(1.0)
+    x1 = torch.maximum(x, floor * xm)
+    # Primal projection: x += Aᵀ(AAᵀ)⁻¹(b − Ax) lands the candidate on the
+    # new feasible affine (the clip after re-opens a floor-sized residual
+    # at worst). A degenerate factorization NaNs the merit and the slot
+    # falls back to cold — the safeguard's job.
+    fac = ops.factorize(torch.ones_like(x))
+    x1 = x1 + ops.rmatvec(ops.solve(fac, d.b - ops.matvec(x1)))
+    x1 = torch.maximum(x1, floor * xm)
+    hub, u_f = d.hub, d.u_f
+    x1 = torch.where(hub > 0, torch.minimum(torch.maximum(x1, 0.01 * u_f), 0.99 * u_f), x1)
+    w1 = torch.where(hub > 0, u_f - x1, torch.ones_like(w))
+    # Dual refresh: s − z = c − Aᵀy exactly wherever the positive split
+    # allows, a floor-shift on both parts elsewhere.
+    s_hat = d.c - ops.rmatvec(y)
+    z1 = torch.where(hub > 0, torch.maximum(z, floor * sm), torch.zeros_like(z))
+    s1 = torch.where(hub > 0, s_hat + z1, torch.maximum(s_hat, floor * sm))
+    deficit = torch.where(hub > 0, (floor * sm - s1).clamp_min(0.0), torch.zeros_like(s1))
+    s1 = s1 + deficit
+    z1 = z1 + deficit
+    mu_w = (x1 @ s1 + (hub * w1) @ z1) / d.ncomp
+    pinf, dinf, *_ = core.residual_norms(ops, d, IPMState(x=x1, y=y, s=s1, w=w1, z=z1))
+    merit = torch.maximum(pinf, dinf)
+    # Residual-aware centrality lift (MERIT_MU_FLOOR): raise the SMALLER
+    # factor of any pair whose product trails the recentre target.
+    pobj = d.c @ x1
+    target = torch.maximum(
+        warm_mod.CENTRALITY_BETA * mu_w,
+        warm_mod.MERIT_MU_FLOOR * merit * (1.0 + pobj.abs()) / d.ncomp,
+    )
+    lift = torch.sqrt(torch.clamp(target / (x1 * s1).clamp_min(1e-30), 1.0, 1e16))
+    x2 = torch.where(x1 <= s1, x1 * lift, x1)
+    s2 = torch.where(s1 < x1, s1 * lift, s1)
+    liftw = torch.sqrt(torch.clamp(target / (w1 * z1).clamp_min(1e-30), 1.0, 1e16))
+    w2 = torch.where((hub > 0) & (w1 <= z1), w1 * liftw, w1)
+    z2 = torch.where((hub > 0) & (z1 < w1), z1 * liftw, z1)
+    return IPMState(x=x2, y=y, s=s2, w=w2, z=z2), merit, mu_w
+
+
+def _warm_select(A, data, states_cold, warm_raw, warm_mask, fdt, reg0):
+    """Per-slot safeguarded warm-start selection: candidates built by
+    :func:`_warm_build_single`, each compared against the cold start's
+    initial residual merit AND complementarity; a slot takes the warm
+    iterate only where the mask requests it and both guards accept. Runs
+    on every dispatch (zero warm lanes and an all-false mask on a cold
+    one), so one program serves any warm/cold mix. Returns (states0,
+    warm_used)."""
+    from distributedlpsolver_tpu_torch.ipm import warm as warm_mod
+
+    cand, merit_w, mu_w = torch.func.vmap(
+        lambda a, d, x, y, s, w, z: _warm_build_single(a, d, x, y, s, w, z, reg0, fdt)
+    )(A, data, *warm_raw)
+
+    def cold_stats(a, d, st):
+        ops = dense._make_ops(a, 0.0, fdt, 0)
+        pinf, dinf, _, _, _, _, mu = core.residual_norms(ops, d, st)
+        return torch.maximum(pinf, dinf), mu
+
+    merit_c, mu_c = torch.func.vmap(cold_stats)(A, data, states_cold)
+    tiny = 1e-12
+    ok = (
+        warm_mask
+        & torch.isfinite(merit_w)
+        & torch.isfinite(mu_w)
+        & (merit_w <= warm_mod.WARM_ACCEPT_FACTOR * merit_c.clamp_min(tiny))
+        & (mu_w <= warm_mod.MU_ACCEPT_FACTOR * mu_c.clamp_min(tiny))
+    )
+    B = A.shape[0]
+    pick = lambda wv, cv: torch.where(ok.reshape((B,) + (1,) * (wv.ndim - 1)), wv, cv)
+    return IPMState(*(pick(wv, cv) for wv, cv in zip(cand, states_cold))), ok
+
+
+def _bucket_phase_carry(states, iters, B, reg0, dtype, active0, status=None):
+    """Bucket phase-entry carry: :func:`_fresh_batch_carry` with the
+    padding mask re-applied — padding slots are inactive and report a
+    placeholder _OPTIMAL (the all-settled loop predicate and the demux
+    treat them as finished; serve/service.py demuxes by slot index, so a
+    padding verdict is never read)."""
+    c = _fresh_batch_carry(states, iters, B, reg0, dtype, status=status)
+    states, active, it, regs, bad, st, iters, best, since = c
+    return (states, active & active0, it, regs, bad,
+            torch.where(active0, st, _OPTIMAL).to(torch.int32), iters, best, since)
+
+
+def _bucket_schedule(cfg: SolverConfig, platform: str):
+    """``(phase tiers, fused iterations)`` of a bucket program, refusing
+    what is not ported: the df32 ladder (``ops/df32.py``, Queue 2) and
+    more than one iteration a body (item 5b)."""
+    tiers = cfg.bucket_phases(cfg.tol, platform)
+    if tiers != (("f64", cfg.tol),):
+        raise NotImplementedError(
+            f"bucket schedule {tiers}: the df32 precision ladder is not ported to the "
+            "torch package yet (ROADMAP Queue 2, ops/df32.py)"
+        )
+    fuse = cfg.fused_iters_resolved(platform)
+    if fuse != 1:
+        raise NotImplementedError(
+            f"fused_iters={fuse}: more than one iteration per bucket body is not ported "
+            "to the torch package yet (ROADMAP Queue 1 item 5b)"
+        )
+    return tiers, fuse
+
+
+class _BucketProgram:
+    """One cached bucket program — the counterpart of one compiled
+    ``_solve_bucket_jit`` executable of the JAX package.
+
+    It owns static device buffers for the bucket's A, b, c, ``active``, the
+    five warm lanes and the warm mask, the problem data derived from b
+    and c, and the :class:`DeviceLoop` of the masked batched loop over
+    them. A dispatch ``copy_``s its bucket into the buffers, runs the
+    start (at the phase's params), the warm selection and the loop, and
+    reads the final norms; on a card the loop is ONE CUDA graph, captured
+    at the program's first dispatch (even a one-iteration warm-up; the
+    capture is thread-local, so the serve pack thread may use the card
+    meanwhile), and only replayed after. ``max_iter``,
+    ``max_refactor`` and ``reg_grow`` are device scalars of the loop's
+    inputs and ``reg0`` enters the (eager) start and carry, so a
+    per-request budget is a fill, never a new graph."""
+
+    def __init__(self, B, m, n, dtype, fdt, params, stall_window, fuse, device):
+        zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+        self.fdt, self.params, self.B = fdt, params, B
+        self.A, self.b, self.c = zeros(B, m, n), zeros(B, m), zeros(B, n)
+        self.active = torch.zeros(B, dtype=torch.bool, device=device)
+        self.warm = IPMState(x=zeros(B, n), y=zeros(B, m), s=zeros(B, n), w=zeros(B, n),
+                             z=zeros(B, n))
+        self.warm_mask = torch.zeros(B, dtype=torch.bool, device=device)
+        with _no_vmap_fallback():
+            self.data = _batched_data(self.c, self.b)
+        self.loop = _batched_loop(
+            self.A, None, self.data, params, fdt, 2 * stall_window if stall_window else 0,
+            _STALL, fuse, capture_on_exit=True,
+        )
+        self.lock = threading.Lock()
+
+    def input_bytes(self) -> int:
+        bufs = [self.A, self.b, self.c, self.active, self.warm_mask, *self.warm, *self.data]
+        return sum(t.numel() * t.element_size() for t in bufs)
+
+    def fill(self, A, b, c, active, warm, warm_mask) -> None:
+        """Copy one bucket into the static buffers and refresh the data."""
+        for dst, src in ((self.A, A), (self.b, b), (self.c, c), (self.active, active),
+                         (self.warm_mask, warm_mask), *zip(self.warm, warm)):
+            if dst is not src:
+                dst.copy_(src)
+        for dst, src in zip(self.data, _batched_data(self.c, self.b)):
+            dst.copy_(src)
+
+    def run(self, cfg: SolverConfig, seg: int):
+        """Start, warm selection, the masked loop (whole, or in host
+        segments of ~``seg`` iterations) and the final norms, on the
+        filled buffers. Returns the host-side fields, the loop's
+        iterations and its accounting for this dispatch (``launches``:
+        K1 launches, one for the start, one for the warm selection's
+        projection and one per body)."""
+        B, dtype = self.B, self.A.dtype
+        reg0 = cfg.reg_dual
+        launches0 = normal_eq.launches
+        states0 = _batched_start(self.A, self.data, reg0, self.params, self.fdt)
+        states0, warm_used = _warm_select(
+            self.A, self.data, states0, tuple(self.warm), self.warm_mask, self.fdt, reg0)
+        carry = _bucket_phase_carry(
+            states0, torch.zeros(B, dtype=torch.int32, device=self.A.device), B, reg0, dtype,
+            self.active)
+        before = self.loop.report()
+        run_seg = lambda c, stop: _run_loop(self.loop, c, stop, cfg)
+        if seg:
+            carry, (it, _, _, _) = core.drive_segments(run_seg, carry, cfg.max_iter, 0, seg)
+        else:
+            carry, meta = run_seg(carry, cfg.max_iter)
+            it = int(meta[0])
+        after = self.loop.report()
+        acc = {k: after[k] - before[k]
+               for k in ("runs", "captures", "bodies", "eager", "replays", "masked")}
+        for k in ("eager_ms", "replay_ms"):
+            acc[k] = after[k] - before[k]
+        acc["capture_ms"] = after["capture_ms"] if acc["captures"] else 0.0
+        states, status, iters = carry[0], carry[5], carry[6]
+        status = torch.where(status == _RUNNING, _MAXITER, status)
+        pinf, dinf, rel_gap, pobj = _batched_norms(self.A, self.data, states, self.fdt)
+        acc["launches"] = normal_eq.launches - launches0
+        to_np = lambda v: v.detach().to(torch.float64).cpu().numpy()
+        host = {
+            "status": status.cpu().numpy(), "iterations": iters.cpu().numpy(),
+            "objective": to_np(pobj), "rel_gap": to_np(rel_gap), "pinf": to_np(pinf),
+            "dinf": to_np(dinf), "warm_used": warm_used.cpu().numpy(),
+            **{f: to_np(v) for f, v in zip(IPMState._fields, states)},
+        }
+        return host, int(it), acc
+
+
+# Bucket programs of this process, by key (B, m, n, dtype, factor dtype,
+# step params, stall window, fused iterations, device).
+_PROGRAMS: dict = {}
+_PROGRAMS_LOCK = threading.Lock()
+
+
+def _program(key, make) -> tuple:
+    """(program, built) for ``key``; ``make()`` builds a missing one."""
+    with _PROGRAMS_LOCK:
+        prog = _PROGRAMS.get(key)
+        if prog is not None:
+            return prog, False
+        prog = _PROGRAMS[key] = make()
+        return prog, True
+
+
+def bucket_cache_size() -> int:
+    """Number of bucket programs in this process — the serve layer's
+    recompile telemetry, and the warm-bucket assertion in tests (repeat
+    dispatches to a warm bucket must not grow it). On a card each program
+    holds one captured CUDA graph of its loop (see
+    :func:`bucket_capture_count`); on the CPU its loop runs eagerly."""
+    with _PROGRAMS_LOCK:
+        return len(_PROGRAMS)
+
+
+def bucket_capture_count() -> int:
+    """CUDA-graph captures the bucket programs made so far (one each on a
+    card; a capture on a warm program would show here)."""
+    with _PROGRAMS_LOCK:
+        return sum(p.loop.captures for p in _PROGRAMS.values())
+
+
+def release_bucket_programs() -> None:
+    """Close every bucket program and drop it from the cache (its graph
+    and buffers are freed once no dispatch holds it)."""
+    with _PROGRAMS_LOCK:
+        progs = list(_PROGRAMS.values())
+        _PROGRAMS.clear()
+    for p in progs:
+        with p.lock:
+            p.loop.close()
+
+
+def bucket_donation_report(m: int, n: int, batch: int, config: Optional[SolverConfig] = None,
+                           device=None):
+    """Build a bucket program at the given shape outside the cache,
+    capture its graph with a one-iteration dispatch, and return its
+    memory figures: ``alias_bytes``, the carry the graph updates in place
+    across replays and segments (the counterpart of the JAX package's
+    donated carry); ``argument_bytes``, the program's static input
+    buffers; ``temp_bytes``, the device memory the capture reserved for
+    the graph's private pool. None on the CPU, where no graph exists."""
+    from distributedlpsolver_tpu_torch.models.generators import random_batched_lp
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return None
+    cfg = (config or SolverConfig()).replace(max_iter=1)
+    dtype = dense._torch_dtype(cfg.dtype)
+    _bucket_schedule(cfg, dev.type)
+    prog = _BucketProgram(batch, m, n, dtype, dense._torch_dtype(cfg.factor_dtype_resolved()),
+                          cfg.bucket_phase_params("f64", cfg.tol), cfg.stall_window, 1, dev)
+    placed, act = place_bucket(random_batched_lp(batch, m, n, seed=0), np.ones(batch, bool),
+                               cfg, device=dev)
+    warm, wm = place_warm(None, None, (batch, m, n), cfg, device=dev)
+    try:
+        with _no_vmap_fallback():
+            prog.fill(placed.A, placed.b, placed.c, act, warm, wm)
+            prog.run(cfg, 0)
+        return {
+            "alias_bytes": prog.loop.carry_bytes,
+            "argument_bytes": prog.input_bytes(),
+            "output_bytes": None,
+            "temp_bytes": prog.loop.pool_bytes,
+        }
+    finally:
+        prog.loop.close()
+
+
+def _host_tensor(v, dev: torch.device) -> torch.Tensor:
+    """A host array as a CPU tensor, in pinned memory when it goes to a
+    card (so the copy is asynchronous)."""
+    t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+    if dev.type == "cuda" and not t.is_pinned():
+        t = t.pin_memory()
+    return t
+
+
+def place_bucket(batch: BatchedLP, active, config: Optional[SolverConfig] = None, mesh=None,
+                 device=None):
+    """Host→device transfer of a pre-padded bucket — the PACK stage of the
+    serving pipeline. Casts to the solve dtype and copies to the device
+    asynchronously from pinned memory on the current stream (the service
+    runs it on its pack stream). ``solve_bucket`` accepts the returned
+    (batch, active) verbatim. ``mesh`` is not ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "bucket placement over a mesh is not ported to the torch package yet "
+            "(ROADMAP Queue 1 item 13)")
+    cfg = config or SolverConfig()
+    dev = resolve_device(device)
+    dtype = dense._torch_dtype(cfg.dtype)
+    act = np.asarray(active, dtype=bool) if not isinstance(active, torch.Tensor) else active
+    Bsz = np.asarray(batch.A).shape[0] if not isinstance(batch.A, torch.Tensor) else batch.A.shape[0]
+    if tuple(act.shape) != (Bsz,):
+        raise ValueError(f"active mask shape {tuple(act.shape)} != ({Bsz},)")
+    put = lambda v, dt: _host_tensor(v, dev).to(device=dev, dtype=dt, non_blocking=True)
+    placed = BatchedLP(c=put(batch.c, dtype), A=put(batch.A, dtype), b=put(batch.b, dtype),
+                       name=batch.name)
+    return placed, put(act, torch.bool)
+
+
+def place_warm(warm: Optional[IPMState], warm_mask, shape, config: Optional[SolverConfig] = None,
+               mesh=None, device=None):
+    """Host→device transfer of a bucket's warm-start lanes — the warm half
+    of :func:`place_bucket`. ``warm`` is an IPMState of (B, n)/(B, m) host
+    arrays (None = cold dispatch: zeros), ``warm_mask`` the (B,)
+    offered-slots mask; ``shape`` is the bucket's (B, m, n)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "bucket placement over a mesh is not ported to the torch package yet "
+            "(ROADMAP Queue 1 item 13)")
+    cfg = config or SolverConfig()
+    dev = resolve_device(device)
+    dtype = dense._torch_dtype(cfg.dtype)
+    B, m, n = shape
+    if warm is None:
+        lanes = [np.zeros((B, k)) for k in (n, m, n, n, n)]
+        wm = np.zeros(B, dtype=bool)
+    else:
+        lanes = list(warm)
+        wm = np.asarray(warm_mask, dtype=bool)
+    if wm.shape != (B,):
+        raise ValueError(f"warm mask shape {wm.shape} != ({B},)")
+    put = lambda v, dt: _host_tensor(v, dev).to(device=dev, dtype=dt, non_blocking=True)
+    return IPMState(*(put(v, dtype) for v in lanes)), put(wm, torch.bool)
+
+
+def solve_bucket(
+    batch: BatchedLP,
+    active,
+    config: Optional[SolverConfig] = None,
+    mesh=None,
+    warm: Optional[IPMState] = None,
+    warm_mask=None,
+    device=None,
+    **config_overrides,
+) -> BatchedResult:
+    """Solve one pre-padded serving bucket: ``batch`` is (B, m, n) arrays
+    already padded to the bucket shape (serve/buckets.py), ``active`` a
+    (B,) bool mask — False slots are padding and are frozen from the
+    first iteration (their returned status is a placeholder OPTIMAL and
+    their iterations 0; demux by slot and ignore them). Runs on the first
+    CUDA card unless ``device`` names another (``"cpu"``).
+
+    No chunking and no solo cleanup: the service owns the retry budget of
+    unfinished members. Each (B, m, n, dtype, tol, schedule, device) key
+    has ONE cached program (:class:`_BucketProgram`) reused by every
+    dispatch: on a card its loop is captured once and only replayed after
+    (:func:`bucket_cache_size`, :func:`bucket_capture_count`). The drive
+    is host-segmented when ``segment_iters > 0`` (``core.use_segments``),
+    with the same results.
+
+    ``warm``/``warm_mask`` offer per-slot warm-start iterates (see
+    :func:`place_warm`): offered slots start from the refreshed prior
+    iterate when the safeguard accepts it; ``BatchedResult.warm_used``
+    reports the per-slot outcome. Inputs already placed by
+    :func:`place_bucket`/:func:`place_warm` are used as they are.
+    ``mesh`` is not ported and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "solve_bucket over a mesh is not ported to the torch package yet "
+            "(ROADMAP Queue 1 item 13)")
+    cfg = config or SolverConfig()
+    if config_overrides:
+        cfg = cfg.replace(**config_overrides)
+    dev = resolve_device(device)
+    dtype = dense._torch_dtype(cfg.dtype)
+    fdt = dense._torch_dtype(cfg.factor_dtype_resolved())
+    tiers, fuse = _bucket_schedule(cfg, dev.type)
+    params = cfg.bucket_phase_params(*tiers[-1])
+
+    t0 = time.perf_counter()
+    placed_in = lambda v: isinstance(v, torch.Tensor) and v.device == dev and v.dtype == dtype
+    if placed_in(batch.A):
+        A, b, c = batch.A, batch.b, batch.c
+        act = active if isinstance(active, torch.Tensor) else torch.as_tensor(
+            np.asarray(active, dtype=bool), device=dev)
+    else:
+        placed, act = place_bucket(batch, active, cfg, device=dev)
+        A, b, c = placed.A, placed.b, placed.c
+    Bsz, m, n = A.shape
+    if warm is not None and placed_in(warm.x):
+        warm_states = warm
+        wm = warm_mask if isinstance(warm_mask, torch.Tensor) else torch.as_tensor(
+            np.asarray(warm_mask, dtype=bool), device=dev)
+    else:
+        warm_states, wm = place_warm(warm, warm_mask, (Bsz, m, n), cfg, device=dev)
+    setup_time = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False  # f64/f32 library matmuls exact
+    key = (Bsz, m, n, dtype, fdt, params, cfg.stall_window, fuse, dev)
+    prog, built = _program(key, lambda: _BucketProgram(
+        Bsz, m, n, dtype, fdt, params, cfg.stall_window, fuse, dev))
+    seg = (cfg.segment_iters or 8) if core.use_segments(cfg.segment_iters, dev.type) else 0
+    with prog.lock, _no_vmap_fallback():
+        prog.fill(A, b, c, act, warm_states, wm)
+        host, it, acc = prog.run(cfg, seg)
+    solve_time = time.perf_counter() - t1
+    if built:
+        obs_metrics.get_registry().counter(
+            "bucket_programs_compiled_total",
+            help="batched bucket programs built in this process",
+        ).inc()
+    code_map = {
+        _OPTIMAL: Status.OPTIMAL,
+        _MAXITER: Status.ITERATION_LIMIT,
+        _NUMERR: Status.NUMERICAL_ERROR,
+        _STALL: Status.STALLED,
+    }
+    return BatchedResult(
+        status=np.array([code_map[int(sc)] for sc in host["status"]], dtype=object),
+        objective=host["objective"],
+        x=host["x"],
+        iterations=host["iterations"],
+        rel_gap=host["rel_gap"],
+        pinf=host["pinf"],
+        dinf=host["dinf"],
+        solve_time=solve_time,
+        setup_time=setup_time,
+        phase_report=[{"phase": 0, "engine": tiers[0][0], "tol": tiers[0][1], "iters": it,
+                       "built": built, **acc}],
+        fused_iters=fuse,
+        y=host["y"],
+        s=host["s"],
+        w=host["w"],
+        z=host["z"],
+        warm_used=host["warm_used"],
     )
 
 

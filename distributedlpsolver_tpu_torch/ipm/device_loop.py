@@ -76,14 +76,27 @@ class DeviceLoop:
     the module note). One graph is captured at the first ``run`` that
     gets past its first body, and replayed by every later ``run`` until
     :meth:`close`.
+
+    ``capture_on_exit`` captures the graph after the first eager body even
+    when that body ends the loop, so a one-iteration first run (a serving
+    bucket's warm-up) leaves the graph ready and later runs only replay.
+    The capture is thread-local (``torch.cuda.graph``'s
+    ``capture_error_mode="thread_local"``): other threads may use the card
+    (allocate, copy, record events) while a loop captures, as the serve
+    pack thread does.
     """
 
-    def __init__(self, body, cond, meta, inputs: dict, counters=()):
+    def __init__(self, body, cond, meta, inputs: dict, counters=(),
+                 capture_on_exit: bool = False):
         self._body, self._cond, self._meta = body, cond, meta
         self.inputs = inputs
         self.device = next(iter(inputs.values())).device
         self._counters = tuple(counters)
-        self.runs = self.eager = self.replays = self.masked = 0
+        self._capture_on_exit = capture_on_exit
+        self.runs = self.eager = self.replays = self.masked = self.captures = 0
+        # Device memory the capture reserved for the graph's private pool,
+        # and the bytes of the static carry each replay updates in place.
+        self.pool_bytes = self.carry_bytes = 0
         # Host-clock seconds of the eager first bodies (each read back), the
         # capture, and the replays (queued until the exit was read).
         self.eager_s, self.capture_s, self.replay_s = 0.0, None, 0.0
@@ -101,6 +114,7 @@ class DeviceLoop:
         replays, of the loop so far."""
         return {
             "runs": self.runs,
+            "captures": self.captures,
             "bodies": self.eager + self.replays,
             "eager": self.eager,
             "replays": self.replays,
@@ -159,6 +173,8 @@ class DeviceLoop:
             host = out.cpu().numpy()
             self.eager_s += time.perf_counter() - t0
             if host[-1] == 0:
+                if self._capture_on_exit:
+                    self._capture(leaves, rebuild)
                 return rebuild(leaves), host[:-1]
             self._capture(leaves, rebuild)
         else:
@@ -173,8 +189,12 @@ class DeviceLoop:
         t0 = time.perf_counter()
         self._static = [t.clone() for t in leaves]
         before = [c.launches for c in self._counters]
+        # torch.cuda.graph empties the allocator's cache on entry; doing it
+        # first makes the reserved bytes' growth the graph pool's own.
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
             new, out = self._step(self._static, rebuild)
             for st, v in zip(self._static, new):
                 st.copy_(v)
@@ -183,6 +203,9 @@ class DeviceLoop:
         for c, b in zip(self._counters, before):
             c.launches = b
         self._graph = graph
+        self.captures += 1
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.carry_bytes = sum(t.numel() * t.element_size() for t in self._static)
         slots = DEPTH + 1
         self._pinned = torch.empty((slots, out.numel()), dtype=out.dtype, pin_memory=True)
         self._events = [torch.cuda.Event() for _ in range(slots)]

@@ -15,8 +15,10 @@ recovery of the solution in the original variable space.
 Warm starts are the JAX package's two: a raw :class:`IPMState` is trusted
 verbatim (the checkpoint-resume contract; the batched solver's solo
 cleanup hands its iterates over so), a :class:`ipm.warm.WarmStart` is
-safeguarded by :func:`_init_warm_start`. Not ported yet: the warm cache
-(``warm_cache`` raises ``NotImplementedError``).
+safeguarded by :func:`_init_warm_start`. A ``warm_cache``
+(``serve/warmcache.py``) supplies both, as there: a cached iterate and
+Ruiz scaling for the problem's structural fingerprint, and the store of
+this solve's on an OPTIMAL finish.
 """
 
 from __future__ import annotations
@@ -94,14 +96,15 @@ def solve(
     interior, recentred, and DROPPED for the cold start when its initial
     residuals regress — see ipm/warm.py); presolve is skipped with either,
     since a warm iterate lives in the unreduced space. ``warm_cache`` is
-    not ported yet and raises ``NotImplementedError``; a
+    an optional :class:`serve.warmcache.WarmCache`: the solve looks up the
+    problem's structural fingerprint for a cached scaling and prior
+    iterate (presolve is skipped on this path too), and stores its own
+    scaling and final iterate back on an OPTIMAL finish. A
     ``config.checkpoint_path`` resume works.
     """
     from distributedlpsolver_tpu_torch.backends.base import get_backend
     from distributedlpsolver_tpu_torch.ipm import warm as warm_mod
 
-    if warm_cache is not None:
-        raise NotImplementedError("warm_cache is not ported to the torch package yet")
     cfg = config or SolverConfig()
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
@@ -110,12 +113,24 @@ def solve(
     be = get_backend(backend) if isinstance(backend, str) else backend
 
     original: Optional[LPProblem] = problem if isinstance(problem, LPProblem) else None
+    cache_fp = None
+    cache_entry = None
+    if warm_cache is not None and original is not None:
+        from distributedlpsolver_tpu_torch.utils.fingerprint import structural_fingerprint
+
+        # Model identity of the RAW problem; the entry's shape guard runs
+        # against the interior form below (cached iterates live in
+        # interior space, whose dims differ for general-form inputs).
+        cache_fp = structural_fingerprint(
+            original.A, original.m, original.n, original.lb, original.ub
+        )
     presolve_info = None
     if (
         cfg.presolve
         and original is not None
         and original.block_structure is None  # reductions break the hint
         and warm_start is None  # warm starts are in the unreduced space
+        and cache_fp is None  # cached iterates/scalings are too
     ):
         from distributedlpsolver_tpu_torch.models.presolve import presolve as _presolve
 
@@ -125,13 +140,28 @@ def solve(
         inf = to_interior_form(reduced)
     else:
         inf = to_interior_form(problem) if isinstance(problem, LPProblem) else problem
+    if cache_fp is not None:
+        cache_entry = warm_cache.lookup(cache_fp, inf.m, inf.n)
+        if warm_start is None and cache_entry is not None and cache_entry.state is not None:
+            warm_start = warm_mod.WarmStart(cache_entry.state, source="cache")
 
     scaling = None
     inf_solve = inf
     if cfg.scale:
-        from distributedlpsolver_tpu_torch.models.scaling import equilibrate
+        if (
+            cache_entry is not None
+            and cache_entry.scaling is not None
+            and cache_entry.scaled_A is not None
+        ):
+            # Delta-solve amortization: Ruiz factors depend only on A, so
+            # a same-structure request reuses the cached (Dr, Dc) and
+            # pre-scaled A — only the new b/c/u are rescaled here.
+            scaling = cache_entry.scaling
+            inf_solve = _rescale_interior(inf, scaling, cache_entry.scaled_A)
+        else:
+            from distributedlpsolver_tpu_torch.models.scaling import equilibrate
 
-        inf_solve, scaling = equilibrate(inf)
+            inf_solve, scaling = equilibrate(inf)
 
     logger = IterLogger(
         cfg.verbose, cfg.log_jsonl, fsync=cfg.log_fsync, append=cfg.log_append
@@ -172,6 +202,17 @@ def solve(
         state, start_iter = be.starting_point(), 0
     setup_time = time.perf_counter() - t_setup0
 
+    on_host_state = None
+    if cache_fp is not None:
+        def on_host_state(final_status, host_state):
+            if final_status is not Status.OPTIMAL:
+                return
+            warm_cache.store(
+                cache_fp, m=inf.m, n=inf.n, state=host_state, scaling=scaling,
+                scaled_A=inf_solve.A if scaling is not None else None,
+                structure=inf.block_structure, tol=cfg.tol,
+            )
+
     use_fused = cfg.fused_loop
     if use_fused is None:
         use_fused = not (cfg.checkpoint_every and cfg.checkpoint_path)
@@ -185,7 +226,7 @@ def solve(
                 be, state, status, history, last, solve_time, setup_time,
                 inf, original, backend, start_iter, scaling=scaling,
                 presolve_info=presolve_info, extra_iters=fused_iters,
-                warm_label=warm_label,
+                warm_label=warm_label, on_host_state=on_host_state,
             )
 
     status = Status.ITERATION_LIMIT
@@ -291,6 +332,22 @@ def solve(
         be, state, status, history, last, solve_time, setup_time,
         inf, original, backend, start_iter, extra_iters=it - start_iter,
         scaling=scaling, presolve_info=presolve_info, warm_label=warm_label,
+        on_host_state=on_host_state,
+    )
+
+
+def _rescale_interior(inf: InteriorForm, scaling, scaled_A) -> InteriorForm:
+    """Apply a cached Ruiz scaling (same A by fingerprint contract) to a
+    new interior form: the pre-scaled A is reused as it is, only b, c and
+    u are rescaled."""
+    import dataclasses
+
+    return dataclasses.replace(
+        inf,
+        c=inf.c * scaling.dc,
+        A=scaled_A,
+        b=inf.b * scaling.dr,
+        u=np.where(np.isfinite(inf.u), inf.u / scaling.dc, np.inf),
     )
 
 
@@ -390,7 +447,7 @@ def _try_fused(be, state, cfg: SolverConfig, logger: IterLogger):
 def _finalize(
     be, state, status, history, last, solve_time, setup_time,
     inf, original, backend, start_iter, extra_iters=None, scaling=None,
-    presolve_info=None, warm_label="cold",
+    presolve_info=None, warm_label="cold", on_host_state=None,
 ):
     n_iters = extra_iters if extra_iters is not None else len(history)
     _reg = obs_metrics.get_registry()
@@ -420,6 +477,11 @@ def _finalize(
     host = be.to_host(state)
     if scaling is not None:
         host = scaling.unscale_state(host)
+    if on_host_state is not None:
+        try:  # a warm-cache store must never sink the solve
+            on_host_state(status, host)
+        except Exception:
+            pass
     certificate = None
     if status in (
         Status.PRIMAL_INFEASIBLE,

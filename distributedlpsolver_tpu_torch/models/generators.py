@@ -1,10 +1,11 @@
 """Synthetic LP generators for the benchmark suite and tests.
 
-A copy of ``random_dense_lp``, ``random_sparse_lp``, ``random_general_lp``
-and ``random_batched_lp`` (with ``BatchedLP``) from the JAX package's
-``models/generators.py``: the same seed gives the same problem in both
-packages. The block-angular and request-stream generators are not ported
-yet.
+A copy of ``random_dense_lp``, ``random_sparse_lp``, ``random_general_lp``,
+``random_batched_lp`` (with ``BatchedLP``), ``random_request_stream`` and
+``correlated_request_stream`` from the JAX package's
+``models/generators.py``: the same seed gives the same problem (and the
+same stream) in both packages. The block-angular generators are not
+ported yet.
 
 All generators construct problems that are feasible and bounded *by
 construction* (primal point and dual certificate built first, data derived
@@ -14,6 +15,7 @@ from them), so tests can assert convergence unconditionally.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -186,3 +188,72 @@ def random_batched_lp(batch: int, m: int, n: int, seed: int = 0) -> BatchedLP:
     s0 = rng.uniform(0.5, 2.0, size=(batch, n))
     c = np.einsum("bmn,bm->bn", A, y0) + s0
     return BatchedLP(c=c, A=A, b=b, name=f"batched_{batch}x{m}x{n}_s{seed}")
+
+
+def random_request_stream(
+    n_requests: int,
+    shapes=((8, 24), (12, 32)),
+    seed: int = 0,
+):
+    """Deterministic stream of standard-form LP requests at randomly drawn
+    shapes — the serve/ layer's test and load-probe workload. Each request
+    is a feasible+bounded :func:`random_dense_lp` instance (standard form:
+    all-equality rows, x ≥ 0), so the service routes it to the bucketed
+    fast path and every request has an OPTIMAL reference solve."""
+    rng = np.random.default_rng(seed)
+    for k in range(n_requests):
+        m, n = shapes[int(rng.integers(len(shapes)))]
+        yield random_dense_lp(m, n, seed=int(rng.integers(2**31 - 1)))
+
+
+def correlated_request_stream(
+    n_requests: int,
+    shapes=((8, 24), (12, 32)),
+    n_models: int = 4,
+    jitter: float = 0.01,
+    cost_jitter: Optional[float] = None,
+    seed: int = 0,
+    offset: int = 0,
+):
+    """Correlated serve traffic: a few base MODELS re-solved with
+    perturbed b/c — the workload the warm-start & amortization layer
+    exists for (near-duplicate requests, parameterized streams; same A,
+    new b/c, so same-model requests share one structural fingerprint).
+
+    Each of the ``n_models`` base models fixes (A, x0, y0, s0) on a
+    shape drawn from ``shapes``; each request picks a model uniformly
+    and re-derives ``b = A·(x0·(1+jitter·g))`` and
+    ``c = Aᵀ·y0 + s0·(1+cost_jitter·g)`` from jittered witnesses —
+    every instance stays feasible+bounded by construction (the
+    :func:`random_dense_lp` argument), and the perturbation never
+    touches A or the bounds pattern. Fully seeded: the same seed yields
+    the identical stream, models and jitters included; ``offset`` skips
+    the first draws of that stream, so a follow-on wave continues the
+    SAME models with fresh perturbations (the warm-vs-cold probe's
+    steady-state leg).
+    """
+    if cost_jitter is None:
+        cost_jitter = jitter
+    models = []
+    for i in range(n_models):
+        m, n = shapes[i % len(shapes)]
+        mr = np.random.default_rng((seed, 7919, i))
+        A = mr.standard_normal((m, n))
+        x0 = mr.uniform(0.5, 2.0, size=n)
+        y0 = mr.standard_normal(m)
+        s0 = mr.uniform(0.5, 2.0, size=n)
+        models.append((i, A, x0, y0, s0))
+    rng = np.random.default_rng((seed, 104729))
+    for k in range(offset + n_requests):
+        i, A, x0, y0, s0 = models[int(rng.integers(n_models))]
+        m, n = A.shape
+        xk = x0 * (1.0 + jitter * rng.standard_normal(n))
+        sk = np.maximum(s0 * (1.0 + cost_jitter * rng.standard_normal(n)), 0.05)
+        if k < offset:
+            continue
+        b = A @ xk
+        c = A.T @ y0 + sk
+        yield LPProblem(
+            c=c, A=A, rlb=b, rub=b, lb=np.zeros(n), ub=np.full(n, _INF),
+            name=f"corr_m{i}_{m}x{n}_r{k}",
+        )

@@ -137,8 +137,11 @@ def test_unported_options_raise():
     pt, _ = _pair("random_dense_lp:0")
     with pytest.raises(NotImplementedError):
         solve(pt, backend=get_backend("cuda", device="cpu"), solve_mode="pcg")
-    with pytest.raises(NotImplementedError):
-        solve(pt, backend=get_backend("cuda", device="cpu"), warm_cache=object())
+    # The warm cache is ported (serve/warmcache.py) and no longer raises.
+    from distributedlpsolver_tpu_torch.serve.warmcache import WarmCache
+
+    r = solve(pt, backend=get_backend("cuda", device="cpu"), warm_cache=WarmCache(2))
+    assert r.status == Status.OPTIMAL and r.warm == "cold"
 
 
 def test_hooks_see_every_iteration_and_the_profiler_writes_a_trace(tmp_path):

@@ -1,7 +1,8 @@
 """The CUDA kernel against its plain version (one matrix and a batch of
 lanes), the fused loop (a captured CUDA graph of the Mehrotra step)
-against the host loop, and the batched solver against its CPU path, on
-the card.
+against the host loop, the batched solver against its CPU path, and the
+bucket engine and solve service (one captured graph per bucket, reused),
+on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -285,3 +286,119 @@ def test_batched_segmented_and_fused_give_the_unsegmented_bits(cuda):
     for r in (r3, rs):
         assert np.array_equal(r.iterations, r1.iterations)
         assert np.array_equal(r.x, r1.x)
+
+
+# -- the bucket engine and the service (serve/) ------------------------------
+
+
+def _bucket(B=6, m=16, n=64, live=4, seed=0):
+    """A padded bucket of ``live`` standard-form requests and B - live
+    padding copies, as the service packs it."""
+    from distributedlpsolver_tpu_torch.models.generators import BatchedLP
+    from distributedlpsolver_tpu_torch.serve import pad_standard_form, standard_form
+
+    rows = [pad_standard_form(*standard_form(random_dense_lp(12, 40, seed=seed + k)), m, n)
+            for k in range(live)]
+    rows += [rows[0]] * (B - live)
+    c, A, b = (np.stack(v) for v in zip(*rows))
+    return BatchedLP(c=c, A=A, b=b, name="bucket"), np.arange(B) < live
+
+
+def test_warm_bucket_dispatch_captures_no_graph(cuda):
+    """A bucket program captures its graph at its first dispatch — even a
+    one-iteration warm-up — and a later dispatch only replays: no new
+    program, no capture, K1 = start + warm selection + bodies, and the CPU
+    path's answer."""
+    tbatched.release_bucket_programs()
+    batch, act = _bucket()
+    size0, caps0 = tbatched.bucket_cache_size(), tbatched.bucket_capture_count()
+    tbatched.solve_bucket(batch, act, tol=1e-8, max_iter=1)
+    assert tbatched.bucket_cache_size() == size0 + 1
+    assert tbatched.bucket_capture_count() == caps0 + 1
+    normal_eq.launches = 0
+    r = tbatched.solve_bucket(batch, act, tol=1e-8)
+    launches = normal_eq.launches
+    (row,) = r.phase_report
+    assert tbatched.bucket_cache_size() == size0 + 1
+    assert tbatched.bucket_capture_count() == caps0 + 1
+    assert row["captures"] == 0 and row["eager"] == 0 and row["replays"] == row["bodies"] > 0
+    assert launches == row["launches"] == 2 + row["bodies"]
+    rc = tbatched.solve_bucket(batch, act, tol=1e-8, device="cpu")
+    assert [s.value for s in r.status] == [s.value for s in rc.status]
+    assert np.array_equal(r.iterations, rc.iterations)
+    assert np.all(r.iterations[~act] == 0)
+    assert np.all(np.abs(r.objective - rc.objective) <= 1e-9 * (1 + np.abs(rc.objective)))
+    r2 = tbatched.solve_bucket(batch, act, tol=1e-8)
+    assert np.array_equal(r2.x, r.x)
+
+
+def test_bucket_capture_under_a_concurrent_pack(cuda):
+    """A bucket program captures (thread-local mode) while another thread
+    allocates pinned memory, copies host→device on its own stream and
+    records events — the service's pack stage — without failing either."""
+    import threading
+
+    tbatched.release_bucket_programs()
+    stop, errors = threading.Event(), []
+
+    def pack():
+        stream = torch.cuda.Stream()
+        try:
+            while not stop.is_set():
+                h = torch.zeros((64, 32, 128), dtype=torch.float64, pin_memory=True)
+                with torch.cuda.stream(stream):
+                    d = h.to("cuda", non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                ev.synchronize()
+                del d
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=pack)
+    t.start()
+    try:
+        for seed in range(3):
+            batch, act = _bucket(B=5 + seed, seed=seed)
+            r = tbatched.solve_bucket(batch, act, tol=1e-8)
+            assert all(s.value == "optimal" for s in r.status)
+    finally:
+        stop.set()
+        t.join()
+    assert not errors
+    assert tbatched.bucket_capture_count() == 3
+
+
+def test_service_overlaps_pack_with_solve_on_two_buckets(cuda):
+    """On a stream over two bucket shapes the pack of one batch runs under
+    the solve of another: overlap_ms > 0; every request OPTIMAL; a second
+    wave builds no program and captures no graph."""
+    from distributedlpsolver_tpu_torch.models import random_request_stream
+    from distributedlpsolver_tpu_torch.serve import ServiceConfig, SolveService
+
+    cfg = ServiceConfig(batch=32, flush_s=0.005)
+    shapes = ((48, 160), (96, 384))
+    with SolveService(cfg) as svc:
+        futs = [svc.submit(p) for p in random_request_stream(256, shapes=shapes, seed=1)]
+        assert svc.drain(timeout=300)
+        size0, caps0 = tbatched.bucket_cache_size(), tbatched.bucket_capture_count()
+        futs += [svc.submit(p) for p in random_request_stream(256, shapes=shapes, seed=2)]
+        assert svc.drain(timeout=300)
+        stats = svc.stats()
+    assert all(f.result().status is Status.OPTIMAL for f in futs)
+    assert tbatched.bucket_cache_size() == size0 and tbatched.bucket_capture_count() == caps0
+    assert stats["overlap_ms_total"] > 0
+
+
+def test_bucket_donation_report_on_the_card(cuda):
+    """The carry a bucket graph updates in place, its static inputs and
+    its private pool, from a program built outside the cache."""
+    size = tbatched.bucket_cache_size()
+    rep = tbatched.bucket_donation_report(16, 64, 4)
+    B, m, n = 4, 16, 64
+    # The carry: five state lanes, and per lane the mask, regs, counters,
+    # status, iterations, best and since, plus the phase counter.
+    assert rep["alias_bytes"] >= 8 * B * (4 * n + m)
+    assert rep["argument_bytes"] >= 8 * B * m * n
+    assert rep["temp_bytes"] >= 0
+    assert tbatched.bucket_cache_size() == size

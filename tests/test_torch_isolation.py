@@ -53,12 +53,25 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
         "import distributedlpsolver_tpu_torch, distributedlpsolver_tpu_torch.cli\n"
         "import distributedlpsolver_tpu_torch.backends, distributedlpsolver_tpu_torch.interop\n"
         "import distributedlpsolver_tpu_torch.backends.batched, distributedlpsolver_tpu_torch.ipm.warm\n"
+        "import distributedlpsolver_tpu_torch.serve, distributedlpsolver_tpu_torch.serve.service\n"
+        "import distributedlpsolver_tpu_torch.serve.autotune, distributedlpsolver_tpu_torch.supervisor\n"
+        "import distributedlpsolver_tpu_torch.obs.stats\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_serving_modules_are_scanned():
+    """The AST scan above covers the serving stack this package added."""
+    rel = {os.path.relpath(f, PORT) for f in _port_sources()}
+    for mod in ("serve/service.py", "serve/buckets.py", "serve/scheduler.py", "serve/records.py",
+                "serve/warmcache.py", "serve/journal.py", "serve/autotune.py", "obs/stats.py",
+                "supervisor/supervisor.py", "supervisor/watchdog.py", "supervisor/adaptive.py",
+                "supervisor/faults.py"):
+        assert mod in rel
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):

@@ -128,6 +128,16 @@ def test_scaled_prior_is_rejected_like_the_jax_driver(case):
 
 
 def test_warm_cache_still_raises(case):
-    it1, _, _ = case
-    with pytest.raises(NotImplementedError):
-        solve(it1, backend=_cpu(), warm_cache=object())
+    """The warm cache is ported now (it raised before): on an interior
+    form it is left unused, as by the JAX driver — nothing looked up,
+    nothing stored, the cold answer."""
+    from distributedlpsolver_tpu.serve.warmcache import WarmCache as JaxWarmCache
+    from distributedlpsolver_tpu_torch.serve.warmcache import WarmCache
+
+    it1, ij1, _ = case
+    cache, jcache = WarmCache(2), JaxWarmCache(2)
+    rt = solve(it1, backend=_cpu(), tol=1e-8, warm_cache=cache)
+    rj = jax_solve(ij1, backend="tpu", tol=1e-8, warm_cache=jcache)
+    assert cache.stats() == jcache.stats()
+    assert cache.stats()["stores"] == 0 and rt.warm == rj.warm == "cold"
+    assert rt.iterations == rj.iterations and _rel(rt.objective, rj.objective) <= 1e-9
