@@ -87,7 +87,46 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    under ``torch.profiler`` (device busy ms and idle share of its wall,
    trace ``build/dlps_torch/serve_trace.json``). Then ``cli serve --requests`` on 8
    requests of 128×512 in a subprocess, all ``optimal``;
-10. prints the ``kernels`` JSON line, the card line, and last the result
+10. the default backend of the CLI and the service, ``auto``:
+   ``solve(random_dense_lp(2048, 10240, seed=0), backend="auto")`` must
+   report ``auto(cuda)``, give x bit for bit equal to ``backend="cuda"``
+   (``solve()``'s default, as ``tpu`` is the JAX package's) and launch K1
+   as often (1 + bodies); ``cli solve`` with no ``--backend`` on a
+   256×1024 MPS file must report ``auto(cuda)`` and the x of
+   ``backend="cuda"``;
+11. the route table: ``choose_backend_name`` on the card for every input
+   the smoke solves (the MPS fixtures, the main path, a 128×512 request,
+   batched member 775) — ``cuda`` for each, where the JAX package's
+   accelerator route sends the small ones to the host — the fixtures
+   solved by ``auto`` to check that the route taken is the route printed;
+12. the solo cost on both routes: the serve streams' stragglers (cold
+   request 1007, correlated request 187) and member 775, each solved
+   alone by the supervised solo path on the ``cuda`` host loop and, asked
+   for by name, on ``cpu-native`` (CPU numbers, with the host's CPU model
+   and the native library's threads);
+13. in the serve phase (step 9), under the JAX package's default
+   ``ServiceConfig(batch=256, flush_s=0.02)`` (solo ``auto``, PDHG
+   routing on): the three waves' solo fallbacks on ``auto(cuda)``, the
+   cold wave again with ``solo_backend="cpu-native"`` (the host route,
+   asked for by name), and the PDHG wave —
+   ``warm_buckets(..., tol=1e-4)``, then ``sparse_request_stream(1024,
+   seed=25)`` at tol 1e-4 with ``random_request_stream(64, seed=26)`` at
+   1e-8 interleaved: every loose request on engine ``pdhg`` and every
+   tight one on ``ipm``, no program built and no graph captured during the
+   wave, every OPTIMAL PDHG answer at pinf, dinf and gap ≤ 1e-4 recomputed
+   on the host on the problem the engine solved (the request padded into
+   its bucket) and, on the request's own data, within the bound
+   ``PDHG_REQUEST_KKT_BOUND``, the (engine, status) of every request the JAX package's
+   (``scripts/port_serve_jax_verdicts.py --streams pdhg``), crossovers
+   counted, ms a body against the bytes bound;
+14. the solo PDHG engine: ``solve(random_dense_lp(2048, 10240, seed=0),
+   backend="pdlp", tol=1e-4)``, fused: inner iterations, steps/s, status,
+   the KKT errors on the host of the returned iterate mapped into the
+   presolved, scaled form the verdict is taken on (an OPTIMAL verdict must
+   meet the tol there; the iteration limit is an allowed outcome);
+15. no hidden fallback: any supervisor degradation, or a solo request
+   served by another backend than its route names, fails the run;
+16. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -680,19 +719,66 @@ def batched_phase(torch, ne, card):
     return parity, timings, cold
 
 
+def route_of(p) -> str:
+    """``choose_backend_name`` on the card for ``p`` (its interior form,
+    with the structure detection pass ``AutoBackend`` runs)."""
+    from distributedlpsolver_tpu_torch.backends.auto import choose_backend_name
+    from distributedlpsolver_tpu_torch.models.problem import to_interior_form
+
+    return choose_backend_name(to_interior_form(p), "cuda", detect=True)[0]
+
+
+def no_fallback(name, problems, results, solo_backend):
+    """No hidden fallback: no request went through a supervisor
+    degradation, and every solo request was served by the backend its
+    route names (``auto(<route>)`` for the ``auto`` solo backend)."""
+    for p, r in zip(problems, results):
+        degraded = [f.action for f in r.faults if f.action.startswith("degrade")]
+        if degraded:
+            fail(f"{name}: request {r.name} degraded ({degraded}) with no injected fault")
+        if r.retried_solo or r.bucket is None:
+            want = f"auto({route_of(p)})" if solo_backend == "auto" else solo_backend
+            if r.backend != want:
+                fail(f"{name}: request {r.name} served solo by {r.backend!r}, its route is {want!r}")
+
+
+def host_cpu() -> str:
+    """The host's CPU model and logical CPUs (``/proc/cpuinfo``), and the
+    native library's OpenMP threads: printed beside every CPU time."""
+    from distributedlpsolver_tpu_torch.native import load
+
+    import platform
+
+    first = {}
+    with open("/proc/cpuinfo") as fh:
+        for ln in fh:
+            if not ln.strip():
+                break  # the first processor's block
+            k, _, v = ln.partition(":")
+            first.setdefault(k.strip(), v.strip())
+    known = {k: v for k, v in first.items() if v and v != "unknown"}
+    model = known.get("model name") or " ".join(
+        f"{k} {known[k]}" for k in ("vendor_id", "cpu family", "model", "stepping", "cpu MHz")
+        if k in known) or platform.processor() or platform.machine()
+    return (f"host CPU {model} ({platform.machine()}) x{os.cpu_count()}, "
+            f"dlps_num_threads {load().dlps_num_threads()}")
+
+
 # The serve phase: requests at the batched member width, padded into one
 # bucket shape of SERVE_BATCH slots (BASELINE.json:11's members).
 SERVE_BATCH = 256
 SERVE_SAMPLE = 32  # every 32nd request against HiGHS
 
 
-def serve_wave(torch, ne, svc, tag, problems, card):
-    """Submit ``problems`` to the running service and wait for all: the
-    wave's row (printed) and results. K1's launch count is reset just
-    before and read just after; each dispatch row must hold K1 = start +
-    warm selection + bodies (and the same for a cold bucket's
-    one-iteration warm-up), and the wave's count must equal the
-    dispatches' plus the solo solves'."""
+def serve_wave(torch, ne, svc, tag, problems, card, tols=None):
+    """Submit ``problems`` (at ``tols``, else the service tol) to the
+    running service and wait for all: the wave's row (printed) and
+    results. K1's launch count is reset just before and read just after;
+    each IPM dispatch row must hold K1 = start + warm selection + bodies
+    (and the same for a cold bucket's one-iteration warm-up), and the
+    wave's count must equal the dispatches' plus the solo solves'. No
+    request may reach a supervisor degradation, and each solo request
+    must be served by the backend its route names (``no_fallback``)."""
     from distributedlpsolver_tpu_torch.backends import batched as tb
     from distributedlpsolver_tpu_torch.serve import latency_summary
 
@@ -701,7 +787,8 @@ def serve_wave(torch, ne, svc, tag, problems, card):
     torch.cuda.reset_peak_memory_stats()
     ne.normal_eq.launches = 0
     t0 = time.perf_counter()
-    futs = [svc.submit(p) for p in problems]
+    tols = tols or [None] * len(problems)
+    futs = [svc.submit(p, tol=tol) for p, tol in zip(problems, tols)]
     submit_s = time.perf_counter() - t0
     if not svc.drain(timeout=900):
         fail(f"serve {tag}: the service did not drain")
@@ -728,6 +815,8 @@ def serve_wave(torch, ne, svc, tag, problems, card):
         "captures": sum(r["captures"] + r["warmup_captures"] for r in rows),
         "normal_eq_launches": launches, "bucket_launches": bucket_launches,
         "solo_fallbacks": len(solo), "solo_ms": [r.solve_ms for r in solo],
+        "solo_backends": sorted({str(r.backend) for r in solo}),
+        "engines": {e: sum(r.engine == e for r in results) for e in sorted({r.engine for r in results})},
         "solo_members": [(r.name, r.iterations, [f.detail[:60] for f in r.faults]) for r in solo],
         "warm_used": sum(1 for r in results if r.warm == "warm"),
         "iterations_mean": sum(r.iterations for r in results) / max(len(results), 1),
@@ -737,7 +826,10 @@ def serve_wave(torch, ne, svc, tag, problems, card):
         "status": summ["status_breakdown"],
     }
     print(f"serve_{tag} " + json.dumps(row) + f" [{card}]")
+    no_fallback(f"serve {tag}", problems, results, svc.config.solo_backend)
     for r in rows:
+        if r["engine"] != "ipm":
+            continue  # the PDHG engine launches no kernel of ours
         if r["launches"] != 2 + r["bodies"] or (
                 r["warmup_launches"] != (2 if r["warmup_bodies"] else 0) + r["warmup_bodies"]):
             fail(f"serve {tag}: dispatch {r['dispatch']} K1 launches {r['launches']} "
@@ -777,39 +869,49 @@ def serve_phase(torch, ne, card):
     ]
     rows = {}
     max_iter = SolverConfig().max_iter
-    with SolveService(ServiceConfig(batch=SERVE_BATCH, flush_s=0.02)) as svc:
+
+    def ipm_wave(svc, tag, problems):
+        row, results = serve_wave(torch, ne, svc, tag, problems, card)
+        # OPTIMAL, or the JAX package's verdict for a request its bucket
+        # and its solo solve both left short of the tolerance after
+        # max_iter iterations (scripts/port_serve_jax_verdicts.py gives
+        # it on the CPU for these streams).
+        limited = [k for k, r in enumerate(results) if r.status.value != "optimal"]
+        bad = [(k, results[k].status.value, results[k].iterations) for k in limited
+               if not (results[k].status.value == "iteration_limit" and results[k].retried_solo
+                       and results[k].iterations == max_iter)]
+        if bad:
+            fail(f"serve {tag}: requests neither OPTIMAL nor at the iteration limit with "
+                 f"the solo budget spent: {bad[:10]}")
+        if limited:
+            print(f"serve_{tag}: at the iteration limit after the solo ladder: "
+                  f"{[(k, results[k].name) for k in limited]}")
+        for r in results:
+            if r.bucket is not None and tuple(r.bucket) != (BM, BN, SERVE_BATCH):
+                fail(f"serve {tag}: request {r.name} in bucket {r.bucket}")
+        worst = 0.0
+        for k in range(0, len(problems), SERVE_SAMPLE):
+            if results[k].status.value != "optimal":
+                continue  # at the JAX package's verdict (checked above)
+            h = highs_tight_objective(problems[k])
+            e = abs(results[k].objective - h) / (1.0 + abs(h))
+            worst = max(worst, e)
+            if not e <= 1e-8:
+                fail(f"serve {tag}: request {k} objective {results[k].objective!r} vs HiGHS {h!r}")
+        row["highs_max_rel"] = worst
+        print(f"serve_{tag}: {len(range(0, len(problems), SERVE_SAMPLE))} requests vs HiGHS max rel "
+              f"{worst:.3e} (tol 1e-8)")
+        rows[tag] = row
+
+    # The JAX package's default service configuration: solo "auto", PDHG
+    # routing on at pdhg_tol 1e-4.
+    default_cfg = ServiceConfig(batch=SERVE_BATCH, flush_s=0.02)
+    if not (default_cfg.solo_backend == "auto" and default_cfg.pdhg_routing
+            and default_cfg.pdhg_tol == PDHG_TOL):
+        fail(f"ServiceConfig defaults: {default_cfg}")
+    with SolveService(default_cfg) as svc:
         for tag, problems in waves:
-            row, results = serve_wave(torch, ne, svc, tag, problems, card)
-            # OPTIMAL, or the JAX package's verdict for a request its bucket
-            # and its solo solve both left short of the tolerance after
-            # max_iter iterations (scripts/port_serve_jax_verdicts.py gives
-            # it on the CPU for these streams).
-            limited = [k for k, r in enumerate(results) if r.status.value != "optimal"]
-            bad = [(k, results[k].status.value, results[k].iterations) for k in limited
-                   if not (results[k].status.value == "iteration_limit" and results[k].retried_solo
-                           and results[k].iterations == max_iter)]
-            if bad:
-                fail(f"serve {tag}: requests neither OPTIMAL nor at the iteration limit with "
-                     f"the solo budget spent: {bad[:10]}")
-            if limited:
-                print(f"serve_{tag}: at the iteration limit after the solo ladder: "
-                      f"{[(k, results[k].name) for k in limited]}")
-            for r in results:
-                if r.bucket is not None and tuple(r.bucket) != (BM, BN, SERVE_BATCH):
-                    fail(f"serve {tag}: request {r.name} in bucket {r.bucket}")
-            worst = 0.0
-            for k in range(0, len(problems), SERVE_SAMPLE):
-                if results[k].status.value != "optimal":
-                    continue  # at the JAX package's verdict (checked above)
-                h = highs_tight_objective(problems[k])
-                e = abs(results[k].objective - h) / (1.0 + abs(h))
-                worst = max(worst, e)
-                if not e <= 1e-8:
-                    fail(f"serve {tag}: request {k} objective {results[k].objective!r} vs HiGHS {h!r}")
-            row["highs_max_rel"] = worst
-            print(f"serve_{tag}: {len(range(0, len(problems), SERVE_SAMPLE))} requests vs HiGHS max rel "
-                  f"{worst:.3e} (tol 1e-8)")
-            rows[tag] = row
+            ipm_wave(svc, tag, problems)
         # Where a warm wave's time goes: one more wave under the profiler.
         extra = list(random_request_stream(512, shapes=((96, 384), (BM, BN)), seed=24))
         (prow, _), prof = device_profile(
@@ -819,7 +921,19 @@ def serve_phase(torch, ne, card):
             "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * prow["wall_s"]),
             **{k: v for k, v in prof.items() if k != "device_busy_ms"},
         }) + f" [{card}]")
+        rows["pdhg"] = pdhg_wave(torch, ne, svc, card)
         stats = svc.stats()
+    # Both solo routes on the same requests: the cold wave again, its solo
+    # fallbacks on the host's cpu-native, asked for by name.
+    with SolveService(ServiceConfig(batch=SERVE_BATCH, flush_s=0.02,
+                                    solo_backend="cpu-native")) as svc:
+        ipm_wave(svc, "cold_host_solo", waves[0][1])
+    if rows["cold_host_solo"]["graphs_captured"] or rows["cold_host_solo"]["programs_built"]:
+        fail("serve cold_host_solo: a bucket program was built or captured")
+    print(f"serve solo routes on the cold wave: auto {rows['cold']['solo_backends']} "
+          f"{rows['cold']['solo_ms']} ms [{card}]; cpu-native "
+          f"{rows['cold_host_solo']['solo_backends']} {rows['cold_host_solo']['solo_ms']} ms "
+          f"[{host_cpu()}]")
     for tag in ("warm", "correlated"):
         if rows[tag]["programs_built"] or rows[tag]["graphs_captured"]:
             fail(f"serve {tag}: {rows[tag]['programs_built']} bucket programs built, "
@@ -849,6 +963,281 @@ def serve_phase(torch, ne, card):
         fail(f"cli serve: rc {proc.returncode}, {[r.get('status') for r in recs]}\n{proc.stderr[-3000:]}")
     print(f"cli serve: 8 requests of {BM}x{BN}, all optimal, iterations {[r['iterations'] for r in recs]}")
     return parity, timing, rows
+
+
+def host_kkt(c, A, b, x, y, u=None) -> tuple:
+    """(pinf, dinf, gap) of (x, y) on min cᵀx, Ax = b, 0 ≤ x ≤ u (u None:
+    no upper bounds), in numpy — the PDHG engine's measures
+    (first_order._kkt_error, _lanes_kkt): on a column with a finite upper
+    bound a negative reduced cost is priced by the bound, not infeasible."""
+    import numpy as np
+
+    r = c - A.T @ y
+    r_neg = np.minimum(r, 0.0)
+    bounded = np.zeros(len(c), bool) if u is None else np.isfinite(u)
+    pobj = float(c @ x)
+    dobj = float(b @ y) + float(np.where(bounded, u if u is not None else 0.0, 0.0) @ r_neg)
+    return (float(np.linalg.norm(b - A @ x) / (1 + np.linalg.norm(b))),
+            float(np.linalg.norm(np.where(bounded, 0.0, r_neg)) / (1 + np.linalg.norm(c))),
+            abs(pobj - dobj) / (1 + abs(pobj) + abs(dobj)))
+
+
+PDHG_TOL = 1e-4
+# The JAX package's verdicts of the PDHG wave's requests that are not
+# "<engine>:optimal" (scripts/port_serve_jax_verdicts.py --streams pdhg,
+# on the CPU, two slot layouts): none — every loose request is
+# pdhg:optimal and every tight one ipm:optimal there.
+PDHG_JAX_NOT_OPTIMAL = {"pdhg_loose": {}, "pdhg_tight": {}}
+# The PDHG bucket engine takes its verdict on the request padded into its
+# bucket, as the JAX package's does; on the request's own data the same
+# iterate's KKT errors run higher. The most any chip run has measured
+# there (three runs of 1,024 loose requests): pinf 1.0010e-4, dinf
+# 1.0026e-4, gap 5.26e-3. This bound, about twice that, fails the run on
+# a regression.
+PDHG_REQUEST_KKT_BOUND = (2e-4, 2e-4, 1e-2)
+# A PDHG bucket body reads A 84 times: two products in each of its 40
+# inner steps and two in each of its two KKT evaluations.
+PDHG_A_READS = 2 * 40 + 2 * 2
+
+
+def pdhg_wave(torch, ne, svc, card):
+    """The PDHG wave (see the module note, step 13) on the running
+    default service. Returns its row."""
+    from distributedlpsolver_tpu_torch.backends import batched as tb
+    from distributedlpsolver_tpu_torch.models import random_request_stream, sparse_request_stream
+    from distributedlpsolver_tpu_torch.serve import pad_standard_form, standard_form
+
+    loose = list(sparse_request_stream(1024, shapes=((96, 384), (BM, BN)), seed=25))
+    tight = list(random_request_stream(64, shapes=((BM, BN),), seed=26))
+    order = []  # (stream, index): one tight request after every 16 loose ones
+    for k in range(len(tight)):
+        order += [("pdhg_loose", j) for j in range(16 * k, 16 * k + 16)] + [("pdhg_tight", k)]
+    problems = [loose[j][0] if st == "pdhg_loose" else tight[j] for st, j in order]
+    tols = [loose[j][1] if st == "pdhg_loose" else 1e-8 for st, j in order]
+    t0 = time.perf_counter()
+    warmed = svc.warm_buckets(svc.scheduler.table.specs(), tol=PDHG_TOL)
+    warm_s = time.perf_counter() - t0
+    size0, caps0 = tb.bucket_cache_size(), tb.bucket_capture_count()
+    row, results = serve_wave(torch, ne, svc, "pdhg", problems, card, tols=tols)
+    built, captured = tb.bucket_cache_size() - size0, tb.bucket_capture_count() - caps0
+    if built or captured:
+        fail(f"serve pdhg: {built} bucket programs built, {captured} graphs captured in the wave")
+    for (st, j), r in zip(order, results):
+        engine = "pdhg" if st == "pdhg_loose" else "ipm"
+        if r.engine != engine:
+            fail(f"serve pdhg: {st} request {j} ({r.name}) on engine {r.engine}")
+        allowed = PDHG_JAX_NOT_OPTIMAL[st].get(j, [f"{engine}:optimal"])
+        if f"{r.engine}:{r.status.value}" not in allowed:
+            fail(f"serve pdhg: {st} request {j} ({r.name}) {r.engine}:{r.status.value}, the JAX "
+                 f"package's {allowed}")
+    # The verdicts on the host: every OPTIMAL PDHG answer meets the tol on
+    # the problem the engine solved (the request padded into its bucket),
+    # and the same iterate on the request's own data the bound above.
+    worst, own, own_over, checked = [0.0] * 3, [0.0] * 3, [0] * 3, 0
+    for (st, _), p, r in zip(order, problems, results):
+        if st != "pdhg_loose" or r.status.value != "optimal" or r.retried_solo:
+            continue
+        e = host_kkt(*pad_standard_form(*standard_form(p), r.bucket[0], r.bucket[1]), *r.lane)
+        if max(e) > PDHG_TOL:
+            fail(f"serve pdhg: {r.name} OPTIMAL at host pinf/dinf/gap {e} > {PDHG_TOL:g}")
+        eo = host_kkt(p.c, p.A, p.rlb, r.lane[0][:p.n], r.lane[1][:p.m])
+        if any(v > lim for v, lim in zip(eo, PDHG_REQUEST_KKT_BOUND)):
+            fail(f"serve pdhg: {r.name} OPTIMAL at request pinf/dinf/gap {eo}, over the "
+                 f"bound {PDHG_REQUEST_KKT_BOUND}")
+        worst = [max(a, b) for a, b in zip(worst, e)]
+        own = [max(a, b) for a, b in zip(own, eo)]
+        own_over = [k + (v > PDHG_TOL) for k, v in zip(own_over, eo)]
+        checked += 1
+    disp = [d for d in svc.dispatch_report()[-row["dispatches"]:] if d["engine"] == "pdhg"]
+    A_bytes = SERVE_BATCH * BM * BN * 8
+    bound_body_ms = 1e3 * PDHG_A_READS * A_bytes / PEAK_BYTES
+    replays = sum(d["replays"] for d in disp)
+    body_ms = sum(d["replay_ms"] for d in disp) / max(replays, 1)
+    out = {
+        "warm_buckets": warmed, "warm_buckets_s": warm_s, "programs_built": built,
+        "graphs_captured": captured,
+        "loose": len(loose), "tight": len(tight),
+        "crossovers": sum(r.retried_solo for (st, _), r in zip(order, results) if st == "pdhg_loose"),
+        "pdhg_dispatches": len(disp), "pdhg_live": [d["live"] for d in disp],
+        "pdhg_bodies": [d["bodies"] for d in disp], "pdhg_solve_ms": [d["solve_ms"] for d in disp],
+        "pdhg_body_ms": body_ms, "pdhg_body_bound_ms": bound_body_ms,
+        "pdhg_body_bound_share": bound_body_ms / body_ms if body_ms else None,
+        "pdhg_iterations_mean": sum(r.iterations for (st, _), r in zip(order, results)
+                                    if st == "pdhg_loose") / len(loose),
+        "host_kkt_checked": checked, "host_kkt_max_padded": worst,
+        "request_kkt_max": own, "request_kkt_over_tol": own_over,
+        "request_kkt_bound": PDHG_REQUEST_KKT_BOUND,
+    }
+    print("serve_pdhg_check " + json.dumps(out) + f" [{card}]")
+    row.update(out)
+    return row
+
+
+def default_entry_phase(torch, ne, cuda_row, r_cuda):
+    """The JAX package's default entry points on the card (see the module
+    note, step 10). Returns the row of the default solve."""
+    import tempfile
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch import cli
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.io import read_mps
+    from distributedlpsolver_tpu_torch.io.mps import write_mps
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    p = random_dense_lp(2048, 10240, seed=0)
+    ne.normal_eq.launches = 0
+    t0 = time.perf_counter()
+    r = solve(p, backend="auto", tol=1e-8)  # the CLI's and the service's default
+    wall = time.perf_counter() - t0
+    launches = ne.normal_eq.launches
+    bitwise = bool(np.array_equal(np.asarray(r.x), np.asarray(r_cuda.x)))
+    row = {"problem": p.name, "backend": r.backend, "status": r.status.value,
+           "iterations": r.iterations, "objective": r.objective, "wall_s": wall,
+           "solve_s": r.solve_time, "normal_eq_launches": launches,
+           "x_bitwise_equal_to_cuda": bitwise}
+    print("main_path_default " + json.dumps(row))
+    if r.backend != "auto(cuda)" or not bitwise:
+        fail(f"solve(backend='auto'): {r.backend}, x bitwise equal to backend='cuda': {bitwise}")
+    if launches != cuda_row["normal_eq_launches"] or r.iterations != cuda_row["iterations"]:
+        fail(f"solve(backend='auto'): {launches} K1 launches / {r.iterations} it against "
+             f"backend='cuda''s {cuda_row['normal_eq_launches']} (1 + bodies) / "
+             f"{cuda_row['iterations']}")
+    # The CLI with no --backend, on an MPS file large enough for the card.
+    with tempfile.TemporaryDirectory() as d:
+        path, xf = os.path.join(d, "dense256x1024.mps"), os.path.join(d, "x.npy")
+        write_mps(random_dense_lp(256, 1024, seed=0), path)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["solve", path, "--json", "--quiet", "--x-out", xf])
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        x_cli = np.load(xf)
+        ref = solve(read_mps(path), backend=get_backend("cuda"), tol=1e-8)
+    cli_bitwise = bool(np.array_equal(x_cli, np.asarray(ref.x)))
+    print(f"cli_default: {out['name']} {out['status']} backend {out['backend']} iterations "
+          f"{out['iterations']} objective {out['objective']!r}; x bitwise equal to backend='cuda': "
+          f"{cli_bitwise}")
+    if rc != 0 or out["backend"] != "auto(cuda)" or not cli_bitwise:
+        fail(f"cli solve with no --backend: rc {rc}, {out}, x bitwise {cli_bitwise}")
+    return row
+
+
+def route_and_solo_phase(card):
+    """The route table and the solo cost on both routes (see the module
+    note, steps 11 and 12)."""
+    import glob
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.io import read_mps
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import (
+        correlated_request_stream,
+        random_batched_lp,
+        random_dense_lp,
+        random_request_stream,
+    )
+    from distributedlpsolver_tpu_torch.supervisor import SupervisorConfig, supervised_solve
+
+    cold = list(random_request_stream(1024, shapes=((96, 384), (BM, BN)), seed=21))
+    corr = list(correlated_request_stream(512, shapes=((BM, BN),), n_models=4, seed=23))
+    inputs = [(os.path.relpath(f, ROOT), read_mps(f))
+              for f in sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures", "*.mps")))]
+    inputs += [("main path 2048x10240", random_dense_lp(2048, 10240, seed=0)),
+               ("request 128x512 (cold 1007)", cold[1007]),
+               ("request 128x512 (correlated 187)", corr[187]),
+               ("batched member 775", random_batched_lp(BATCH, BM, BN, seed=0).problem(775))]
+    for name, p in inputs:
+        route = route_of(p)
+        taken = None
+        if route != "cuda":
+            fail(f"route table: {name} routes to {route} on the card")
+        if name.endswith(".mps"):  # the others' solves are checked where they run
+            taken = solve(p, backend="auto", tol=1e-8).backend
+            if taken != f"auto({route})":
+                fail(f"route table: {name} routes to {route}, solved by {taken}")
+        print(f"route {name} ({p.m}x{p.n}, {p.m * p.n} entries): {route}"
+              + (f"; solved by {taken}" if taken else ""))
+    cpu = host_cpu()
+    for name, p in inputs[-3:]:
+        for backend in ("cpu-native", "cuda"):
+            be = get_backend(backend)
+            t0 = time.perf_counter()
+            r = supervised_solve(p, backend=be, tol=1e-8,
+                                 supervisor=SupervisorConfig(backoff_base=0.01))
+            ms = 1e3 * (time.perf_counter() - t0)
+            if r.faults or r.backend != backend:
+                fail(f"solo {name} on {backend}: served by {r.backend}, faults {r.faults}")
+            where = f"[{cpu}]" if backend == "cpu-native" else f"[{card}]"
+            # The same solve without the supervisor (no watchdog, no
+            # per-iteration checkpoint; the cuda one on the fused loop).
+            t0 = time.perf_counter()
+            r_plain = solve(p, backend=get_backend(backend), tol=1e-8)
+            ms_plain = 1e3 * (time.perf_counter() - t0)
+            print(f"solo_cost {name} {r.backend}: supervised {ms:.1f} ms, {r.iterations} it "
+                  f"({ms / max(r.iterations, 1):.2f} ms/it), {r.status.value}; unsupervised "
+                  f"{ms_plain:.1f} ms, {r_plain.iterations} it "
+                  f"({ms_plain / max(r_plain.iterations, 1):.2f} ms/it) {where}")
+
+
+def scaled_form_iterate(p, r):
+    """The presolved, Ruiz-scaled interior form the driver solved for
+    ``p``, with ``r``'s x and y mapped into it: the rows and columns
+    presolve kept, then x / Dc and y / Dr (``models/scaling.py``). Fails
+    unless the interior form is the reduced problem itself, which is what
+    makes the mapping exact."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.models.presolve import presolve
+    from distributedlpsolver_tpu_torch.models.problem import to_interior_form
+    from distributedlpsolver_tpu_torch.models.scaling import equilibrate
+
+    reduced, info = presolve(p)
+    inf = to_interior_form(reduced)
+    x = np.asarray(r.x)[info.col_live]
+    y = np.asarray(r.y)[info.row_live]
+    if (inf.m, inf.n) != (len(y), len(x)) or not np.array_equal(inf.recover(x), x):
+        fail(f"solo pdhg: the interior form {inf.m}x{inf.n} is not the presolved problem "
+             f"{len(y)}x{len(x)}; the returned iterate cannot be mapped into it")
+    inf_s, scaling = equilibrate(inf)
+    return inf_s, x / scaling.dc, y / scaling.dr
+
+
+def solo_pdhg_phase(card):
+    """The solo PDHG engine on the card (see the module note, step 14).
+    Its verdict is taken, as the driver runs every backend, on the
+    presolved, Ruiz-scaled interior form: the host recomputes the KKT
+    errors there, from the returned iterate mapped into that form, and on
+    the problem as given."""
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    p = random_dense_lp(2048, 10240, seed=0)
+    be = get_backend("pdlp")
+    t0 = time.perf_counter()
+    r = solve(p, backend=be, tol=PDHG_TOL)
+    wall = time.perf_counter() - t0
+    (rep,) = be.phase_report
+    inf_s, x_s, y_s = scaled_form_iterate(p, r)
+    e = host_kkt(inf_s.c, inf_s.A, inf_s.b, x_s, y_s, inf_s.u)
+    e_given = host_kkt(p.c, p.A, p.rlb, r.x, r.y)
+    bound_body_ms = 1e3 * PDHG_A_READS * p.m * p.n * 8 / PEAK_BYTES
+    body_ms = rep["replay_ms"] / max(rep["replays"], 1)
+    row = {"problem": p.name, "backend": r.backend, "status": r.status.value,
+           "inner_iterations": r.iterations, "wall_s": wall, "solve_s": r.solve_time,
+           "setup_s": r.setup_time, "inner_steps_per_s": r.iterations / r.solve_time,
+           "host_pinf_dinf_gap_scaled": e, "host_pinf_dinf_gap_as_given": e_given,
+           "reported_pinf_dinf_gap": [r.pinf, r.dinf, r.rel_gap],
+           "body_ms": body_ms, "body_bound_ms": bound_body_ms,
+           "body_bound_share": bound_body_ms / body_ms if body_ms else None, **rep}
+    print("solo_pdhg " + json.dumps(row) + f" [{card}]")
+    if r.status.value == "optimal" and max(e) > PDHG_TOL:
+        fail(f"solo pdhg: OPTIMAL at host pinf/dinf/gap {e} > {PDHG_TOL:g} on the scaled form")
+    if r.status.value not in ("optimal", "iteration_limit"):
+        fail(f"solo pdhg: {r.status.value}")
+    return row
 
 
 def main() -> int:
@@ -961,8 +1350,19 @@ def main() -> int:
     torch._C._functorch._set_vmap_fallback_enabled(False)
     b_parity, b_timings, b_cold = batched_phase(torch, ne, card)
 
-    # 9. The serve phase.
+    # 10. The default backend of the CLI and the service (auto on the
+    # card), with the counts reset just before and read just after.
+    default_row = default_entry_phase(torch, ne, row, r_fused)
+
+    # 11-12. The route table, and the solo cost on both routes.
+    route_and_solo_phase(card)
+
+    # 9, 13. The serve phase, under the default ServiceConfig, with the
+    # PDHG wave and both solo routes.
     s_parity, s_timing, s_rows = serve_phase(torch, ne, card)
+
+    # 14. The solo PDHG engine.
+    solo_pdhg_phase(card)
 
     main_t = timings[0]
     batched_t = b_timings[0]
@@ -971,7 +1371,8 @@ def main() -> int:
         "route": "cuda",
         "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
         "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
-        "launches": row["normal_eq_launches"],
+        # The main path through auto, the CLI's default (auto(cuda)).
+        "launches": default_row["normal_eq_launches"],
         "max_abs_err": parity["float64_2048x10240"][1],
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],

@@ -8,8 +8,11 @@ or anything of the JAX package: the framework-free modules it needs
 kept here as copies.
 
 Entry points run on the first CUDA card unless the caller asks for the
-CPU (``get_backend("cuda", device="cpu")``, ``cli solve --device cpu``);
-with no card and no such request they raise. On a CUDA tensor the
+CPU (``get_backend("auto", device="cpu")``, ``cli solve --device cpu``);
+with no card and no such request they raise. The default backend of
+the CLI and the service, ``auto``, keeps every problem on the card (on
+the CPU it picks the host's native kernels, ``cpu-native``). On a CUDA
+tensor the
 normal-equations assembly ``A·diag(d)·Aᵀ`` runs through the hand-written
 kernel ``csrc/normal_eq.cu`` (see ``ops/normal_eq.py``).
 """

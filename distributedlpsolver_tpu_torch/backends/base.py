@@ -90,6 +90,15 @@ class SolverBackend(abc.ABC):
 
 _REGISTRY: Dict[str, Type[SolverBackend]] = {}
 
+# Backend names of the JAX package this package does not register yet,
+# with the ROADMAP Queue 1 item that ports each: ``get_backend`` refuses
+# them by name.
+UNPORTED_BACKENDS = {
+    "sparse-iterative": 9, "inexact-ipm": 9, "sparse-pcg": 9,
+    "block": 11, "schur": 11, "block-angular": 11, "scenario": 11,
+    "sharded": 13, "tpu-sharded": 13, "mesh": 13,
+}
+
 
 def register_backend(*names: str) -> Callable[[Type[SolverBackend]], Type[SolverBackend]]:
     def deco(cls: Type[SolverBackend]) -> Type[SolverBackend]:
@@ -104,13 +113,24 @@ def register_backend(*names: str) -> Callable[[Type[SolverBackend]], Type[Solver
     return deco
 
 
-def get_backend(name: str, **kwargs) -> SolverBackend:
+def check_backend_name(name: str) -> None:
+    """Raise unless ``name`` is registered: ``NotImplementedError`` naming
+    the ROADMAP item for a JAX-package backend not ported yet, else
+    ``KeyError``."""
     key = name.lower()
-    if key not in _REGISTRY:
-        raise KeyError(
-            f"unknown backend {name!r}; available: {', '.join(available_backends())}"
+    if key in _REGISTRY:
+        return
+    if key in UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend {name!r} is not ported to the torch package yet "
+            f"(ROADMAP Queue 1 item {UNPORTED_BACKENDS[key]})"
         )
-    return _REGISTRY[key](**kwargs)
+    raise KeyError(f"unknown backend {name!r}; available: {', '.join(available_backends())}")
+
+
+def get_backend(name: str, **kwargs) -> SolverBackend:
+    check_backend_name(name)
+    return _REGISTRY[name.lower()](**kwargs)
 
 
 def available_backends() -> List[str]:

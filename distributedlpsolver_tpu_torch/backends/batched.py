@@ -97,6 +97,9 @@ class BatchedResult:
     w: Optional[np.ndarray] = None
     z: Optional[np.ndarray] = None
     warm_used: Optional[np.ndarray] = None
+    # The PDHG bucket engine's lane duals (B, m), for KKT checks of its
+    # answers; ``y`` stays None there, so they never seed a warm start.
+    dual: Optional[np.ndarray] = None
 
     @property
     def n_optimal(self) -> int:
@@ -805,25 +808,35 @@ def _program(key, make) -> tuple:
 
 
 def bucket_cache_size() -> int:
-    """Number of bucket programs in this process — the serve layer's
+    """Number of bucket programs in this process, the PDHG engine's
+    included (``first_order.pdhg_bucket_cache_size``) — the serve layer's
     recompile telemetry, and the warm-bucket assertion in tests (repeat
     dispatches to a warm bucket must not grow it). On a card each program
     holds one captured CUDA graph of its loop (see
     :func:`bucket_capture_count`); on the CPU its loop runs eagerly."""
+    from distributedlpsolver_tpu_torch.backends.first_order import pdhg_bucket_cache_size
+
     with _PROGRAMS_LOCK:
-        return len(_PROGRAMS)
+        n = len(_PROGRAMS)
+    return n + pdhg_bucket_cache_size()
 
 
 def bucket_capture_count() -> int:
-    """CUDA-graph captures the bucket programs made so far (one each on a
-    card; a capture on a warm program would show here)."""
+    """CUDA-graph captures the bucket programs (IPM and PDHG) made so far
+    (one each on a card; a capture on a warm program would show here)."""
+    from distributedlpsolver_tpu_torch.backends.first_order import pdhg_bucket_capture_count
+
     with _PROGRAMS_LOCK:
-        return sum(p.loop.captures for p in _PROGRAMS.values())
+        n = sum(p.loop.captures for p in _PROGRAMS.values())
+    return n + pdhg_bucket_capture_count()
 
 
 def release_bucket_programs() -> None:
-    """Close every bucket program and drop it from the cache (its graph
-    and buffers are freed once no dispatch holds it)."""
+    """Close every bucket program (IPM and PDHG) and drop it from the
+    cache (its graph and buffers are freed once no dispatch holds it)."""
+    from distributedlpsolver_tpu_torch.backends.first_order import release_pdhg_bucket_programs
+
+    release_pdhg_bucket_programs()
     with _PROGRAMS_LOCK:
         progs = list(_PROGRAMS.values())
         _PROGRAMS.clear()

@@ -9,8 +9,11 @@ JAX package's ``cli.py``, with the flags this package honours plus
                 result records out
     backends    list registered SolverBackend names
 
-``--device cuda`` (the default) runs on the first CUDA card and fails
-where there is none; ``--device cpu`` runs the same path on the CPU.
+``--backend auto`` (the default, as in the JAX CLI) picks a backend by
+problem structure for ``--device``: on the card (``--device cuda``, the
+default; it fails where there is none) every problem the port can solve
+goes to ``cuda``; with ``--device cpu`` to ``cpu-native``. The chosen
+backend is named in the result (``auto(<name>)``). ``--device cpu`` runs the card's path on the CPU.
 Serving flags of the JAX CLI whose layer is not ported (``--quotas``,
 ``--brownout``, ``--mesh-devices`` above 1) are refused. The supervisor,
 network and generate commands are not ported yet.
@@ -28,8 +31,8 @@ from typing import List, Optional
 
 def _add_solver_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument(
-        "--backend", default="cuda",
-        help="SolverBackend name (cuda = dense/torch, the only one ported)",
+        "--backend", default="auto",
+        help="SolverBackend name (auto = pick by problem size/structure; see `backends`)",
     )
     ap.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
@@ -260,8 +263,9 @@ def _add_serving_flags(p: argparse.ArgumentParser) -> None:
         "power-of-two buckets",
     )
     p.add_argument(
-        "--solo-backend", default="cuda",
-        help="backend of the per-request solo path, on --device (cuda: the only one ported)",
+        "--solo-backend", default="auto",
+        help="backend of the per-request solo path, for --device (auto = pick by problem "
+        "size/structure; see `backends`)",
     )
     p.add_argument(
         "--no-warm-start", action="store_true",

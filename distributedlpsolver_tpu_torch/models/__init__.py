@@ -7,6 +7,7 @@ from distributedlpsolver_tpu_torch.models.generators import (
     random_general_lp,
     random_request_stream,
     random_sparse_lp,
+    sparse_request_stream,
 )
 from distributedlpsolver_tpu_torch.models.presolve import presolve
 
@@ -14,4 +15,5 @@ __all__ = [
     "LPProblem", "InteriorForm", "to_interior_form",
     "random_dense_lp", "random_general_lp", "random_sparse_lp", "presolve",
     "BatchedLP", "random_batched_lp", "random_request_stream", "correlated_request_stream",
+    "sparse_request_stream",
 ]

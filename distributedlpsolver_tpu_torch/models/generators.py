@@ -1,11 +1,11 @@
 """Synthetic LP generators for the benchmark suite and tests.
 
 A copy of ``random_dense_lp``, ``random_sparse_lp``, ``random_general_lp``,
-``random_batched_lp`` (with ``BatchedLP``), ``random_request_stream`` and
-``correlated_request_stream`` from the JAX package's
-``models/generators.py``: the same seed gives the same problem (and the
-same stream) in both packages. The block-angular generators are not
-ported yet.
+``random_batched_lp`` (with ``BatchedLP``), ``random_request_stream``,
+``correlated_request_stream`` and ``sparse_request_stream`` (the PDHG
+tier's stream) from the JAX package's ``models/generators.py``: the same
+seed gives the same problem (and the same stream) in both packages. The
+block-angular and large sparse generators are not ported yet.
 
 All generators construct problems that are feasible and bounded *by
 construction* (primal point and dual certificate built first, data derived
@@ -256,4 +256,41 @@ def correlated_request_stream(
         yield LPProblem(
             c=c, A=A, rlb=b, rub=b, lb=np.zeros(n), ub=np.full(n, _INF),
             name=f"corr_m{i}_{m}x{n}_r{k}",
+        )
+
+
+def sparse_request_stream(
+    n_requests: int,
+    shapes=((12, 40), (16, 48)),
+    density: float = 0.25,
+    seed: int = 0,
+    tol: float = 1e-4,
+):
+    """Deterministic stream of SMALL sparse-profile standard-form
+    requests for the serve layer's tolerance-tiered routing: each yields
+    ``(problem, tol)`` where the problem's A is sparse in CONTENT but
+    stored dense (ndarray) — at bucket shapes the padded batch tensor is
+    dense either way, and dense storage keeps it on the bucketed fast
+    path (serve.standard_form). Feasible + bounded by the witness trick
+    (same construction as :func:`random_request_stream`); fully seeded.
+    The default ``tol=1e-4`` is the PDHG tier — the router must send
+    these to the first-order engine."""
+    rng = np.random.default_rng(seed)
+    for k in range(n_requests):
+        m, n = shapes[int(rng.integers(len(shapes)))]
+        mask = rng.uniform(size=(m, n)) < density
+        mask[np.arange(m), rng.integers(0, n, m)] = True  # no empty rows
+        A = rng.standard_normal((m, n)) * mask
+        x0 = rng.uniform(0.5, 2.0, size=n)
+        b = A @ x0
+        y0 = rng.standard_normal(m)
+        s0 = rng.uniform(0.5, 2.0, size=n)
+        c = A.T @ y0 + s0
+        yield (
+            LPProblem(
+                c=c, A=A, rlb=b, rub=b, lb=np.zeros(n),
+                ub=np.full(n, _INF),
+                name=f"sparse_req_{m}x{n}_r{k}",
+            ),
+            tol,
         )

@@ -67,6 +67,15 @@ class RequestResult:
     # Solve engine of the tolerance-tiered ladder ("ipm" | "pdhg" |
     # "scenario") — which compiled program family served this request.
     engine: str = "ipm"
+    # Backend of a solo solve, as its IPMResult names it (``auto(<route>)``,
+    # or the rung a supervisor degradation reached); None when a bucket
+    # engine served the request.
+    backend: Optional[str] = None
+    # A bucket engine's whole lane, padding included, as ``(x, y)``: the
+    # problem the engine's verdict is about (serve/buckets.py pads the
+    # request into it), for checking that verdict. None on the solo path;
+    # not in the JSONL record, like x.
+    lane: Optional[Tuple[np.ndarray, np.ndarray]] = None
     # Stochastic scenario tier (None/0 for plain requests): scenario
     # count, padded scenario-count bucket, and the decomposition's
     # per-stage wall split — batched per-scenario Schur programs
@@ -110,6 +119,7 @@ class RequestResult:
             "tenant": self.tenant,
             "priority": self.priority,
             "engine": self.engine,
+            "backend": self.backend,
             "faults": [f.asdict() for f in self.faults],
         }
         if self.n_scenarios:

@@ -27,21 +27,27 @@ dispatch's solve window).
 
 Standard-form requests (min cᵀx, Ax=b, x≥0 — the serving workload) ride
 the bucketed fast path; general-form problems take the solo path through
-``ipm.solve`` — same futures, same records, batch=1.
+``ipm.solve`` — same futures, same records, batch=1. The bucketed path is
+tolerance-tiered, as in the JAX package: a standard-form request at
+``tol ≥ pdhg_tol`` (with ``pdhg_routing``, the default) rides the
+bucketed PDHG engine (``backends/first_order.solve_pdhg_bucket``), a
+tighter one the IPM engine; ``engine`` is a bucket dimension, and a PDHG
+lane that does not meet its request's tolerance re-solves solo on the IPM
+ladder (the crossover).
 
 Fault tolerance: a dispatch that raises (or blows ``batch_timeout_s``)
 is retried whole once, then degrades to per-request solo solves through
 ``supervisor.supervised_solve``; members the batch leaves unfinished take
-the same solo ladder individually. The solo backend is ``cuda`` on the
-service's device (the JAX package's ``"auto"`` picks a CPU backend for
-tiny problems; the port has no such backend yet, ROADMAP Queue 1 item 12).
+the same solo ladder individually. The solo backend is ``"auto"`` for
+the service's device, as in the JAX package: on the card that is
+``auto(cuda)`` (the port keeps solo solves on the card), on
+``device="cpu"`` ``auto(cpu-native)``; each solo record names the
+backend that served it.
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: the PDHG engine and tolerance-tiered routing (a request the JAX
-service would route to ``"pdhg"``, item 10), scenario-tier requests (item
-11), SLO admission and brownout (item 14), and mesh or multi-host
-dispatch (``mesh_devices`` other than 0 or 1, ``reshard``,
-``slice_runner=``; item 13).
+item: scenario-tier requests (item 11), SLO admission and brownout (item
+14), and mesh or multi-host dispatch (``mesh_devices`` other than 0 or 1,
+``reshard``, ``slice_runner=``; item 13).
 
 Telemetry: one JSONL record per request, one per dispatched batch, and a
 service summary at shutdown, through utils/logging.IterLogger. The bucket
@@ -131,9 +137,9 @@ class ServiceConfig:
     # Route batch-fault survivors and unfinished members through the
     # supervisor's recovery ladder individually (False: plain solve).
     solo_recovery: bool = True
-    # Backend of the solo path, on the service's device ("auto" is not
-    # ported: ROADMAP Queue 1 item 12).
-    solo_backend: str = "cuda"
+    # Backend of the solo path, for the service's device ("auto" picks by
+    # problem structure, backends/auto.py: on the card, "cuda").
+    solo_backend: str = "auto"
     # Service telemetry JSONL path (request/batch/fault/summary events).
     log_jsonl: Optional[str] = None
     # Deterministic fault injection (tests): called with (dispatch_index,
@@ -153,9 +159,11 @@ class ServiceConfig:
     warm_cache_entries: int = 512
     # SLO-aware admission: refused (item 14).
     admission: Optional[object] = None
-    # Tolerance-tiered routing: standard-form requests at tol ≥ pdhg_tol
-    # would ride the PDHG engine, which is not ported (item 10) — such a
-    # request is refused; pdhg_routing=False pins every request to IPM.
+    # Tolerance-tiered engine routing: standard-form requests at
+    # tol ≥ pdhg_tol dispatch to the bucketed batched PDHG engine
+    # (backends/first_order.solve_pdhg_bucket); a lane that misses its
+    # tolerance re-solves solo on the IPM ladder. pdhg_routing=False pins
+    # every request to the IPM engine.
     pdhg_routing: bool = True
     pdhg_tol: float = 1e-4
     # Durable job journal (serve/journal.py).
@@ -251,10 +259,9 @@ class SolveService:
             raise _unported("SLO-aware admission (admission=)", 14)
         if self.config.brownout is not None:
             raise _unported("the overload brownout ladder (brownout=)", 14)
-        from distributedlpsolver_tpu_torch.backends.base import _REGISTRY
+        from distributedlpsolver_tpu_torch.backends.base import check_backend_name
 
-        if self.config.solo_backend not in _REGISTRY:
-            raise _unported(f"solo backend {self.config.solo_backend!r}", 12)
+        check_backend_name(self.config.solo_backend)
         self.device = resolve_device(device)
         # The bucket path solves raw standard form — presolve/scaling and
         # per-iteration diagnostics are general-form driver concerns.
@@ -644,20 +651,19 @@ class SolveService:
         carries the job id as ``fut.jid``. ``_replay_job`` is the
         journal's own re-enqueue path — never pass it.
 
-        Raises ``NotImplementedError`` for what the JAX service would send
-        to an unported engine: a standard-form request at ``tol ≥
-        pdhg_tol`` with ``pdhg_routing`` on (PDHG) and a two-stage
-        scenario request."""
+        Tolerance-tiered routing: a standard-form request at ``tol ≥
+        pdhg_tol`` with ``pdhg_routing`` on takes the PDHG engine, any
+        other the IPM engine. Raises ``NotImplementedError`` for a
+        two-stage scenario request (the scenario engine is not ported)."""
         sf = standard_form(problem)
         if (problem.block_structure or {}).get("kind") == "two_stage":
             raise _unported("the scenario tier (two-stage requests)", 11)
         req_tol = tol if tol is not None else self.solver_config.tol
-        if self.config.pdhg_routing and sf is not None and req_tol >= self.config.pdhg_tol:
-            raise _unported(
-                f"the PDHG engine (a standard-form request at tol {req_tol:g} >= "
-                f"pdhg_tol {self.config.pdhg_tol:g}; pdhg_routing=False keeps it on the IPM)",
-                10,
-            )
+        engine = (
+            "pdhg"
+            if self.config.pdhg_routing and sf is not None and req_tol >= self.config.pdhg_tol
+            else "ipm"
+        )
         fp = None
         if self._warm_cache is not None:
             from distributedlpsolver_tpu_torch.utils.fingerprint import structural_fingerprint
@@ -690,7 +696,7 @@ class SolveService:
             fp=fp,
             tenant=tenant,
             priority=priority,
-            engine="ipm",
+            engine=engine,
             jid=_replay_job.jid if _replay_job is not None else None,
             jfp=_replay_job.fp if _replay_job is not None else jfp,
             trace=(
@@ -866,7 +872,7 @@ class SolveService:
         from distributedlpsolver_tpu_torch.backends.batched import place_bucket, place_warm
         from distributedlpsolver_tpu_torch.models.generators import BatchedLP
 
-        spec, tol, _ = key
+        spec, tol, engine = key
         B = spec.batch
         t0 = time.perf_counter()
         pin = self.device.type == "cuda"
@@ -880,7 +886,13 @@ class SolveService:
         for k in range(len(live), B):  # inactive slots: well-posed copies
             A[k], b[k], c[k] = A[0], b[0], c[0]
         batch = BatchedLP(c=c_t, A=A_t, b=b_t, name=f"bucket_{spec.m}x{spec.n}")
-        warm_states, warm_mask, warm_hits = self._build_warm_lanes(spec, live)
+        if engine == "pdhg":
+            # The first-order engine neither consumes nor produces warm
+            # iterates (a tol-loose PDHG point must not seed the IPM warm
+            # cache); its lanes stay cold by design.
+            warm_states, warm_mask, warm_hits = None, None, None
+        else:
+            warm_states, warm_mask, warm_hits = self._build_warm_lanes(spec, live)
         cfg = self.solver_config.replace(tol=tol)
         ready = None
         with self._on_pack_stream():
@@ -1062,6 +1074,7 @@ class SolveService:
             bucket_cache_size,
             solve_bucket,
         )
+        from distributedlpsolver_tpu_torch.backends.first_order import solve_pdhg_bucket
 
         spec, tol, engine = key
         if packed is None:
@@ -1071,7 +1084,9 @@ class SolveService:
         batch, active = packed.batch, packed.active
         cfg = self.solver_config.replace(tol=tol)
         waste = packed.waste
-        self._late_warm_lookup(spec, tol, live, packed)
+        if engine != "pdhg":
+            self._late_warm_lookup(spec, tol, live, packed)
+        solve_engine_fn = solve_pdhg_bucket if engine == "pdhg" else solve_bucket
         with self._lock:
             seq = self._dispatch_seq
             self._dispatch_seq += 1
@@ -1102,7 +1117,8 @@ class SolveService:
                     with self.tracer.span(
                         f"compile {spec.m}x{spec.n}x{spec.batch}/{engine}", cat="pipeline",
                     ):
-                        warmup = solve_bucket(batch, active, cfg, max_iter=1, device=self.device)
+                        warmup = solve_engine_fn(batch, active, cfg, max_iter=1,
+                                                 device=self.device)
                     compile_ms = (time.perf_counter() - t0) * 1e3
                     new_programs = bucket_cache_size() - size0
                     self._m_compiles.inc(new_programs)
@@ -1111,6 +1127,8 @@ class SolveService:
                         self._compiles += new_programs
 
                 def _solve():
+                    if engine == "pdhg":
+                        return solve_pdhg_bucket(batch, active, cfg, device=self.device)
                     return solve_bucket(
                         batch, active, cfg, warm=packed.warm, warm_mask=packed.warm_mask,
                         device=self.device,
@@ -1169,7 +1187,7 @@ class SolveService:
         if ctr is None:
             ctr = self.metrics.counter(
                 "serve_engine_dispatches_total", labels={"engine": engine},
-                help="bucket dispatches by solve engine",
+                help="bucket dispatches by solve engine (ipm/pdhg)",
             )
             self._m_engine_dispatches[engine] = ctr
         ctr.inc()
@@ -1199,10 +1217,11 @@ class SolveService:
         if fused_k is not None:
             self._m_fused.set(fused_k)
         # The device loop's accounting of this dispatch (and of its
-        # cold-bucket warm-up): bodies, replays, captures, K1 launches.
+        # cold-bucket warm-up): bodies, replays, captures, K1 launches, and
+        # the host-clock ms from the first replay to the exit's read.
         loop = lambda r, k: sum(row.get(k, 0) for row in (r.phase_report or [])) if r else 0
         device_rows = {
-            k: loop(res, k) for k in ("bodies", "replays", "captures", "launches")
+            k: loop(res, k) for k in ("bodies", "replays", "captures", "launches", "replay_ms")
         }
         device_rows.update({
             f"warmup_{k}": loop(warmup, k) for k in ("bodies", "captures", "launches")
@@ -1309,6 +1328,7 @@ class SolveService:
                     tol=tol,
                 )
             x_real = res.x[k, : p.n]
+            duals = res.y if res.y is not None else res.dual
             done = time.perf_counter()
             self._finish(
                 p,
@@ -1341,6 +1361,7 @@ class SolveService:
                     overlap_ms=overlap_ms,
                     warm=warm_label,
                     engine=engine,
+                    lane=None if duals is None else (res.x[k], duals[k]),
                 ),
             )
 
@@ -1432,6 +1453,7 @@ class SolveService:
                 n=p.n,
                 warm=r.warm if r is not None else "cold",
                 engine=p.engine,
+                backend=r.backend if r is not None else None,
             ),
         )
 
@@ -1573,7 +1595,9 @@ class SolveService:
     ) -> int:
         """Build the bucket programs for ``specs`` at ``tol`` (default: the
         service tolerance) — on a card, capture their graphs — so live
-        traffic never pays that. Idempotent per warm key. Every warmed
+        traffic never pays that. Idempotent per warm key. ``engines``
+        defaults to the IPM engine, plus the PDHG engine when ``tol`` is in
+        its tier (``pdhg_routing`` and ``tol ≥ pdhg_tol``). Every warmed
         bucket logs a ``cache: hit|miss`` line: ``miss`` when the build
         wrote a new kernel library into the build directory."""
         from distributedlpsolver_tpu_torch.backends.batched import (
@@ -1581,12 +1605,16 @@ class SolveService:
             place_bucket,
             solve_bucket,
         )
+        from distributedlpsolver_tpu_torch.backends.first_order import solve_pdhg_bucket
         from distributedlpsolver_tpu_torch.models.generators import random_batched_lp
 
         tol = self.solver_config.tol if tol is None else tol
-        engines = ["ipm"] if engines is None else list(engines)
-        if any(e != "ipm" for e in engines):
-            raise _unported(f"bucket engines {engines} other than 'ipm' (PDHG)", 10)
+        if engines is None:
+            # The PDHG engine only ever serves its tolerance tier — warming
+            # it below pdhg_tol would build programs no request can reach.
+            engines = ["ipm"]
+            if self.config.pdhg_routing and tol >= self.config.pdhg_tol:
+                engines.append("pdhg")
         cfg = self.solver_config.replace(tol=tol)
         warmed = 0
         for spec in specs:
@@ -1604,7 +1632,8 @@ class SolveService:
                     placed, act = place_bucket(
                         dummy, np.ones(spec.batch, dtype=bool), cfg, device=self.device
                     )
-                    solve_bucket(placed, act, cfg, max_iter=1, device=self.device)
+                    fn = solve_pdhg_bucket if engine == "pdhg" else solve_bucket
+                    fn(placed, act, cfg, max_iter=1, device=self.device)
                 except (KeyboardInterrupt, SystemExit):
                     raise
                 except Exception as e:  # warm-up failure: traffic pays later

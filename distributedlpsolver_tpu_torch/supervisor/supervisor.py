@@ -52,9 +52,15 @@ resume into a different problem's iterate.
 
 In the torch package: the degradation chain is the JAX package's with
 ``cuda`` in place of ``tpu`` (:data:`DEGRADATION_CHAIN`), and a rung is
-taken only when the port registers its backend; today none follows
-``cuda``, so a fault that outlives its ladder on the card ends in
-:class:`SolveFailure`, never in a solve on the CPU. The health-probe and
+taken only when the port registers its backend. The host rungs
+(``cpu-sparse``, then ``cpu``; ``sparse-iterative`` before them is ROADMAP
+Queue 1 item 9) serve only a backend the caller placed on the CPU, as the
+reference degrades there. A backend on the card never degrades to the
+host: a fault that outlives its ladder there — a kernel that fails to
+build or launch, a lost device — ends in :class:`SolveFailure`, never in
+a solve on the CPU. A degradation is recorded in the fault history
+(``action="degrade:<rung>"``) and in the result's backend name. The
+health-probe and
 mesh-shrink branches serve mesh backends only and raise
 ``NotImplementedError`` if reached (ROADMAP Queue 1 item 13).
 
@@ -77,7 +83,14 @@ import time
 from typing import List, Optional, Union
 
 import numpy as np
+import torch
 
+# The degradation order lives in backends/auto.py, as in the JAX package.
+from distributedlpsolver_tpu_torch.backends.auto import (  # noqa: F401
+    DEGRADATION_CHAIN,
+    HOST_BACKENDS,
+    degradation_chain,
+)
 from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
 from distributedlpsolver_tpu_torch.ipm.driver import SolveHooks, solve
 from distributedlpsolver_tpu_torch.ipm.state import (
@@ -190,30 +203,6 @@ _DEVICE_LOSS_PATTERNS = (
 )
 
 
-# Supervisor degradation order: the JAX package's ``backends/auto.py``
-# chain with ``cuda`` (the port's dense card backend) in place of ``tpu``.
-# Each step trades throughput for independence from the faulting layer.
-# A rung is taken only when this package registers a backend of that
-# name; none after ``cuda`` is ported yet.
-DEGRADATION_CHAIN = ("sharded", "cuda", "sparse-iterative", "cpu-sparse", "cpu")
-
-
-def degradation_chain(name: str) -> list:
-    """Fallback backend names strictly *after* ``name`` in the
-    degradation order. Aliases resolve through the registry ("dense" →
-    "cuda"); names outside the chain get the full chain minus
-    themselves."""
-    from distributedlpsolver_tpu_torch.backends.base import _REGISTRY
-
-    key = (name or "").lower()
-    cls = _REGISTRY.get(key)
-    primary = cls.name if cls is not None else key
-    if primary in DEGRADATION_CHAIN:
-        i = DEGRADATION_CHAIN.index(primary)
-        return list(DEGRADATION_CHAIN[i + 1:])
-    return [n for n in DEGRADATION_CHAIN if n != primary]
-
-
 def _mesh_unported(where: str):
     return NotImplementedError(
         f"{where} serves mesh backends, which are not ported to the torch package yet "
@@ -323,7 +312,7 @@ class _SupervisorHooks(SolveHooks):
 
 def supervised_solve(
     problem,
-    backend: Union[str, object] = "cuda",
+    backend: Union[str, object] = "auto",
     config: Optional[SolverConfig] = None,
     supervisor: Optional[SupervisorConfig] = None,
     warm_start=None,
@@ -513,7 +502,7 @@ def supervised_solve(
                 if getattr(be, "mesh", None) is not None:
                     raise _mesh_unported("the mesh-shrink rung")
                 nxt = (
-                    _next_backend(current_name, faults)
+                    _next_backend(current_name, faults, _on_host(be))
                     if sup.degrade
                     else None
                 )
@@ -524,7 +513,9 @@ def supervised_solve(
                         faults,
                         f"recovery ladder exhausted on backend "
                         f"{current_name!r} and no degradation "
-                        "target remains",
+                        "target remains"
+                        + ("" if _on_host(be) else
+                           " (the host rungs serve only backends placed on the CPU)"),
                     )
                 fault.action = f"degrade:{nxt}"
                 current_name = nxt
@@ -608,14 +599,26 @@ def _device_kw(be) -> dict:
     return {} if dev is None else {"device": dev}
 
 
-def _next_backend(current: str, faults: List[FaultRecord]) -> Optional[str]:
+def _on_host(be) -> bool:
+    """Whether the caller placed ``be`` on the CPU (a backend that names no
+    device is taken to be on the card)."""
+    dev = getattr(be, "device", None)
+    return dev is not None and torch.device(dev).type == "cpu"
+
+
+def _next_backend(
+    current: str, faults: List[FaultRecord], on_host: bool = True
+) -> Optional[str]:
     """The next rung of the degradation chain that this package registers
-    and that has not faulted yet; None when none remains."""
+    and that has not faulted yet — a host rung only ``on_host``; None when
+    none remains."""
     from distributedlpsolver_tpu_torch.backends.base import _REGISTRY
 
     tried = {f.backend for f in faults} | {current}
     for name in degradation_chain(current):
-        if name not in tried and name in _REGISTRY:
+        if name in tried or name not in _REGISTRY:
+            continue
+        if on_host or name not in HOST_BACKENDS:
             return name
     return None
 

@@ -16,7 +16,18 @@ predecessors, through BOTH packages (the port on the CPU), which must
 agree. The JSON printed last maps each wave to ``{request index: [the
 verdicts seen]}`` for the requests not always answered OPTIMAL.
 
-    JAX_PLATFORMS=cpu python scripts/port_serve_jax_verdicts.py
+The PDHG wave's two streams (``--streams pdhg``) go the same way through
+the JAX service's tolerance tiers: the loose stream
+(``sparse_request_stream(1024, seed=25)`` at its tol 1e-4) through the
+JAX bucketed PDHG engine (``backends/first_order.py::solve_pdhg_bucket``)
+under two slot layouts — slices of ``--slice`` and of 256 slots, since a
+lane's power-iteration seed is its slot — and a lane left short of its
+tol through the JAX solo ladder at that tol (the crossover); the tight
+stream (``random_request_stream(64, seed=26)`` at 1e-8) through the IPM
+bucket engine and its solo ladder. Their verdicts carry the engine:
+``"pdhg:optimal"``, ``"ipm:optimal"`` (a crossover's), and so on.
+
+    JAX_PLATFORMS=cpu python scripts/port_serve_jax_verdicts.py [--streams ipm|pdhg|all]
 """
 
 from __future__ import annotations
@@ -46,20 +57,36 @@ def waves(gen):
     }
 
 
-def jax_bucket(problems, B):
+def pdhg_waves(gen):
+    """The PDHG wave's streams (chip_smoke.py, pdhg_wave): loose requests
+    at their tol 1e-4 and tight ones at 1e-8."""
+    return {
+        "pdhg_loose": list(gen.sparse_request_stream(1024, shapes=((96, 384), (M, N)), seed=25)),
+        "pdhg_tight": [(p, 1e-8) for p in gen.random_request_stream(64, shapes=((M, N),),
+                                                                     seed=26)],
+    }
+
+
+def jax_bucket(problems, B, engine="ipm", tol=1e-8):
     """The JAX bucket result of each request (status, iterate)."""
     from distributedlpsolver_tpu.backends.batched import solve_bucket
+    from distributedlpsolver_tpu.backends.first_order import solve_pdhg_bucket
+    from distributedlpsolver_tpu.ipm.config import SolverConfig
     from distributedlpsolver_tpu.models.generators import BatchedLP
     from distributedlpsolver_tpu.serve import pad_standard_form, standard_form
 
     rows = [pad_standard_form(*standard_form(p), M, N) for p in problems]
+    fn = solve_pdhg_bucket if engine == "pdhg" else solve_bucket
     out = []
     for lo in range(0, len(rows), B):
         part = rows[lo:lo + B]
         live = len(part)
         part = part + [part[0]] * (B - live)
         c, A, b = (np.stack(v) for v in zip(*part))
-        r = solve_bucket(BatchedLP(c=c, A=A, b=b, name=f"[{lo}]"), np.arange(B) < live)
+        r = fn(BatchedLP(c=c, A=A, b=b, name=f"[{lo}]"), np.arange(B) < live,
+               SolverConfig(tol=tol))
+        if r.y is None:  # the PDHG engine returns no dual iterate
+            r.y = r.s = r.w = r.z = r.x
         for k in range(live):
             p = problems[lo + k]
             out.append((r.status[k], tuple(np.asarray(v[k]) for v in (r.x, r.y, r.s, r.w, r.z)),
@@ -92,12 +119,52 @@ def warm_solo(pkg, problem, prior, m, n):
     return r.status.value, r.iterations, r.warm
 
 
+def pdhg_verdicts(slice_slots: int) -> dict:
+    """``{stream: {request index: [verdicts seen]}}`` of the PDHG wave's
+    requests not always answered ``<engine>:optimal`` by the JAX tiers."""
+    from distributedlpsolver_tpu.ipm.state import Status
+    from distributedlpsolver_tpu.models import generators as jgen
+    from distributedlpsolver_tpu.supervisor import SupervisorConfig, supervised_solve
+
+    verdicts = {}
+    for tag, stream in pdhg_waves(jgen).items():
+        t0 = time.perf_counter()
+        problems, tol = [p for p, _ in stream], stream[0][1]
+        engine = "pdhg" if tag == "pdhg_loose" else "ipm"
+        layouts = [slice_slots, 256] if engine == "pdhg" else [slice_slots]
+        seen = {k: set() for k in range(len(problems))}
+        for B in layouts:
+            for k, (st, *_) in enumerate(jax_bucket(problems, B, engine, tol)):
+                if st is Status.OPTIMAL:
+                    seen[k].add(f"{engine}:optimal")
+                    continue
+                try:  # the crossover / solo ladder at the request's tol
+                    r = supervised_solve(problems[k], backend="auto", tol=tol,
+                                         supervisor=SupervisorConfig(backoff_base=0.01))
+                    v = r.status.value
+                except Exception:  # SolveFailure: the service's FAILED verdict
+                    v = "failed"
+                seen[k].add(f"{engine}:{v}")
+                print(f"{tag} {k} {problems[k].name} (slots of {B}): bucket {st.value}, "
+                      f"solo {v}")
+        out = {k: sorted(v) for k, v in seen.items() if v != {f"{engine}:optimal"}}
+        verdicts[tag] = out
+        print(f"{tag}: {len(problems)} requests at tol {tol:g} on {engine}, {len(out)} not always "
+              f"OPTIMAL, {time.perf_counter() - t0:.1f} s")
+    return verdicts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--slice", type=int, default=64, help="bucket slots a JAX dispatch holds")
     ap.add_argument("--cache-members", type=int, default=4,
                     help="same-model predecessors whose iterate a warm solo starts from")
+    ap.add_argument("--streams", choices=("ipm", "pdhg", "all"), default="all",
+                    help="the three IPM waves, the PDHG wave's two streams, or both")
     args = ap.parse_args()
+    if args.streams == "pdhg":
+        print(json.dumps(pdhg_verdicts(args.slice)))
+        return 0
 
     from distributedlpsolver_tpu.ipm.state import Status
     from distributedlpsolver_tpu.models import generators as jgen
@@ -137,6 +204,8 @@ def main() -> int:
         verdicts[tag] = out
         print(f"{tag}: {len(problems)} requests, {len(out)} not always OPTIMAL, "
               f"{time.perf_counter() - t0:.1f} s")
+    if args.streams == "all":
+        verdicts.update(pdhg_verdicts(args.slice))
     print(json.dumps(verdicts))
     return 0
 

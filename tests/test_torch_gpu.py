@@ -402,3 +402,56 @@ def test_bucket_donation_report_on_the_card(cuda):
     assert rep["argument_bytes"] >= 8 * B * m * n
     assert rep["temp_bytes"] >= 0
     assert tbatched.bucket_cache_size() == size
+
+
+def test_pdhg_bucket_program_captures_once_and_replays(cuda):
+    """The PDHG bucket engine's program captures its graph at its first
+    dispatch (a one-burst warm-up), and later dispatches only replay —
+    another tol or budget is a fill — with the CPU path's verdicts and
+    the same bits from two dispatches."""
+    from distributedlpsolver_tpu_torch.backends.first_order import solve_pdhg_bucket
+
+    tbatched.release_bucket_programs()
+    batch, act = _bucket(B=8, live=6, seed=3)
+    size0, caps0 = tbatched.bucket_cache_size(), tbatched.bucket_capture_count()
+    solve_pdhg_bucket(batch, act, tol=1e-4, max_iter=1)
+    assert tbatched.bucket_cache_size() == size0 + 1
+    assert tbatched.bucket_capture_count() == caps0 + 1
+    r = solve_pdhg_bucket(batch, act, tol=1e-4)
+    r2 = solve_pdhg_bucket(batch, act, tol=1e-5)
+    (row,) = r.phase_report
+    assert tbatched.bucket_cache_size() == size0 + 1
+    assert tbatched.bucket_capture_count() == caps0 + 1
+    assert row["captures"] == 0 and row["eager"] == 0 and row["replays"] == row["bodies"] > 0
+    assert not row["built"] and r.fused_iters == 40 and r.y is None
+    rc = solve_pdhg_bucket(batch, act, tol=1e-4, device="cpu")
+    assert [s.value for s in r.status] == [s.value for s in rc.status]
+    assert np.all(r.iterations[~act] == 0) and np.all(r.status[~act] == Status.OPTIMAL)
+    assert np.array_equal(solve_pdhg_bucket(batch, act, tol=1e-4).x, r.x)
+    assert r2.iterations.max() >= r.iterations.max()
+
+
+def test_auto_routes_a_large_dense_problem_to_the_card(cuda):
+    """``auto`` on the card: ``auto(cuda)`` for a large dense problem, with
+    x bit for bit that of ``solve()``'s default, ``cuda``; a tiny one stays
+    on the card too (the reference sends it to the host)."""
+    p = random_dense_lp(600, 1200, seed=0)
+    r = solve(p, backend="auto", tol=1e-8)
+    rc = solve(p, tol=1e-8)
+    assert r.status is Status.OPTIMAL and r.backend == "auto(cuda)" and rc.backend == "cuda"
+    assert np.array_equal(r.x, rc.x) and r.iterations == rc.iterations
+    tiny = solve(random_dense_lp(12, 40, seed=0), backend="auto", tol=1e-8)
+    assert tiny.status is Status.OPTIMAL and tiny.backend == "auto(cuda)"
+
+
+def test_solo_pdhg_on_the_card_matches_its_cpu_path(cuda):
+    """The solo PDHG loop as one captured graph: the CPU path's verdict
+    and, within the reduction orders' rounding, its answer."""
+    p = random_dense_lp(64, 256, seed=1)
+    be = get_backend("pdlp")
+    r = solve(p, backend=be, tol=1e-4)
+    rc = solve(p, backend=get_backend("pdlp", device="cpu"), tol=1e-4)
+    (row,) = be.phase_report
+    assert r.status is Status.OPTIMAL and r.status == rc.status
+    assert row["captures"] == 1 and row["replays"] > 0
+    assert abs(r.objective - rc.objective) <= 1e-4 * (1 + abs(rc.objective))

@@ -55,7 +55,9 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
         "import distributedlpsolver_tpu_torch.backends.batched, distributedlpsolver_tpu_torch.ipm.warm\n"
         "import distributedlpsolver_tpu_torch.serve, distributedlpsolver_tpu_torch.serve.service\n"
         "import distributedlpsolver_tpu_torch.serve.autotune, distributedlpsolver_tpu_torch.supervisor\n"
-        "import distributedlpsolver_tpu_torch.obs.stats\n"
+        "import distributedlpsolver_tpu_torch.obs.stats, distributedlpsolver_tpu_torch.native\n"
+        "import distributedlpsolver_tpu_torch.backends.auto, distributedlpsolver_tpu_torch.backends.first_order\n"
+        "import distributedlpsolver_tpu_torch.models.structure, distributedlpsolver_tpu_torch.utils.accel\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -70,7 +72,10 @@ def test_the_serving_modules_are_scanned():
     for mod in ("serve/service.py", "serve/buckets.py", "serve/scheduler.py", "serve/records.py",
                 "serve/warmcache.py", "serve/journal.py", "serve/autotune.py", "obs/stats.py",
                 "supervisor/supervisor.py", "supervisor/watchdog.py", "supervisor/adaptive.py",
-                "supervisor/faults.py"):
+                "supervisor/faults.py", "native/__init__.py", "native/build.py",
+                "backends/auto.py", "backends/cpu.py", "backends/cpu_native.py",
+                "backends/cpu_sparse.py", "backends/first_order.py", "models/structure.py",
+                "utils/threefry.py", "utils/accel.py"):
         assert mod in rel
 
 
@@ -83,20 +88,31 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["solve", os.path.join(ROOT, "tests", "fixtures", "maximize.mps"), "--json"])
     assert get_backend("cuda", device="cpu").device.type == "cpu"
+    # The default backend, auto, and the PDHG backend raise too: auto never
+    # takes its CPU route because the card is missing.
+    for name in ("auto", "pdlp"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_backend(name)
+        assert get_backend(name, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(random_dense_lp(4, 10, seed=0))
 
 
 def test_cli_json_matches_the_jax_cli(capsys):
     path = os.path.join(ROOT, "tests", "fixtures", "maximize.mps")
     rc = cli.main(["solve", path, "--device", "cpu", "--json"])
     port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    rc_j = jax_cli.main(["solve", path, "--backend", "tpu", "--json", "--quiet"])
+    rc_j = jax_cli.main(["solve", path, "--json", "--quiet"])
     ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == rc_j == 0
     assert port["status"] == ref["status"] == "optimal"
     assert abs(port["objective"] - ref["objective"]) <= 1e-8 * (1 + abs(ref["objective"]))
-    assert port["backend"] == "cuda"
+    # Both CLIs default to auto, which routes this CPU run to the native kernels.
+    assert port["backend"] == ref["backend"] == "auto(cpu-native)"
 
 
 def test_cli_lists_the_ports_backends(capsys):
     assert cli.main(["backends"]) == 0
-    assert capsys.readouterr().out.split() == ["cuda", "dense", "torch"]
+    assert capsys.readouterr().out.split() == [
+        "auto", "cpu", "cpu-native", "cpu-sparse", "cuda", "dense", "first-order", "native",
+        "numpy", "pdhg", "pdlp", "scipy", "sparse", "torch"]

@@ -26,10 +26,12 @@ from distributedlpsolver_tpu.serve import SolveService as JSolveService
 from distributedlpsolver_tpu_torch.backends import batched as tbatched
 from distributedlpsolver_tpu_torch.backends import get_backend
 from distributedlpsolver_tpu_torch.ipm import Status, solve
+from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
 from distributedlpsolver_tpu_torch.models.generators import (
     random_dense_lp,
     random_general_lp,
     random_request_stream,
+    sparse_request_stream,
 )
 from distributedlpsolver_tpu_torch.models.problem import LPProblem
 from distributedlpsolver_tpu_torch.serve import (
@@ -255,6 +257,10 @@ def test_general_form_routes_solo():
     ref = solve(p, backend=get_backend("cuda", device=CPU))
     assert r.status is Status.OPTIMAL and r.bucket is None
     assert r.objective == pytest.approx(ref.objective, rel=1e-7)
+    # The default solo backend is auto, as in the JAX service; the record
+    # names the route it took.
+    assert ServiceConfig().solo_backend == "auto"
+    assert r.backend == r.record()["backend"] == "auto(cpu-native)"
 
 
 def test_batch_fault_retries_then_goes_solo():
@@ -369,7 +375,7 @@ def test_cli_serve_on_the_cpu(tmp_path):
     ({"mesh_devices": 2}, "item 13"),
     ({"admission": object()}, "item 14"),
     ({"brownout": object()}, "item 14"),
-    ({"solo_backend": "auto"}, "item 12"),
+    ({"solo_backend": "sparse-iterative"}, "item 9"),
 ])
 def test_unported_service_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -382,8 +388,8 @@ def test_unported_requests_and_calls_raise():
     svc = _svc()
     try:
         p = random_dense_lp(8, 24, seed=0)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            svc.submit(p, tol=1e-4)  # the JAX service routes this to PDHG
+        # PDHG is ported: the loose request rides it, as in the JAX service.
+        assert svc.submit(p, tol=1e-4).result(timeout=WAIT).engine == "pdhg"
         scen = random_dense_lp(8, 24, seed=1)
         scen.block_structure = {"kind": "two_stage", "num_blocks": 2}
         with pytest.raises(NotImplementedError, match="item 11"):
@@ -393,7 +399,8 @@ def test_unported_requests_and_calls_raise():
     finally:
         svc.shutdown()
     with _svc(pdhg_routing=False) as svc:  # the IPM takes a loose tol when asked
-        assert svc.submit(p, tol=1e-4).result(timeout=WAIT).status is Status.OPTIMAL
+        r = svc.submit(p, tol=1e-4).result(timeout=WAIT)
+        assert r.status is Status.OPTIMAL and r.engine == "ipm"
 
 
 def test_the_service_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
@@ -402,3 +409,98 @@ def test_the_service_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SolveService(ServiceConfig(), auto_start=False)
+
+
+# -- tolerance-tiered routing (the PDHG engine) -------------------------------
+
+
+def _host_kkt(c, A, b, x, y):
+    """(pinf, dinf, gap) of (x, y) on min cᵀx, Ax = b, x ≥ 0, in numpy."""
+    r = c - A.T @ y
+    pobj, dobj = c @ x, b @ y
+    return (np.linalg.norm(b - A @ x) / (1 + np.linalg.norm(b)),
+            np.linalg.norm(np.minimum(r, 0.0)) / (1 + np.linalg.norm(c)),
+            abs(pobj - dobj) / (1 + abs(pobj) + abs(dobj)))
+
+
+def _jax_verdicts(cfg_kw, streams, solver_config=None):
+    """(engine, status) of each request of ``streams`` through the JAX
+    service, in submit order."""
+    from distributedlpsolver_tpu.ipm.config import SolverConfig as JaxConfig
+    from distributedlpsolver_tpu.serve.buckets import BucketSpec as JBucketSpec
+
+    cfg_kw = dict(cfg_kw, buckets=[JBucketSpec(*b.key()) for b in cfg_kw["buckets"]])
+    with JSolveService(JServiceConfig(**cfg_kw),
+                       solver_config=JaxConfig(**(solver_config or {}))) as jsvc:
+        futs = [jsvc.submit(p, tol=tol) for p, tol in streams]
+        assert jsvc.drain(timeout=WAIT)
+        return [(r.engine, r.status.value) for r in (f.result(timeout=5) for f in futs)]
+
+
+class TestServeRouting:
+    """The JAX package's ``TestServeRouting`` (``tests/test_sparse.py``)
+    through the port, at its sizes, with the JAX service's verdicts."""
+
+    def test_pdhg_routing_200_requests_zero_warm_recompiles(self):
+        cfg_kw = dict(buckets=[BucketSpec(16, 64, 8)], flush_s=0.05, warm_start=False)
+        svc = SolveService(ServiceConfig(**cfg_kw), device=CPU)
+        try:
+            assert ServiceConfig().pdhg_routing and ServiceConfig().pdhg_tol == 1e-4
+            svc.warm_buckets(svc.scheduler.table.specs(), tol=1e-4)
+            svc.warm_buckets(svc.scheduler.table.specs(), tol=1e-8)
+            size0, caps0 = tbatched.bucket_cache_size(), tbatched.bucket_capture_count()
+            pdhg_futs = [svc.submit(p, tol=tol) for p, tol in sparse_request_stream(200, seed=30)]
+            ipm_futs = [svc.submit(p, tol=1e-8) for p, _ in sparse_request_stream(8, seed=31)]
+            pdhg_res = [f.result(timeout=WAIT) for f in pdhg_futs]
+            ipm_res = [f.result(timeout=WAIT) for f in ipm_futs]
+            stats = svc.stats()
+        finally:
+            svc.shutdown()
+        assert all(r.engine == "pdhg" for r in pdhg_res)
+        assert all(r.engine == "ipm" for r in ipm_res)
+        assert all(r.status.value == "optimal" for r in pdhg_res + ipm_res)
+        assert stats["engine_dispatches"].get("pdhg", 0) > 0
+        assert stats["engine_dispatches"].get("ipm", 0) > 0
+        assert tbatched.bucket_cache_size() == size0, "warm bucket rebuilt"
+        assert tbatched.bucket_capture_count() == caps0
+        # Crossover honesty: PDHG verdicts hold at the REQUEST tolerance, on
+        # the problem the engine solved (the request padded into its bucket),
+        # recomputed on the host from the engine's lane.
+        for (p, _), r in zip(sparse_request_stream(200, seed=30), pdhg_res):
+            assert r.rel_gap <= 1e-4 and r.pinf <= 1e-4 and r.dinf <= 1e-4
+            assert max(_host_kkt(*pad_standard_form(*standard_form(p), 16, 64), *r.lane)) <= 1e-4
+        ref = _jax_verdicts(cfg_kw, list(sparse_request_stream(200, seed=30))
+                            + [(p, 1e-8) for p, _ in sparse_request_stream(8, seed=31)])
+        assert [(r.engine, r.status.value) for r in pdhg_res + ipm_res] == ref
+
+    def test_pdhg_routing_disabled_pins_ipm(self):
+        cfg = ServiceConfig(buckets=[BucketSpec(16, 64, 8)], flush_s=0.05, pdhg_routing=False,
+                            warm_start=False)
+        with SolveService(cfg, device=CPU) as svc:
+            futs = [svc.submit(p, tol=tol) for p, tol in sparse_request_stream(8, seed=32)]
+            res = [f.result(timeout=WAIT) for f in futs]
+        assert all(r.engine == "ipm" for r in res)
+        assert all(r.status.value == "optimal" for r in res)
+
+    def test_a_pdhg_lane_that_misses_its_tol_crosses_over_to_the_ipm(self):
+        """A budget of one 400-step burst leaves PDHG lanes short of the
+        request tol: each such lane re-solves solo on the IPM ladder at
+        that tol (auto → ``cpu-native`` on the CPU), as the JAX service's
+        do; the PDHG iterate never reaches the warm cache."""
+        cfg_kw = dict(buckets=[BucketSpec(16, 64, 8)], flush_s=0.05, pdhg_tol=1e-6)
+        stream = list(sparse_request_stream(16, seed=33, tol=1e-6))
+        with SolveService(ServiceConfig(**cfg_kw), solver_config=SolverConfig(max_iter=1),
+                          device=CPU) as svc:
+            futs = [svc.submit(p, tol=tol) for p, tol in stream]
+            assert svc.drain(timeout=WAIT)
+            res = [f.result(timeout=5) for f in futs]
+            stats = svc.stats()
+        crossed = [r for r in res if r.retried_solo]
+        assert crossed and all(r.engine == "pdhg" for r in res)
+        for r in crossed:
+            assert any(f.backend == "batched" and f.action == "solo_fallback" for f in r.faults)
+            assert r.backend == "auto(cpu-native)"
+        assert set(stats["engine_dispatches"]) == {"pdhg"}
+        ref = _jax_verdicts(cfg_kw, stream, solver_config={"max_iter": 1})
+        assert [(r.engine, r.status.value) for r in res] == ref
+

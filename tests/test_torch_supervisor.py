@@ -1,8 +1,10 @@
 """The torch package's solve supervisor against the JAX package's, on the
 CPU: the watchdog, the recovery ladder (rollback, regularization bump,
 re-center), retries and backoff, terminal answers, the fault injector,
-and the degradation chain — where no rung follows ``cuda``, so a fault
-that outlives its ladder ends in ``SolveFailure``, never in a CPU solve.
+and the degradation chain — where a fault that outlives its ladder on a
+backend placed on the CPU degrades to ``cpu-sparse`` (``sparse-iterative``,
+the JAX package's next rung, is not ported yet) and the result names the
+rung, while on the card it ends in ``SolveFailure``, never in a CPU solve.
 
 Each recovery case runs the same injection plan through both packages
 (the JAX side on its dense backend, on the CPU) and compares statuses,
@@ -10,10 +12,12 @@ the fault kinds and actions, and objectives (1e-6 relative, as the JAX
 package's own supervisor tests hold a rolled-back solve).
 """
 
+import importlib
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from distributedlpsolver_tpu import supervisor as jsup
 from distributedlpsolver_tpu.models import generators as jgen
@@ -33,6 +37,9 @@ from distributedlpsolver_tpu_torch.supervisor import (
 )
 from distributedlpsolver_tpu_torch.supervisor import supervisor as sup_mod
 
+# The module (the package's ``ops.normal_eq`` attribute is the function).
+ne = importlib.import_module("distributedlpsolver_tpu_torch.ops.normal_eq")
+
 _PROBLEM = dict(m=20, n=45, seed=3)
 
 
@@ -45,13 +52,14 @@ def _sup(**kw):
     return SupervisorConfig(**kw)
 
 
-def _both(plan_kw, sup_kw=None, **solve_kw):
+def _both(plan_kw, sup_kw=None, jax_backend="tpu", **solve_kw):
     """The same plan through both supervisors: (port outcome, JAX
-    outcome), each a result or the SolveFailure raised."""
+    outcome), each a result or the SolveFailure raised. The port starts
+    on ``cuda`` (on the CPU), the JAX package on ``jax_backend``."""
     out = []
     for pkg, backend, problem in (
         ("port", _backend(), random_dense_lp(**_PROBLEM)),
-        ("jax", "tpu", jgen.random_dense_lp(**_PROBLEM)),
+        ("jax", jax_backend, jgen.random_dense_lp(**_PROBLEM)),
     ):
         mod = sup_mod if pkg == "port" else jsup
         plan = [mod.InjectedFault(mod.FaultKind[k], **v) for k, v in plan_kw]
@@ -96,14 +104,23 @@ def test_no_faults_is_passthrough(reference_result):
 @pytest.mark.parametrize("plan, actions", [
     ([("NUMERICAL", {"iteration": 5})], ["rollback"]),
     ([("NUMERICAL", {"iteration": 4, "times": 3})], ["rollback", "rollback+reg_bump", "recenter"]),
+    ([("NUMERICAL", {"iteration": 4, "times": 4})],
+     ["rollback", "rollback+reg_bump", "recenter", "degrade:cpu-sparse"]),
 ])
 def test_ladder_matches_the_jax_supervisor(plan, actions):
-    rt, rj = _both(plan)
+    """The ladders agree rung for rung. The case that outlives the ladder
+    degrades to the CPU rung ``cpu-sparse``: the JAX side starts on
+    ``sparse-iterative``, whose next rung is that one (from ``tpu`` it
+    would take ``sparse-iterative``, which the port does not have)."""
+    degrades = actions[-1].startswith("degrade")
+    rt, rj = _both(plan, jax_backend="sparse-iterative" if degrades else "tpu")
     assert rt.status.value == rj.status.value == "optimal"
     assert [f.action for f in rt.faults] == [f.action for f in rj.faults] == actions
     assert [f.kind.value for f in rt.faults] == [f.kind.value for f in rj.faults]
     assert [f.iteration for f in rt.faults] == [f.iteration for f in rj.faults]
     assert abs(rt.objective - rj.objective) <= 1e-6 * (1 + abs(rj.objective))
+    if degrades:
+        assert rt.backend == rj.backend == "cpu-sparse"
 
 
 def test_hang_watchdog_timeout_then_retry(reference_result):
@@ -127,20 +144,82 @@ def test_retries_exhausted_raises_structured_failure_as_the_jax_one():
     assert [f.action for f in rt.faults] == [f.action for f in rj.faults]
 
 
-def test_a_fault_on_cuda_ends_in_solve_failure_not_a_cpu_solve():
-    """The JAX package degrades a crashing ``tpu`` backend to
-    ``sparse-iterative``; the port registers no rung after ``cuda``, so
-    the ladder ends in SolveFailure with no degradation taken."""
-    assert sup_mod.degradation_chain("cuda") == ["sparse-iterative", "cpu-sparse", "cpu"]
+def _on_the_card(setup):
+    """The ``cuda`` backend as the supervisor sees it on a card, its device
+    a CUDA one, with ``setup`` in place of its own (this package's tests
+    run without a card)."""
+    be = _backend()
+    be.device = torch.device("cuda")
+    be.setup = setup
+    return be
+
+
+def test_a_fault_on_cuda_ends_in_solve_failure_not_a_cpu_solve(monkeypatch, tmp_path):
+    """A K1 that fails to build on the card: the ladder retries it
+    (rollback, regularization bump, re-center) and then gives up — the
+    host rungs after ``cuda`` serve only a backend placed on the CPU, so
+    no solve moves to the CPU."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
+                           "kernel of ops/normal_eq.py cannot be built")
+
+    monkeypatch.setattr(ne, "_lib", None)
+    monkeypatch.setattr(ne, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(ne, "_nvcc", no_nvcc)
+    assert sup_mod._next_backend("cuda", [], on_host=False) is None
+    with pytest.raises(SolveFailure) as ei:
+        supervised_solve(random_dense_lp(**_PROBLEM),
+                         backend=_on_the_card(lambda inf, config: ne.load_library()),
+                         supervisor=_sup(max_retries=20))
+    faults = ei.value.faults
+    assert [f.action for f in faults] == ["rollback", "rollback+reg_bump", "recenter", "give_up"]
+    assert {f.kind for f in faults} == {FaultKind.CRASH} and {f.backend for f in faults} == {"cuda"}
+    assert "nvcc not found" in faults[0].detail
+    assert "placed on the CPU" in str(ei.value)
+
+
+def test_a_lost_card_ends_in_solve_failure_at_once():
+    """A lost device does not come back on retry and, on the card, has no
+    rung to degrade to: the first fault gives up."""
+    def setup(inf, config):
+        raise RuntimeError("normal_eq kernel launch failed: the device is lost")
+
+    with pytest.raises(SolveFailure) as ei:
+        supervised_solve(random_dense_lp(**_PROBLEM), backend=_on_the_card(setup),
+                         supervisor=_sup(max_retries=20))
+    assert [(f.kind, f.action) for f in ei.value.faults] == [(FaultKind.DEVICE_LOST, "give_up")]
+
+
+def test_a_fault_on_a_cpu_placed_backend_degrades_to_cpu_sparse_then_cpu(reference_result):
+    """On a backend the caller placed on the CPU, a fault that outlives the
+    ``cuda`` ladder degrades as the JAX package's does, to the next
+    registered rung: ``sparse-iterative`` is not ported (item 9), so
+    ``cpu-sparse``. The degradation is in the fault history and in the
+    result's backend name; a crash that follows every rung ends in
+    SolveFailure after ``cpu-sparse`` and ``cpu``."""
+    from distributedlpsolver_tpu.backends.auto import degradation_chain as jax_chain
+
+    assert sup_mod.degradation_chain("cuda") == jax_chain("tpu") == [
+        "sparse-iterative", "cpu-sparse", "cpu"]
     assert sup_mod.degradation_chain("dense") == sup_mod.degradation_chain("cuda")
-    assert sup_mod._next_backend("cuda", []) is None
+    assert sup_mod._next_backend("cuda", []) == "cpu-sparse"
+    plan = [InjectedFault(FaultKind.CRASH, iteration=1, times=None, backend="cuda")]
+    r = supervised_solve(random_dense_lp(**_PROBLEM), backend=_backend(),
+                         supervisor=_sup(fault_plan=plan, max_retries=20))
+    assert r.status == Status.OPTIMAL and r.backend == "cpu-sparse"
+    assert [f.action for f in r.faults] == [
+        "rollback", "rollback+reg_bump", "recenter", "degrade:cpu-sparse"]
+    assert {f.backend for f in r.faults} == {"cuda"}
+    np.testing.assert_allclose(r.objective, reference_result.objective, rtol=1e-6)
     plan = [InjectedFault(FaultKind.CRASH, iteration=1, times=None)]
     with pytest.raises(SolveFailure) as ei:
         supervised_solve(random_dense_lp(**_PROBLEM), backend=_backend(),
                          supervisor=_sup(fault_plan=plan, max_retries=20))
     actions = [f.action for f in ei.value.faults]
-    assert actions == ["rollback", "rollback+reg_bump", "recenter", "give_up"]
-    assert {f.backend for f in ei.value.faults} == {"cuda"}
+    assert actions == ["rollback", "rollback+reg_bump", "recenter", "degrade:cpu-sparse"] + [
+        "rollback", "rollback+reg_bump", "recenter", "degrade:cpu"] + [
+        "rollback", "rollback+reg_bump", "recenter", "give_up"]
+    assert [f.backend for f in ei.value.faults[::4]] == ["cuda", "cpu-sparse", "cpu"]
 
 
 def test_ladder_exhausted_without_degradation_raises():
