@@ -4,9 +4,11 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and fails (non-zero exit, no result line) without one. It:
 
-1. prints the card (``nvidia-smi`` name and power limit), builds the
-   normal-equations kernel from ``distributedlpsolver_tpu_torch/csrc`` into
-   ``build/dlps_torch/``, prints nvcc's register/shared-memory report, and
+1. prints the card (``nvidia-smi`` name and power limit), builds both
+   kernels (normal equations, hybrid-ELL SpMV) from
+   ``distributedlpsolver_tpu_torch/csrc`` into ``build/dlps_torch/``, one
+   ``nvcc`` per source started together, prints nvcc's
+   register/shared-memory report, and
    counts the ``DMMA`` (FP64 tensor-core) instructions in the f64
    kernel's SASS (``cuobjdump -sass``); none is a failure;
 2. holds the kernel's lower triangle against its plain PyTorch version's
@@ -124,9 +126,35 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    the KKT errors on the host of the returned iterate mapped into the
    presolved, scaled form the verdict is taken on (an OPTIMAL verdict must
    meet the tol there; the iteration limit is an allowed outcome);
-15. no hidden fallback: any supervisor degradation, or a solo request
-   served by another backend than its route names, fails the run;
-16. prints the ``kernels`` JSON line, the card line, and last the result
+15. no hidden fallback: any supervisor degradation (outside the ladder
+   check of step 16), or a solo request served by another backend than its
+   route names, fails the run;
+16. the matrix-free sparse tier (``sparse_phase``; ``--sparse-only``
+   runs the build and this phase alone): the stormG2_1000-shape instance
+   ``storm_sparse_lp(**STORM_FULL)`` (528,000 × 1,259,121), its host setup
+   timed by part (generation, interior form, Ruiz on CSR, ``from_scipy``,
+   the bordered preconditioner's symbolic setup); the hybrid-ELL kernel
+   (``ops/ell_spmv.py``) for A·v, Aᵀ·v and diag(A·D·Aᵀ) against its plain
+   version on that operator and on ``netlib_sparse_lp(20000, 40000,
+   seed=3)`` (relative error ≤ 1e-12, two launches bit for bit), timed
+   beside its bound (the bytes of the matrix's live entries, its row
+   pointers and the two vectors) and cuSPARSE (a ``torch.sparse`` CSR
+   product of the same matrix); the full-shape instance through ``solve(p,
+   backend="auto")`` — ``auto(sparse-iterative)``, the bordered
+   preconditioner, OPTIMAL at 1e-8, the host KKT check on the problem as
+   given, the memory guard (no operand near the m×m normal matrix), the
+   kernel's launches counted per function and direction, CG iterations, host syncs per Newton solve,
+   peak device memory and one step (iteration 10) under
+   ``torch.profiler``; the ILDL rung (``netlib_sparse_lp(120, 220,
+   seed=10)``, precond "auto"); the ladder (a supervised ``cuda`` solve
+   whose injected crashes exhaust its rungs degrades to
+   ``sparse-iterative`` on the card; a K1 that fails to load ends in
+   ``KernelError``, not degraded); the reference's acceptance instance
+   ``storm_sparse_lp(**STORM_20K)`` solved twice (the JAX package's
+   iterations, preconditioner and objective from
+   ``scripts/port_sparse_jax_verdicts.py``, HiGHS in a side process
+   within 1e-7, the memory guard, x bit for bit);
+17. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -1240,14 +1268,461 @@ def solo_pdhg_phase(card):
     return row
 
 
-def main() -> int:
+
+# -- the sparse tier (sparse-iterative) ----------------------------------------
+
+# The JAX package's verdicts for the sparse phase's instances, on the CPU
+# (scripts/port_sparse_jax_verdicts.py): status, IPM iterations, CG
+# iterations, preconditioner and objective of its sparse-iterative backend.
+SPARSE_JAX = {
+    "acceptance_20k": {"status": "optimal", "iterations": 32, "cg_iters": 2870,
+                       "precond": "bordered", "objective": 31216.655298566173},
+    "ildl": {"status": "optimal", "iterations": 15, "cg_iters": 6164, "precond": "ildl",
+             "objective": 144.48842430662728},
+    "storm_ladder": {"status": "optimal", "iterations": 25, "cg_iters": 1831,
+                     "precond": "bordered", "objective": 3205.0281049553932},
+}
+# stormG2_1000's published shape (Mittelmann's large sparse LP set:
+# 528,185 × 1,259,121, 3,341,696 nonzeros; 1,000 scenarios of 528 rows and
+# 1,259 columns, 121 first-stage columns). The generator has no
+# first-stage rows, so its m is 185 short: 528,000 × 1,259,121.
+STORM_FULL = dict(num_scenarios=1000, block_m=528, block_n=1259, first_stage_n=121, seed=1,
+                  t_nnz_per_row=2, w_nnz_per_row=4)
+# The reference's own acceptance instance (tests/test_sparse.py): 20,480 ×
+# 30,784.
+STORM_20K = dict(num_scenarios=320, block_m=64, block_n=96, first_stage_n=64, seed=1)
+# Relative error of the ELL kernel against its plain version (f64).
+ELL_TOL = 1e-12
+
+
+def ell_bound(op, rows, n_in) -> tuple:
+    """Least time of one product with the matrix of ``op`` (or its
+    transpose) in whatever layout: the larger of the bytes it must move —
+    each of the ``op.nnz`` live entries read once (value and int32
+    column), ``rows + 1`` int32 row pointers, the input vector read once,
+    the output written once — over the memory rate, and its multiply-adds
+    over the f64 peak. The padded slots of the hybrid-ELL layout (the
+    width quantum of 8 the JAX package fixes) are bytes the kernel reads
+    beyond this bound. Returns (ms, "bytes"|"operations", bytes)."""
+    es = op.vals.element_size()
+    nbytes = op.nnz * (es + 4) + (rows + 1) * 4 + n_in * es + rows * es
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2.0 * op.nnz / PEAK_FLOPS["float64"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
+def ell_layout_bytes(vals, cols, tail, n_in) -> int:
+    """Bytes the hybrid-ELL kernel reads and writes: every ELL slot, pad
+    included, the tail's live entries with its row pointers and heavy
+    rows, the input vector once and the output once."""
+    es = vals.element_size()
+    b = vals.numel() * es + cols.numel() * 4 + n_in * es + vals.shape[0] * es
+    if tail is not None:
+        live = int(tail.ptr[-1])
+        b += live * (es + 4) + (tail.ptr.numel() + tail.heavy.numel()) * 4
+    return b
+
+
+def ell_cases(torch, op, seed=7):
+    """(name, kernel call, plain call, CSR of the library yardstick, its
+    input, bound, layout bytes) for A·v, Aᵀ·w and diag(A·D·Aᵀ) + reg of
+    ``op``."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.ops.ell_spmv import ell_spmv_reference
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn(op.n, dtype=torch.float64, device="cuda", generator=g)
+    w = torch.randn(op.m, dtype=torch.float64, device="cuda", generator=g)
+    d = torch.rand(op.n, dtype=torch.float64, device="cuda", generator=g) + 0.1
+    A = op.to_scipy()
+
+    def csr(M):
+        M = M.tocsr()
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(M.indptr.astype(np.int64)), torch.from_numpy(M.indices.astype(np.int64)),
+            torch.from_numpy(M.data), size=M.shape).to("cuda")
+
+    reg = 1e-8
+    return [
+        ("A·v", lambda: op.matvec(v), lambda: ell_spmv_reference(op.vals, op.cols, v, op.tail()),
+         csr(A), v, ell_bound(op, op.m, op.n), ell_layout_bytes(op.vals, op.cols, op.tail(), op.n)),
+        ("Aᵀ·v", lambda: op.rmatvec(w), lambda: ell_spmv_reference(op.tvals, op.tcols, w, op.ttail()),
+         csr(A.T), w, ell_bound(op, op.n, op.m), ell_layout_bytes(op.tvals, op.tcols, op.ttail(), op.m)),
+        ("diag(A·D·Aᵀ)", lambda: op.normal_diag(d, reg),
+         lambda: ell_spmv_reference(op.vals, op.cols, d, op.tail(), square=True, reg=reg),
+         csr(A.multiply(A)), d, ell_bound(op, op.m, op.n),
+         ell_layout_bytes(op.vals, op.cols, op.tail(), op.n)),
+    ]
+
+
+def ell_phase(torch, op, tag, card, timing=True):
+    """The kernel against its plain version on the card for each function
+    of ``op`` (relative error ≤ ELL_TOL, two launches bit for bit) and,
+    with ``timing``, the kernel, the plain version and cuSPARSE (one
+    ``torch.sparse`` CSR product of the same matrix) with CUDA events
+    beside the bytes bound. Returns one row per function."""
+    rows = {}
+    for name, kern, plain, S, x, (b_ms, b_by, nbytes), layout in ell_cases(torch, op):
+        k1, k2, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            fail(f"ell {name} {tag}: two launches differ")
+        mx = (k1 - ref).abs().max().item()
+        rel = mx / max(ref.abs().max().item(), 1e-300)
+        if not rel <= ELL_TOL:
+            fail(f"ell {name} {tag}: relative error {rel:.3e} > {ELL_TOL:.0e}")
+        row = {"function": name, "instance": tag, "rel_err": rel, "max_abs_err": mx,
+               "bytes": nbytes, "layout_bytes": layout, "bound_ms": b_ms, "bound_by": b_by}
+        if timing:
+            row["ms"] = cuda_ms(torch, kern, iters=50, warm=5)
+            row["plain_ms"] = cuda_ms(torch, plain, iters=20, warm=3)
+            row["library_ms"] = cuda_ms(torch, lambda: S @ x, iters=50, warm=5)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(f"timing ell {name} {tag}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"cuSPARSE {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({b_by}, "
+                  f"{nbytes / 1e6:.1f} MB; the padded layout moves {layout / 1e6:.1f} MB), "
+                  f"bound share {row['bound_share']:.3f} [{card}]")
+        print(f"parity ell {since()} {name} {tag}: rel_err {rel:.3e} max_abs_err {mx:.3e} (tol {ELL_TOL:.0e}), "
+              "two launches bitwise equal")
+        rows[name] = row
+        del k1, k2, ref, S
+    torch.cuda.empty_cache()
+    return rows
+
+
+_T0 = [0.0]
+
+
+def since() -> str:
+    """Seconds into the sparse phase, for its lines."""
+    return f"[{time.perf_counter() - _T0[0]:.1f} s]"
+
+
+def ell_counts_reset():
+    from distributedlpsolver_tpu_torch.ops import ell_normal_diag, ell_spmv
+
+    ell_spmv.launches = ell_spmv.launches_t = 0
+    ell_normal_diag.launches = 0
+
+
+def ell_counts() -> dict:
+    """Launches per function and direction since the last reset."""
+    from distributedlpsolver_tpu_torch.ops import ell_normal_diag, ell_spmv
+
+    return {"A·v": ell_spmv.launches, "Aᵀ·v": ell_spmv.launches_t,
+            "diag(A·D·Aᵀ)": ell_normal_diag.launches}
+
+
+def memory_guard(name, be, m):
+    """No device operand of the backend may approach the (m, m) normal
+    matrix: bytes below 0.02·m²·8 and no (≥ m, ≥ m) shape (the reference's
+    acceptance guard)."""
+    rep = be.memory_report()
+    for key, info in rep.items():
+        shp = info["shape"]
+        if info["nbytes"] >= 0.02 * m * m * 8 or (len(shp) >= 2 and min(shp[-2:]) >= m):
+            fail(f"{name}: operand {key} {info} approaches the normal matrix (m = {m})")
+    return max(v["nbytes"] for v in rep.values())
+
+
+def sparse_verdict(name, r, rep, jax_ref=None, iterations=True):
+    """OPTIMAL at 1e-8, and with ``jax_ref`` the JAX package's
+    preconditioner, iteration count and objective (≤ 1e-8 relative)."""
+    if r.status.value != "optimal" or not max(r.rel_gap, r.pinf, r.dinf) <= 1e-8:
+        fail(f"{name}: {r.status.value}, rel_gap {r.rel_gap:.2e} pinf {r.pinf:.2e} dinf {r.dinf:.2e}")
+    if jax_ref is None:
+        return
+    rel = abs(r.objective - jax_ref["objective"]) / (1.0 + abs(jax_ref["objective"]))
+    if rep["precond"] != jax_ref["precond"] or not rel <= 1e-8 or (
+            iterations and r.iterations != jax_ref["iterations"]):
+        fail(f"{name}: {rep['precond']} {r.iterations} it objective {r.objective!r} against the JAX "
+             f"package's {jax_ref['precond']} {jax_ref['iterations']} it {jax_ref['objective']!r} "
+             f"({rel:.3e})")
+
+
+def profile_one_step(torch, at: int, tag: str):
+    """Solve hooks (``ipm/driver.py::SolveHooks``) that run IPM step ``at``
+    under ``torch.profiler`` (``device_profile``) and time every step."""
+    from distributedlpsolver_tpu_torch.ipm.driver import SolveHooks
+
+    class ProfileOneStep(SolveHooks):
+        def __init__(self):
+            self.at, self.prof, self.step_s = at, None, {}
+
+        def run_step(self, step_fn, iteration):
+            t0 = time.perf_counter()
+            if iteration == at:
+                out, self.prof = device_profile(torch, step_fn, tag)
+            else:
+                out = step_fn()
+            self.step_s[iteration] = time.perf_counter() - t0
+            return out
+
+    return ProfileOneStep()
+
+
+def highs_storm20k() -> int:
+    """The body of ``--highs-storm20k``: HiGHS's objective for the
+    acceptance instance, on the last line of standard output. Its interior
+    point method with crossover (``highs-ipm``) at feasibility tolerances
+    of 1e-10; the dual simplex, HiGHS's default, takes minutes there."""
+    import scipy.optimize as sopt
+
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+
+    p = storm_sparse_lp(**STORM_20K)
+    t0 = time.perf_counter()
+    h = sopt.linprog(p.c, A_eq=p.A, b_eq=p.rlb, bounds=(0, None), method="highs-ipm",
+                     options={"primal_feasibility_tolerance": 1e-10,
+                              "dual_feasibility_tolerance": 1e-10})
+    print(json.dumps({"status": int(h.status), "message": h.message, "objective": h.fun,
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def sparse_phase(torch, card):
+    """The matrix-free sparse tier on the card (module note, step 16).
+    Returns the kernels-line rows of the hybrid-ELL kernel. HiGHS's answer
+    for the acceptance instance is computed meanwhile in a second
+    process, started first and waited for at the end."""
+    highs = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--highs-storm20k"],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        return _sparse_phase(torch, card, highs)
+    finally:
+        if highs.poll() is None:
+            highs.kill()
+        highs.communicate()
+
+
+def _sparse_phase(torch, card, highs):
+    import numpy as np
+    import scipy.sparse as sp
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import netlib_sparse_lp, random_dense_lp, storm_sparse_lp
+    from distributedlpsolver_tpu_torch.models.problem import to_interior_form
+    from distributedlpsolver_tpu_torch.models.scaling import equilibrate
+    from distributedlpsolver_tpu_torch.ops import KernelError, pcg, sparse
+    from distributedlpsolver_tpu_torch.supervisor import (
+        FaultKind,
+        InjectedFault,
+        SupervisorConfig,
+        supervised_solve,
+    )
+
+    # 1. The full stormG2_1000-shape instance, its host setup by part.
+    _T0[0] = t0 = time.perf_counter()
+    p_full = storm_sparse_lp(**STORM_FULL)
+    parts = {"generate_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    inf = to_interior_form(p_full)
+    parts["interior_form_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inf_s, _ = equilibrate(inf)
+    parts["ruiz_s"] = time.perf_counter() - t0
+    if not (sp.issparse(inf.A) and sp.issparse(inf_s.A)):
+        fail("the storm instance's A was densified on the way to the backend")
+    t0 = time.perf_counter()
+    op = sparse.from_scipy(inf_s.A, device="cuda")
+    torch.cuda.synchronize()
+    parts["from_scipy_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prec = pcg.BorderedPrecond(inf_s.A, inf_s.block_structure, device="cuda")
+    torch.cuda.synchronize()
+    parts["bordered_setup_s"] = time.perf_counter() - t0
+    m_full, n_full = p_full.A.shape
+    print(f"sparse_setup {since()} {p_full.name} {m_full}x{n_full} nnz {p_full.A.nnz}: "
+          + json.dumps(parts) + f"; ELL widths A {op.vals.shape[1]}, Aᵀ {op.tvals.shape[1]}, "
+          f"Aᵀ tail {0 if op.ttail_vals is None else op.ttail_vals.numel()} on "
+          f"{0 if op.theavy is None else op.theavy.numel()} heavy rows; A_blocks "
+          f"{tuple(prec.blocks.A_blocks.shape)}")
+    del prec
+
+    # 2. The kernel against its plain version and cuSPARSE: the full
+    # storm operator (the scaled A the solve runs on), and a netlib-like
+    # operator with an uneven row profile and a real tail in both
+    # directions.
+    ell_full = ell_phase(torch, op, f"storm {m_full}x{n_full}", card)
+    del op
+    netlib = netlib_sparse_lp(20000, 40000, seed=3)
+    op_n = sparse.from_scipy(netlib.A, device="cuda")
+    print(f"netlib 20000x40000: ELL widths {op_n.vals.shape[1]} / {op_n.tvals.shape[1]}, tails "
+          f"{0 if op_n.tail_vals is None else op_n.tail_vals.numel()} / "
+          f"{0 if op_n.ttail_vals is None else op_n.ttail_vals.numel()}")
+    ell_phase(torch, op_n, "netlib 20000x40000", card, timing=False)
+    del op_n
+    torch.cuda.empty_cache()
+
+    # 3. The full shape through the default route, auto, with one step
+    # profiled; counts reset just before and read just after.
+    route = route_of(p_full)
+    if route != "sparse-iterative":
+        fail(f"storm full shape routes to {route}")
+    hooks = profile_one_step(torch, at=10, tag="sparse_step")
+    be = get_backend("auto")
+    torch.cuda.reset_peak_memory_stats()
+    ell_counts_reset()
+    t0 = time.perf_counter()
+    r = solve(p_full, backend=be, tol=1e-8, hooks=hooks)
+    wall = time.perf_counter() - t0
+    full_counts = ell_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    inner = be.inner
+    rep = inner.cg_report()
+    if be.name != "auto(sparse-iterative)" or rep["precond"] != "bordered":
+        fail(f"storm full shape: {be.name}, precond {rep['precond']}")
+    sparse_verdict("storm full shape", r, rep)
+    if full_counts["A·v"] <= 0 or full_counts["Aᵀ·v"] <= 0:
+        fail(f"storm full shape: ELL kernel launches {full_counts}")
+    x, y = np.asarray(r.x), np.asarray(r.y)
+    viol = p_full.max_violation(x)
+    pobj, dobj = float(p_full.c @ x), float(p_full.rlb @ y)
+    gap = abs(pobj - dobj) / (1.0 + abs(pobj))
+    if not viol <= 1e-6 or not gap <= 1e-7:
+        fail(f"storm full shape: max_violation {viol:.3e}, host gap {gap:.3e}")
+    max_full = memory_guard("storm full shape", inner, m_full)
+    prof = hooks.prof or {}
+    steps = sorted(hooks.step_s.items())
+    print(f"sparse_full {since()} " + json.dumps({
+        "problem": p_full.name, "backend": be.name, "status": r.status.value,
+        "iterations": r.iterations, "objective": r.objective, "max_violation": viol,
+        "host_rel_gap": gap, "wall_s": wall, "setup_s": r.setup_time, "solve_s": r.solve_time,
+        "cg_iters": rep["cg_iters"], "cg_per_iteration": rep["cg_per_iteration"],
+        "newton_solves": rep["newton_solves"], "host_syncs": rep["host_syncs"],
+        "host_syncs_per_newton_solve": rep["host_syncs"] / max(rep["newton_solves"], 1),
+        "step_s": [round(s, 4) for _, s in steps], "launches": full_counts,
+        # The profiled step pays the profiler's start-up; the rest do not.
+        "solve_s_without_profiled_step": r.solve_time - hooks.step_s.get(hooks.at, 0.0),
+        "peak_device_gb": peak_gb, "max_operand_bytes": max_full,
+    }))
+    print("sparse_full_profile " + json.dumps({
+        "iteration": hooks.at, "cg_iters": rep["cg_per_iteration"][hooks.at]
+        if len(rep["cg_per_iteration"]) > hooks.at else None, **prof}))
+    del r, be, inner, x, y
+    torch.cuda.empty_cache()
+
+    # 4. The ILDL rung: precond "auto" escalates Jacobi → ILDL and finishes
+    # on sparse-iterative (Jacobi's normal_diag runs until then).
+    p_ildl = netlib_sparse_lp(120, 220, seed=10)
+    be = get_backend("sparse-iterative")
+    ell_counts_reset()
+    r = solve(p_ildl, backend=be, tol=1e-8)
+    ildl_counts = ell_counts()
+    rep = be.cg_report()
+    sparse_verdict("ildl rung", r, rep, SPARSE_JAX["ildl"])
+    if min(ildl_counts.values()) <= 0:
+        fail(f"ildl rung: kernel launches {ildl_counts}")
+    print(f"sparse_ildl {since()} {p_ildl.name}: {r.status.value} {r.iterations} it, precond {rep['precond']}, "
+          f"cg {rep['cg_iters']} (JAX {SPARSE_JAX['ildl']['cg_iters']}), objective {r.objective!r}, "
+          f"launches {ildl_counts}")
+
+    # 5. The ladder: a supervised cuda solve whose crashes exhaust its
+    # rungs degrades to sparse-iterative on the card ...
+    p_lad = storm_sparse_lp(32, 64, 96, 64, seed=1)
+    plan = [InjectedFault(FaultKind.CRASH, iteration=1, times=None, backend="cuda")]
+    r = supervised_solve(p_lad, backend="cuda", tol=1e-8,
+                         supervisor=SupervisorConfig(backoff_base=0.001, fault_plan=plan))
+    actions = [f.action for f in r.faults]
+    if r.backend != "sparse-iterative" or "degrade:sparse-iterative" not in actions:
+        fail(f"ladder: served by {r.backend}, faults {actions}")
+    ref = SPARSE_JAX["storm_ladder"]
+    rel = abs(r.objective - ref["objective"]) / (1.0 + abs(ref["objective"]))
+    if r.status.value != "optimal" or not rel <= 1e-8:
+        fail(f"ladder: {r.status.value} objective {r.objective!r} vs {ref['objective']!r}")
+    print(f"sparse_ladder {since()} {p_lad.name}: cuda -> {r.backend}, faults {actions}, {r.status.value} "
+          f"{r.iterations} it, objective rel {rel:.2e} to the JAX package's")
+    # ... and a K1 that fails to load ends in the loader's error, not
+    # degraded.
+    ne = importlib.import_module("distributedlpsolver_tpu_torch.ops.normal_eq")
+    saved = (ne._lib, ne._nvcc, ne.BUILD_DIR)
+
+    def no_nvcc():
+        raise KernelError("nvcc withheld by chip_smoke.py (forced K1 load failure)")
+
+    ne._lib, ne._nvcc, ne.BUILD_DIR = None, no_nvcc, os.path.join(ROOT, "build", "dlps_torch", "absent")
+    try:
+        supervised_solve(random_dense_lp(64, 160, seed=0), backend="cuda", tol=1e-8,
+                         supervisor=SupervisorConfig(backoff_base=0.001))
+        fail("ladder: a K1 load failure did not raise")
+    except KernelError as e:
+        print(f"sparse_ladder {since()} K1 load failure: {type(e).__name__} raised, not degraded ({e})")
+    finally:
+        ne._lib, ne._nvcc, ne.BUILD_DIR = saved
+
+    # 6. The reference's acceptance instance, twice: the JAX package's
+    # verdict, HiGHS, the memory guard, x bit for bit.
+    p20 = storm_sparse_lp(**STORM_20K)
+    runs = []
+    for _ in range(2):
+        be = get_backend("sparse-iterative")
+        ell_counts_reset()
+        t0 = time.perf_counter()
+        r = solve(p20, backend=be, tol=1e-8, max_iter=200)
+        wall = time.perf_counter() - t0
+        counts = ell_counts()
+        rep = be.cg_report()
+        sparse_verdict("storm 20k", r, rep, SPARSE_JAX["acceptance_20k"])
+        max_op = memory_guard("storm 20k", be, p20.A.shape[0])
+        runs.append((r, counts, rep, wall, max_op))
+    (r20, c20, rep20, wall20, max20), (r20b, _, _, wall20b, _) = runs
+    if not np.array_equal(r20.x, r20b.x):
+        fail("storm 20k: x differs between two solves")
+    out, err = highs.communicate(timeout=1200)
+    if highs.returncode != 0:
+        fail(f"HiGHS on storm 20k: exit {highs.returncode}\n{err[-3000:]}")
+    h = json.loads(out.strip().splitlines()[-1])
+    if h["status"] != 0:
+        fail(f"HiGHS did not solve storm 20k: {h['message']}")
+    h20 = h["objective"]
+    rel_h = abs(r20.objective - h20) / (1.0 + abs(h20))
+    if not rel_h <= 1e-7:
+        fail(f"storm 20k: objective {r20.objective!r} vs HiGHS {h20!r}: {rel_h:.3e}")
+    if c20["A·v"] <= 0 or c20["Aᵀ·v"] <= 0:
+        fail(f"storm 20k: ELL kernel launches {c20}")
+    print(f"sparse_acceptance {since()} " + json.dumps({
+        "problem": p20.name, "status": r20.status.value, "iterations": r20.iterations,
+        "objective": r20.objective, "jax_objective": SPARSE_JAX["acceptance_20k"]["objective"],
+        "highs_rel": rel_h, "highs_s": h["seconds"], "cg_iters": rep20["cg_iters"],
+        "jax_cg_iters": SPARSE_JAX["acceptance_20k"]["cg_iters"], "precond": rep20["precond"],
+        "newton_solves": rep20["newton_solves"], "host_syncs": rep20["host_syncs"],
+        "wall_s": [wall20, wall20b], "setup_s": r20.setup_time, "solve_s": r20.solve_time,
+        "launches": c20, "max_operand_bytes": max20, "x_bitwise_equal": True,
+    }))
+
+    rows = []
+    for name, replaces, counts in (("A·v", "distributedlpsolver_tpu/ops/sparse.py:123", full_counts),
+                                   ("Aᵀ·v", "distributedlpsolver_tpu/ops/sparse.py:133", full_counts),
+                                   ("diag(A·D·Aᵀ)", "distributedlpsolver_tpu/ops/sparse.py:143",
+                                    ildl_counts)):
+        t = ell_full[name]
+        rows.append({
+            "name": "ell_normal_diag" if name.startswith("diag") else f"ell_spmv ({name})",
+            "route": "cuda",
+            "source": "distributedlpsolver_tpu_torch/csrc/ell_spmv.cu",
+            "replaces": replaces,
+            # A·v and Aᵀ·v: the full-shape auto solve, each direction's
+            # own count; ell_normal_diag: the ILDL rung's Jacobi steps
+            # (the bordered path never calls it).
+            "launches": counts[name],
+            "launches_path": "ildl rung" if name.startswith("diag") else "storm full shape (auto)",
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+            "library_ms": t["library_ms"], "library": "cuSPARSE CSR SpMV (torch.sparse)",
+            "dtypes": ["float64"], "shape": [m_full, n_full],
+        })
+    return rows
+
+
+
+def main(sparse_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script needs one card", file=sys.stderr)
         return 2
-    from distributedlpsolver_tpu_torch import cli
-    from distributedlpsolver_tpu_torch.io import read_mps
+    from distributedlpsolver_tpu_torch.ops import kernel_build
     # The module (the package's ``ops.normal_eq`` attribute is the function).
     ne = importlib.import_module("distributedlpsolver_tpu_torch.ops.normal_eq")
 
@@ -1258,12 +1733,37 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch.cuda.get_device_name(0) = {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 1. Build from the checkout's sources.
+    # 1. Build every kernel from the checkout's sources: one nvcc per
+    # source, all started together.
+    es = importlib.import_module("distributedlpsolver_tpu_torch.ops.ell_spmv")
     t0 = time.perf_counter()
+    kernel_build.build(ne.build_job(), es.build_job())
     ne.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {ne.build_info.get('seconds', 0.0):.2f} s) -> {ne.build_info['path']}")
-    for ln in ne.build_info.get("ptxas", []):
-        print(f"  {ln}")
+    es.load_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc in parallel: normal_eq "
+          f"{ne.build_info.get('seconds', 0.0):.2f} s, ell_spmv {es.build_info.get('seconds', 0.0):.2f} s)")
+    for mod in (ne, es):
+        print(f"  {mod.build_info['path']}")
+        for ln in mod.build_info.get("ptxas", []):
+            print(f"  {ln}")
+
+    rows = [] if sparse_only else dense_phases(torch, ne, card)
+    # 16. The matrix-free sparse tier.
+    rows += sparse_phase(torch, card)
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def dense_phases(torch, ne, card):
+    """Steps 1 (the SASS count) to 14 of the module note; returns the K1
+    rows of the kernels line."""
+    from distributedlpsolver_tpu_torch import cli
+    from distributedlpsolver_tpu_torch.io import read_mps
+
     dmma = dmma_count(ne)
     print(f"sass: {dmma} DMMA instructions in normal_eq_dmma_kernel (f64)")
     if dmma <= 0:
@@ -1422,15 +1922,12 @@ def main() -> int:
         "dtypes": ["float64"],
         "shape": s_timing["shape"],
     }]}
-    print(f"total: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels))
-    print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels["kernels"]
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one-solve"]:
         sys.exit(one_solve(json.loads(sys.argv[2])))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--highs-storm20k"]:
+        sys.exit(highs_storm20k())
+    sys.exit(main(sparse_only=sys.argv[1:2] == ["--sparse-only"]))

@@ -13,4 +13,5 @@ import distributedlpsolver_tpu_torch.backends.cpu  # noqa: F401,E402  (registers
 import distributedlpsolver_tpu_torch.backends.cpu_native  # noqa: F401,E402  (registers cpu-native)
 import distributedlpsolver_tpu_torch.backends.cpu_sparse  # noqa: F401,E402  (registers cpu-sparse)
 import distributedlpsolver_tpu_torch.backends.first_order  # noqa: F401,E402  (registers pdlp/first-order/pdhg)
+import distributedlpsolver_tpu_torch.backends.sparse_iterative  # noqa: F401,E402  (registers sparse-iterative/inexact-ipm/sparse-pcg)
 import distributedlpsolver_tpu_torch.backends.auto  # noqa: F401,E402  (registers auto)

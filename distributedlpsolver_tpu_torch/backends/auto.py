@@ -22,11 +22,13 @@ the card's fused loop). Without a card and without an explicit
 route because the card is missing. The backend's name is
 ``auto(<chosen>)``, on the result and on every record.
 
-Routes to backends this package does not have yet raise
+A problem with a ``bordered`` hint, or a sparse one of at least 20,000
+rows below density 0.1, goes to the matrix-free ``sparse-iterative``
+backend, on the card or (with ``device="cpu"``) on the CPU, as in the
+reference. Routes to backends this package does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item when
 :class:`AutoBackend` takes them (``backends/base.py::UNPORTED_BACKENDS``):
-``scenario`` (item 11), ``sparse-iterative`` (item 9) and ``block`` (item
-11).
+``scenario`` and ``block`` (item 11).
 
 The supervisor's degradation order lives here, as in the reference.
 """
@@ -55,7 +57,8 @@ _HUGE_SPARSE_ROWS = 20_000
 # multi-device sharding → single-card dense → matrix-free inexact IPM →
 # CPU sparse-direct → plain CPU, which shares no device runtime at all.
 # The supervisor takes a rung only when this package registers it, and a
-# host rung only from a backend the caller placed on the CPU.
+# host rung only from a backend the caller placed on the CPU: on the card
+# the chain is ``cuda`` → ``sparse-iterative``.
 DEGRADATION_CHAIN = ("sharded", "cuda", "sparse-iterative", "cpu-sparse", "cpu")
 
 # The backends that run on the host whatever device their caller names.
@@ -162,6 +165,11 @@ class AutoBackend(SolverBackend):
             inf.block_structure = hint
         self.name = f"auto({name})"
         self._inner.setup(inf, config)
+
+    @property
+    def inner(self) -> Optional[SolverBackend]:
+        """The backend :meth:`setup` picked (None before setup)."""
+        return self._inner
 
     @property
     def phase_report(self):

@@ -17,8 +17,10 @@ verbatim (the checkpoint-resume contract; the batched solver's solo
 cleanup hands its iterates over so), a :class:`ipm.warm.WarmStart` is
 safeguarded by :func:`_init_warm_start`. A ``warm_cache``
 (``serve/warmcache.py``) supplies both, as there: a cached iterate and
-Ruiz scaling for the problem's structural fingerprint, and the store of
-this solve's on an OPTIMAL finish.
+Ruiz scaling for the problem's structural fingerprint, a cached
+preconditioner scaling for a backend with the ``offer_precond`` seam
+(``sparse-iterative``), and the store of this solve's on an OPTIMAL
+finish.
 """
 
 from __future__ import annotations
@@ -174,6 +176,18 @@ def solve(
 
     t_setup0 = time.perf_counter()
     be.setup(inf_solve, cfg)
+    # Warm-cache-supplied preconditioner: a backend with the offer/export
+    # seam (sparse-iterative) seeds its PCG preconditioner from the cached
+    # final scaling of the last OPTIMAL same-structure solve. Only valid
+    # when this solve reuses the Ruiz scaling the cached d was exported
+    # under (the delta-solve path); offer_precond shape-guards the rest.
+    if (
+        cache_entry is not None
+        and cache_entry.precond_d is not None
+        and hasattr(be, "offer_precond")
+        and (not cfg.scale or cache_entry.scaling is not None)
+    ):
+        be.offer_precond(cache_entry.precond_d)
     fingerprint = ckpt.problem_fingerprint(inf) if cfg.checkpoint_path else ""
     resumed = (
         ckpt.maybe_load(cfg.checkpoint_path, fingerprint)
@@ -207,10 +221,12 @@ def solve(
         def on_host_state(final_status, host_state):
             if final_status is not Status.OPTIMAL:
                 return
+            export = getattr(be, "export_precond", None)
             warm_cache.store(
                 cache_fp, m=inf.m, n=inf.n, state=host_state, scaling=scaling,
                 scaled_A=inf_solve.A if scaling is not None else None,
-                structure=inf.block_structure, tol=cfg.tol,
+                structure=inf.block_structure,
+                precond_d=export() if export is not None else None, tol=cfg.tol,
             )
 
     use_fused = cfg.fused_loop
@@ -474,6 +490,20 @@ def _finalize(
     _tracer.complete(
         f"ipm.solve {inf.name}", solve_time, cat="ipm", args=solve_args
     )
+    if _tracer.enabled:
+        # CG attribution for matrix-free backends: one span carrying the
+        # solve's inner-iteration economics, linked to the owning request.
+        cg_report = getattr(be, "cg_report", None)
+        if cg_report is not None:
+            try:
+                rep = cg_report()
+            except Exception:  # telemetry must never sink a solve
+                rep = None
+            if rep and rep.get("cg_iters"):
+                cg_args = {k: rep.get(k) for k in ("cg_iters", "precond", "shards", "psum_per_iter")}
+                if _ctx is not None:
+                    cg_args.update(_ctx.span_args())
+                _tracer.complete(f"cg.solve {inf.name}", solve_time, cat="cg", args=cg_args)
     host = be.to_host(state)
     if scaling is not None:
         host = scaling.unscale_state(host)

@@ -2,10 +2,11 @@
 
 A copy of ``random_dense_lp``, ``random_sparse_lp``, ``random_general_lp``,
 ``random_batched_lp`` (with ``BatchedLP``), ``random_request_stream``,
-``correlated_request_stream`` and ``sparse_request_stream`` (the PDHG
-tier's stream) from the JAX package's ``models/generators.py``: the same
-seed gives the same problem (and the same stream) in both packages. The
-block-angular and large sparse generators are not ported yet.
+``correlated_request_stream``, ``sparse_request_stream`` (the PDHG
+tier's stream) and the sparse tier's ``storm_sparse_lp`` and
+``netlib_sparse_lp`` from the JAX package's ``models/generators.py``: the
+same seed gives the same problem (and the same stream) in both packages,
+bit for bit. The block-angular generator is not ported yet.
 
 All generators construct problems that are feasible and bounded *by
 construction* (primal point and dual certificate built first, data derived
@@ -257,6 +258,122 @@ def correlated_request_stream(
             c=c, A=A, rlb=b, rub=b, lb=np.zeros(n), ub=np.full(n, _INF),
             name=f"corr_m{i}_{m}x{n}_r{k}",
         )
+
+
+def storm_sparse_lp(
+    num_scenarios: int,
+    block_m: int = 64,
+    block_n: int = 96,
+    first_stage_n: int = 64,
+    seed: int = 0,
+    t_nnz_per_row: int = 4,
+    w_nnz_per_row: int = 6,
+) -> LPProblem:
+    """Storm-class (stormG2-like) two-stage stochastic LP in BORDERED
+    (dual block-angular) form — the huge-sparse tier's headline profile.
+
+    Columns are ``[first-stage x₀ (n1) | scenario-local x_b (K·nb)]``;
+    rows are K scenario blocks of ``block_m`` equality rows each:
+
+    .. code-block:: text
+
+        T_b·x₀ + W_b·x_b = b_b      (scenario b = 1..K)
+        x ≥ 0
+
+    so scenario rows couple ONLY through the n1 first-stage columns —
+    exactly the pattern the sparse-iterative backend's bordered Woodbury
+    preconditioner inverts without ever forming ADAᵀ. T_b and W_b are
+    random sparse with fixed nonzeros per row (every row keeps ≥1
+    recourse entry, so no row is first-stage-only).
+
+    Feasible + bounded by the same witness trick as
+    :func:`random_dense_lp` / :func:`random_request_stream`'s instances:
+    draw x₀, x_b > 0 and set b from them; draw (y₀, s₀ > 0) and set
+    ``c = Aᵀy₀ + s₀``. Fully seeded — the same arguments reproduce the
+    identical instance, pattern and values.
+    """
+    rng = np.random.default_rng(seed)
+    K, mb, nb, n1 = num_scenarios, block_m, block_n, first_stage_n
+    m = K * mb
+    n = n1 + K * nb
+
+    rows = []
+    cols = []
+    vals = []
+    for b in range(K):
+        r0 = b * mb
+        c0 = n1 + b * nb
+        # T_b: coupling into the first-stage columns.
+        tr = np.repeat(np.arange(r0, r0 + mb), t_nnz_per_row)
+        tc = rng.integers(0, n1, size=mb * t_nnz_per_row)
+        tv = rng.standard_normal(mb * t_nnz_per_row)
+        # W_b: scenario-local recourse block; each row gets a guaranteed
+        # diagonal-ish entry (no empty recourse rows) plus random fill.
+        wr = np.repeat(np.arange(r0, r0 + mb), w_nnz_per_row)
+        wc = c0 + rng.integers(0, nb, size=mb * w_nnz_per_row)
+        wv = rng.standard_normal(mb * w_nnz_per_row)
+        dr_ = np.arange(r0, r0 + mb)
+        dc_ = c0 + (np.arange(mb) % nb)
+        dv_ = 1.0 + rng.uniform(0.5, 1.5, size=mb)
+        rows += [tr, wr, dr_]
+        cols += [tc, wc, dc_]
+        vals += [tv, wv, dv_]
+    A = sp.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(m, n),
+    ).tocsr()
+    A.sum_duplicates()
+
+    x0 = rng.uniform(0.5, 2.0, size=n)
+    b_vec = np.asarray(A @ x0).ravel()
+    y0 = rng.standard_normal(m)
+    s0 = rng.uniform(0.5, 2.0, size=n)
+    c = np.asarray(A.T @ y0).ravel() + s0
+    p = LPProblem(
+        c=c, A=A, rlb=b_vec, rub=b_vec, lb=np.zeros(n), ub=np.full(n, _INF),
+        name=f"storm_K{K}_{mb}x{nb}_n1{n1}_s{seed}",
+    )
+    p.block_structure = {
+        "kind": "bordered",
+        "num_blocks": K,
+        "block_m": mb,
+        "block_n": nb,
+        "first_stage_n": n1,
+    }
+    return p
+
+
+def netlib_sparse_lp(
+    m: int, n: int, seed: int = 0, mean_col_nnz: float = 5.0
+) -> LPProblem:
+    """Netlib-like density profile: column nonzero counts drawn from a
+    heavy-tailed (geometric) distribution — most columns carry 2–5
+    entries, a few are dense-ish, the way real netlib files look —
+    rather than the uniform pattern of :func:`random_sparse_lp`.
+    Feasible + bounded by the witness construction; fully seeded."""
+    rng = np.random.default_rng(seed)
+    counts = rng.geometric(1.0 / max(mean_col_nnz - 1.0, 1.0), size=n) + 1
+    counts = np.minimum(counts, m)
+    rows = np.concatenate(
+        [rng.choice(m, size=k, replace=False) for k in counts]
+    )
+    cols = np.repeat(np.arange(n), counts)
+    vals = rng.standard_normal(counts.sum())
+    # Every row gets ≥2 entries so presolve can't trivially shrink it.
+    rows = np.concatenate([rows, np.arange(m), np.arange(m)])
+    cols = np.concatenate([cols, rng.integers(0, n, m), rng.integers(0, n, m)])
+    vals = np.concatenate([vals, rng.standard_normal(2 * m)])
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    A.sum_duplicates()
+    x0 = rng.uniform(0.5, 2.0, size=n)
+    b = np.asarray(A @ x0).ravel()
+    y0 = rng.standard_normal(m)
+    s0 = rng.uniform(0.5, 2.0, size=n)
+    c = np.asarray(A.T @ y0).ravel() + s0
+    return LPProblem(
+        c=c, A=A, rlb=b, rub=b, lb=np.zeros(n), ub=np.full(n, _INF),
+        name=f"netlib_like_{m}x{n}_s{seed}",
+    )
 
 
 def sparse_request_stream(

@@ -34,31 +34,23 @@ launch.
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at its first use, from the sources in this
 checkout, into ``build/dlps_torch/`` at the root of the checkout, and
-loaded with ``ctypes``.
+loaded with ``ctypes`` (``ops/kernel_build.py``); a build, load or launch
+failure raises :class:`~distributedlpsolver_tpu_torch.ops.kernel_build.KernelError`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCE = os.path.join(_CSRC, "normal_eq.cu")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build", "dlps_torch",
-)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from distributedlpsolver_tpu_torch.ops import kernel_build
+from distributedlpsolver_tpu_torch.ops.kernel_build import BUILD_DIR, KernelError
+
+_SOURCE = os.path.join(kernel_build.CSRC, "normal_eq.cu")
+_STEM = "libdlps_normal_eq"
 
 # (input dtype, output dtype) -> C entry point of csrc/normal_eq.cu
 _ENTRY = {
@@ -75,50 +67,22 @@ _lib_lock = threading.Lock()
 # What the build reported: seconds, and nvcc's -Xptxas -v register and
 # shared-memory lines (read by chip_smoke.py).
 build_info: dict = {}
+_nvcc = kernel_build.find_nvcc
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
-            "kernel of ops/normal_eq.py cannot be built"
-        )
-    return found
+def build_job():
+    """This kernel's entry for :func:`kernel_build.build`."""
+    return (_SOURCE, _STEM, BUILD_DIR, _nvcc, build_info)
 
 
 def load_library():
-    """Build (once per source version) and load the kernel library."""
+    """Build (once per source version) and load the kernel library; a
+    failure raises :class:`KernelError`."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_SOURCE, "rb") as fh:
-            tag = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"libdlps_normal_eq_{tag}.so")
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {_SOURCE} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            build_info["seconds"] = time.perf_counter() - t0
-            build_info["ptxas"] = [
-                ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                if any(w in ln for w in ("Compiling entry", "registers", "spill"))
-            ]
-        build_info["path"] = so
-        lib = ctypes.CDLL(so)
+        lib = kernel_build.open_library(kernel_build.build(build_job())[0])
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             # (A, d, M, lanes, m, n, A's lane stride, d's lane stride, stream)
@@ -255,7 +219,7 @@ def _launch(A, d, out_dtype):
             torch.cuda.current_stream(A.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"normal_eq kernel launch failed: CUDA error {rc} (B={B}, m={m}, n={n})")
+        raise KernelError(f"normal_eq kernel launch failed: CUDA error {rc} (B={B}, m={m}, n={n})")
     normal_eq.launches += 1
     return M
 

@@ -52,17 +52,19 @@ resume into a different problem's iterate.
 
 In the torch package: the degradation chain is the JAX package's with
 ``cuda`` in place of ``tpu`` (:data:`DEGRADATION_CHAIN`), and a rung is
-taken only when the port registers its backend. The host rungs
-(``cpu-sparse``, then ``cpu``; ``sparse-iterative`` before them is ROADMAP
-Queue 1 item 9) serve only a backend the caller placed on the CPU, as the
-reference degrades there. A backend on the card never degrades to the
-host: a fault that outlives its ladder there — a kernel that fails to
-build or launch, a lost device — ends in :class:`SolveFailure`, never in
-a solve on the CPU. A degradation is recorded in the fault history
-(``action="degrade:<rung>"``) and in the result's backend name. The
-health-probe and
-mesh-shrink branches serve mesh backends only and raise
-``NotImplementedError`` if reached (ROADMAP Queue 1 item 13).
+taken only when the port registers its backend. On the card the chain is
+``cuda`` → ``sparse-iterative`` (the matrix-free tier, on the same card);
+the host rungs (``cpu-sparse``, then ``cpu``) serve only a backend the
+caller placed on the CPU, as the reference degrades there. A backend on
+the card never degrades to the host. Two faults end the solve instead of
+moving it to another backend: a hand-written kernel that fails to build,
+load or launch (``ops.kernel_build.KernelError``, re-raised as it is —
+another backend would only hide it), and a lost card (no rung runs on a
+lost device; :class:`SolveFailure` at once). A degradation is recorded in
+the fault history (``action="degrade:<rung>"``) and in the result's
+backend name. The health-probe and mesh-shrink branches serve mesh
+backends only and raise ``NotImplementedError`` if reached (ROADMAP Queue
+1 item 13).
 
 Telemetry: with ``config.log_jsonl`` set, fault classifications and
 resume completions are appended to the same JSONL stream as the
@@ -101,6 +103,7 @@ from distributedlpsolver_tpu_torch.ipm.state import (
 )
 from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
 from distributedlpsolver_tpu_torch.obs import trace as obs_trace
+from distributedlpsolver_tpu_torch.ops.kernel_build import KernelError
 from distributedlpsolver_tpu_torch.supervisor.adaptive import AdaptiveDeadline
 from distributedlpsolver_tpu_torch.supervisor.faults import (
     FaultInjector,
@@ -442,7 +445,7 @@ def supervised_solve(
                 fault = FaultRecord(
                     FaultKind.NUMERICAL, e.iteration, current_name, str(e)
                 )
-            except (KeyboardInterrupt, SystemExit):
+            except (KeyboardInterrupt, SystemExit, KernelError):
                 raise
             except Exception as e:
                 kind = (
@@ -501,9 +504,11 @@ def supervised_solve(
                 # mesh backend (not ported); otherwise degrade.
                 if getattr(be, "mesh", None) is not None:
                     raise _mesh_unported("the mesh-shrink rung")
+                # A lost card takes every rung on it along.
+                lost_card = fault.kind is FaultKind.DEVICE_LOST and not _on_host(be)
                 nxt = (
                     _next_backend(current_name, faults, _on_host(be))
-                    if sup.degrade
+                    if sup.degrade and not lost_card
                     else None
                 )
                 if nxt is None:
@@ -514,7 +519,7 @@ def supervised_solve(
                         f"recovery ladder exhausted on backend "
                         f"{current_name!r} and no degradation "
                         "target remains"
-                        + ("" if _on_host(be) else
+                        + (" (the card is lost)" if lost_card else "" if _on_host(be) else
                            " (the host rungs serve only backends placed on the CPU)"),
                     )
                 fault.action = f"degrade:{nxt}"

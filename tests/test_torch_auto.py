@@ -4,7 +4,7 @@ sides, and the port's ``"cuda"`` against the reference's ``"tpu"`` (whose
 dense accelerator backend is the port's ``cuda``; where the reference
 sends a problem from the accelerator to the host, the port keeps it on
 the card, ``cuda``) — with and without the structure detection pass; the routes the port has not ported raise and
-name their ROADMAP item; ``AutoBackend(device="cpu")`` solves as the JAX
+name their ROADMAP item, the sparse routes set up ``sparse-iterative``; ``AutoBackend(device="cpu")`` solves as the JAX
 package's auto does on the CPU; without a card the default device raises.
 """
 
@@ -125,8 +125,6 @@ def test_the_routes_cover_every_tier(forms):
 
 @pytest.mark.parametrize("name, platform, item", [
     ("two_stage_hint", "cpu", "item 11"),
-    ("bordered_hint", "cpu", "item 9"),
-    ("huge_sparse", "cpu", "item 9"),
     ("block_angular_dense", "cuda", "item 11"),
 ])
 def test_unported_routes_raise_and_name_their_item(forms, name, platform, item):
@@ -137,6 +135,24 @@ def test_unported_routes_raise_and_name_their_item(forms, name, platform, item):
     with pytest.raises(NotImplementedError, match=item):
         be.setup(inf, None)
     assert inf.block_structure is hint  # refused before touching the problem
+
+
+@pytest.mark.parametrize("name, precond", [("huge_sparse", "jacobi"), ("storm", "bordered")])
+def test_sparse_routes_set_up_the_sparse_tier(forms, name, precond):
+    """A sparse problem at the row wall and a bordered (storm) one go to
+    ``sparse-iterative``, as in the reference, and set it up with the
+    reference's preconditioner for them."""
+    from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.models.generators import storm_sparse_lp
+
+    inf = forms(name)[0] if name != "storm" else to_interior_form(storm_sparse_lp(4, 16, 24, 8, seed=0))
+    assert choose_backend_name(inf, "cpu", detect=True)[0] == "sparse-iterative"
+    assert choose_backend_name(inf, "cuda", detect=True)[0] == "sparse-iterative"
+    be = AutoBackend(device="cpu")
+    be.setup(inf, SolverConfig())
+    assert be.name == "auto(sparse-iterative)"
+    assert isinstance(be.inner, SparseIterativeBackend) and be.inner.precond == precond
 
 
 @pytest.mark.parametrize("seed", [4, 5])

@@ -2,7 +2,8 @@
 lanes), the fused loop (a captured CUDA graph of the Mehrotra step)
 against the host loop, the batched solver against its CPU path, and the
 bucket engine and solve service (one captured graph per bucket, reused),
-on the card.
+and the sparse tier's hybrid-ELL kernel against its plain version and a
+``sparse-iterative`` solve, on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -455,3 +456,103 @@ def test_solo_pdhg_on_the_card_matches_its_cpu_path(cuda):
     assert r.status is Status.OPTIMAL and r.status == rc.status
     assert row["captures"] == 1 and row["replays"] > 0
     assert abs(r.objective - rc.objective) <= 1e-4 * (1 + abs(rc.objective))
+
+
+# -- the sparse tier: the hybrid-ELL kernel and sparse-iterative ------------
+
+
+def _ell_operator(which, dtype, device):
+    from distributedlpsolver_tpu_torch.models import netlib_sparse_lp, storm_sparse_lp
+    from distributedlpsolver_tpu_torch.ops import sparse
+
+    # storm K=64: Aᵀ's first-stage rows carry ~340 tail entries each, past
+    # the kernel's heavy-row threshold; netlib: an uneven row profile with
+    # a tail in both directions.
+    p = storm_sparse_lp(64, 32, 48, 24, seed=2) if which == "storm" else netlib_sparse_lp(
+        2000, 4000, seed=3)
+    return sparse.from_scipy(p.A, dtype={torch.float64: np.float64, torch.float32: np.float32}[dtype],
+                             device=device)
+
+
+# Relative error (max |kernel − plain| over max |plain|) of the ELL kernel:
+# the same products summed in another order.
+ELL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", ["storm", "netlib"])
+def test_ell_kernel_matches_plain_version(cuda, which, dtype):
+    from distributedlpsolver_tpu_torch.ops import ell_normal_diag, ell_spmv
+    from distributedlpsolver_tpu_torch.ops.ell_spmv import ell_spmv_reference
+
+    op = _ell_operator(which, dtype, cuda)
+    if which == "storm":
+        assert op.theavy.numel() > 0  # the heavy-row blocks run
+    rng = np.random.default_rng(0)
+    v = torch.tensor(rng.standard_normal(op.n), device=cuda).to(dtype)
+    w = torch.tensor(rng.standard_normal(op.m), device=cuda).to(dtype)
+    d = torch.tensor(rng.random(op.n) + 0.1, device=cuda).to(dtype)
+    before = (ell_spmv.launches, ell_spmv.launches_t, ell_normal_diag.launches)
+    cases = [
+        (op.matvec(v), ell_spmv_reference(op.vals, op.cols, v, op.tail())),
+        (op.rmatvec(w), ell_spmv_reference(op.tvals, op.tcols, w, op.ttail())),
+        (op.normal_diag(d, 1e-3),
+         ell_spmv_reference(op.vals, op.cols, d, op.tail(), square=True, reg=1e-3)),
+    ]
+    after = (ell_spmv.launches, ell_spmv.launches_t, ell_normal_diag.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    for got, ref in cases:
+        assert got.dtype == dtype and got.shape == ref.shape
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= ELL_TOL[dtype]
+
+
+@pytest.mark.parametrize("which", ["storm", "netlib"])
+def test_ell_kernel_repeats_bit_for_bit(cuda, which):
+    op = _ell_operator(which, torch.float64, cuda)
+    rng = np.random.default_rng(1)
+    v = torch.tensor(rng.standard_normal(op.n), device=cuda)
+    w = torch.tensor(rng.standard_normal(op.m), device=cuda)
+    for fn, x in ((op.matvec, v), (op.rmatvec, w), (lambda x: op.normal_diag(x, 0.5), v.abs())):
+        assert torch.equal(fn(x), fn(x))
+
+
+def test_sparse_iterative_solve_on_the_card(cuda):
+    """A small bordered solve on the card: the CPU path's status and
+    iterations, its objective, the kernel launched, x the same bits on a
+    second solve."""
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+    from distributedlpsolver_tpu_torch.ops import ell_spmv
+
+    p = storm_sparse_lp(8, 16, 24, 16, seed=9)
+    be = get_backend("sparse-iterative")
+    ell_spmv.launches = ell_spmv.launches_t = 0
+    r = solve(p, backend=be, tol=1e-8)
+    assert ell_spmv.launches > 0 and ell_spmv.launches_t > 0 and be.cg_report()["precond"] == "bordered"
+    r2 = solve(p, backend=get_backend("sparse-iterative"), tol=1e-8)
+    rc = solve(p, backend=get_backend("sparse-iterative", device="cpu"), tol=1e-8)
+    assert r.status is Status.OPTIMAL and rc.status is Status.OPTIMAL
+    assert r.iterations == rc.iterations
+    assert abs(r.objective - rc.objective) <= 1e-8 * (1 + abs(rc.objective))
+    assert np.array_equal(r.x, r2.x)
+
+
+def test_kernel_load_failure_is_not_degraded(cuda, monkeypatch, tmp_path):
+    """A K1 that cannot be built ends a supervised card solve in the
+    loader's KernelError: no retry, no degradation to sparse-iterative."""
+    import importlib
+
+    from distributedlpsolver_tpu_torch.ops import KernelError
+    from distributedlpsolver_tpu_torch.supervisor import SupervisorConfig, supervised_solve
+
+    ne = importlib.import_module("distributedlpsolver_tpu_torch.ops.normal_eq")
+
+    def no_nvcc():
+        raise KernelError("nvcc withheld by the test")
+
+    monkeypatch.setattr(ne, "_lib", None)
+    monkeypatch.setattr(ne, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(ne, "_nvcc", no_nvcc)
+    with pytest.raises(KernelError, match="withheld"):
+        supervised_solve(random_dense_lp(32, 96, seed=0), backend="cuda", tol=1e-8,
+                         supervisor=SupervisorConfig(backoff_base=0.001))

@@ -58,6 +58,9 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
         "import distributedlpsolver_tpu_torch.obs.stats, distributedlpsolver_tpu_torch.native\n"
         "import distributedlpsolver_tpu_torch.backends.auto, distributedlpsolver_tpu_torch.backends.first_order\n"
         "import distributedlpsolver_tpu_torch.models.structure, distributedlpsolver_tpu_torch.utils.accel\n"
+        "import distributedlpsolver_tpu_torch.backends.sparse_iterative, distributedlpsolver_tpu_torch.ops.ildl\n"
+        "import distributedlpsolver_tpu_torch.ops.sparse, distributedlpsolver_tpu_torch.ops.pcg\n"
+        "import distributedlpsolver_tpu_torch.ops.ell_spmv, distributedlpsolver_tpu_torch.ops.kernel_build\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -67,7 +70,8 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
 
 
 def test_the_serving_modules_are_scanned():
-    """The AST scan above covers the serving stack this package added."""
+    """The AST scan above covers the serving stack and the sparse tier this
+    package added."""
     rel = {os.path.relpath(f, PORT) for f in _port_sources()}
     for mod in ("serve/service.py", "serve/buckets.py", "serve/scheduler.py", "serve/records.py",
                 "serve/warmcache.py", "serve/journal.py", "serve/autotune.py", "obs/stats.py",
@@ -75,7 +79,9 @@ def test_the_serving_modules_are_scanned():
                 "supervisor/faults.py", "native/__init__.py", "native/build.py",
                 "backends/auto.py", "backends/cpu.py", "backends/cpu_native.py",
                 "backends/cpu_sparse.py", "backends/first_order.py", "models/structure.py",
-                "utils/threefry.py", "utils/accel.py"):
+                "utils/threefry.py", "utils/accel.py", "backends/sparse_iterative.py",
+                "ops/sparse.py", "ops/pcg.py", "ops/ildl.py", "ops/ell_spmv.py",
+                "ops/kernel_build.py"):
         assert mod in rel
 
 
@@ -90,7 +96,7 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     assert get_backend("cuda", device="cpu").device.type == "cpu"
     # The default backend, auto, and the PDHG backend raise too: auto never
     # takes its CPU route because the card is missing.
-    for name in ("auto", "pdlp"):
+    for name in ("auto", "pdlp", "sparse-iterative"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_backend(name)
         assert get_backend(name, device="cpu").device.type == "cpu"
@@ -114,5 +120,6 @@ def test_cli_json_matches_the_jax_cli(capsys):
 def test_cli_lists_the_ports_backends(capsys):
     assert cli.main(["backends"]) == 0
     assert capsys.readouterr().out.split() == [
-        "auto", "cpu", "cpu-native", "cpu-sparse", "cuda", "dense", "first-order", "native",
-        "numpy", "pdhg", "pdlp", "scipy", "sparse", "torch"]
+        "auto", "cpu", "cpu-native", "cpu-sparse", "cuda", "dense", "first-order", "inexact-ipm",
+        "native", "numpy", "pdhg", "pdlp", "scipy", "sparse", "sparse-iterative", "sparse-pcg",
+        "torch"]

@@ -375,7 +375,6 @@ def test_cli_serve_on_the_cpu(tmp_path):
     ({"mesh_devices": 2}, "item 13"),
     ({"admission": object()}, "item 14"),
     ({"brownout": object()}, "item 14"),
-    ({"solo_backend": "sparse-iterative"}, "item 9"),
 ])
 def test_unported_service_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -2,9 +2,11 @@
 CPU: the watchdog, the recovery ladder (rollback, regularization bump,
 re-center), retries and backoff, terminal answers, the fault injector,
 and the degradation chain — where a fault that outlives its ladder on a
-backend placed on the CPU degrades to ``cpu-sparse`` (``sparse-iterative``,
-the JAX package's next rung, is not ported yet) and the result names the
-rung, while on the card it ends in ``SolveFailure``, never in a CPU solve.
+backend placed on the CPU degrades to ``sparse-iterative`` (the JAX
+package's next rung), then ``cpu-sparse`` and ``cpu``, and the result
+names the rung, while on the card it never reaches a CPU rung: a kernel
+that fails to build propagates its own error, a lost card ends in
+``SolveFailure``.
 
 Each recovery case runs the same injection plan through both packages
 (the JAX side on its dense backend, on the CPU) and compares statuses,
@@ -105,22 +107,21 @@ def test_no_faults_is_passthrough(reference_result):
     ([("NUMERICAL", {"iteration": 5})], ["rollback"]),
     ([("NUMERICAL", {"iteration": 4, "times": 3})], ["rollback", "rollback+reg_bump", "recenter"]),
     ([("NUMERICAL", {"iteration": 4, "times": 4})],
-     ["rollback", "rollback+reg_bump", "recenter", "degrade:cpu-sparse"]),
+     ["rollback", "rollback+reg_bump", "recenter", "degrade:sparse-iterative"]),
 ])
 def test_ladder_matches_the_jax_supervisor(plan, actions):
     """The ladders agree rung for rung. The case that outlives the ladder
-    degrades to the CPU rung ``cpu-sparse``: the JAX side starts on
-    ``sparse-iterative``, whose next rung is that one (from ``tpu`` it
-    would take ``sparse-iterative``, which the port does not have)."""
+    degrades from ``cuda`` (the JAX package's ``tpu``) to the next rung of
+    both chains, ``sparse-iterative`` (on the CPU here)."""
     degrades = actions[-1].startswith("degrade")
-    rt, rj = _both(plan, jax_backend="sparse-iterative" if degrades else "tpu")
+    rt, rj = _both(plan)
     assert rt.status.value == rj.status.value == "optimal"
     assert [f.action for f in rt.faults] == [f.action for f in rj.faults] == actions
     assert [f.kind.value for f in rt.faults] == [f.kind.value for f in rj.faults]
     assert [f.iteration for f in rt.faults] == [f.iteration for f in rj.faults]
     assert abs(rt.objective - rj.objective) <= 1e-6 * (1 + abs(rj.objective))
     if degrades:
-        assert rt.backend == rj.backend == "cpu-sparse"
+        assert rt.backend == rj.backend == "sparse-iterative"
 
 
 def test_hang_watchdog_timeout_then_retry(reference_result):
@@ -155,27 +156,28 @@ def _on_the_card(setup):
 
 
 def test_a_fault_on_cuda_ends_in_solve_failure_not_a_cpu_solve(monkeypatch, tmp_path):
-    """A K1 that fails to build on the card: the ladder retries it
-    (rollback, regularization bump, re-center) and then gives up — the
-    host rungs after ``cuda`` serve only a backend placed on the CPU, so
-    no solve moves to the CPU."""
+    """A K1 that fails to build on the card is not a fault another backend
+    could recover from: the loader's ``KernelError`` propagates from the
+    supervisor as it is, with no retry and no degradation — neither to
+    ``sparse-iterative``, the card's next rung, nor to a CPU rung."""
     def no_nvcc():
         raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
                            "kernel of ops/normal_eq.py cannot be built")
 
+    calls = []
+
+    def setup(inf, config):
+        calls.append(1)
+        ne.load_library()
+
     monkeypatch.setattr(ne, "_lib", None)
     monkeypatch.setattr(ne, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(ne, "_nvcc", no_nvcc)
-    assert sup_mod._next_backend("cuda", [], on_host=False) is None
-    with pytest.raises(SolveFailure) as ei:
-        supervised_solve(random_dense_lp(**_PROBLEM),
-                         backend=_on_the_card(lambda inf, config: ne.load_library()),
+    assert sup_mod._next_backend("cuda", [], on_host=False) == "sparse-iterative"
+    with pytest.raises(ne.KernelError, match="nvcc not found") as ei:
+        supervised_solve(random_dense_lp(**_PROBLEM), backend=_on_the_card(setup),
                          supervisor=_sup(max_retries=20))
-    faults = ei.value.faults
-    assert [f.action for f in faults] == ["rollback", "rollback+reg_bump", "recenter", "give_up"]
-    assert {f.kind for f in faults} == {FaultKind.CRASH} and {f.backend for f in faults} == {"cuda"}
-    assert "nvcc not found" in faults[0].detail
-    assert "placed on the CPU" in str(ei.value)
+    assert not isinstance(ei.value, SolveFailure) and calls == [1]
 
 
 def test_a_lost_card_ends_in_solve_failure_at_once():
@@ -192,34 +194,36 @@ def test_a_lost_card_ends_in_solve_failure_at_once():
 
 def test_a_fault_on_a_cpu_placed_backend_degrades_to_cpu_sparse_then_cpu(reference_result):
     """On a backend the caller placed on the CPU, a fault that outlives the
-    ``cuda`` ladder degrades as the JAX package's does, to the next
-    registered rung: ``sparse-iterative`` is not ported (item 9), so
-    ``cpu-sparse``. The degradation is in the fault history and in the
-    result's backend name; a crash that follows every rung ends in
-    SolveFailure after ``cpu-sparse`` and ``cpu``."""
+    ``cuda`` ladder degrades as the JAX package's does, rung by rung:
+    ``sparse-iterative`` (on the CPU too), then ``cpu-sparse``. The
+    degradation is in the fault history and in the result's backend name;
+    a crash that follows every rung ends in SolveFailure after
+    ``sparse-iterative``, ``cpu-sparse`` and ``cpu``."""
     from distributedlpsolver_tpu.backends.auto import degradation_chain as jax_chain
 
     assert sup_mod.degradation_chain("cuda") == jax_chain("tpu") == [
         "sparse-iterative", "cpu-sparse", "cpu"]
     assert sup_mod.degradation_chain("dense") == sup_mod.degradation_chain("cuda")
-    assert sup_mod._next_backend("cuda", []) == "cpu-sparse"
-    plan = [InjectedFault(FaultKind.CRASH, iteration=1, times=None, backend="cuda")]
+    assert sup_mod._next_backend("cuda", []) == "sparse-iterative"
+    ladder = ["rollback", "rollback+reg_bump", "recenter"]
+    plan = [InjectedFault(FaultKind.CRASH, iteration=1, times=None, backend=b)
+            for b in ("cuda", "sparse-iterative")]
     r = supervised_solve(random_dense_lp(**_PROBLEM), backend=_backend(),
                          supervisor=_sup(fault_plan=plan, max_retries=20))
     assert r.status == Status.OPTIMAL and r.backend == "cpu-sparse"
-    assert [f.action for f in r.faults] == [
-        "rollback", "rollback+reg_bump", "recenter", "degrade:cpu-sparse"]
-    assert {f.backend for f in r.faults} == {"cuda"}
+    assert [f.action for f in r.faults] == (
+        ladder + ["degrade:sparse-iterative"] + ladder + ["degrade:cpu-sparse"])
+    assert [f.backend for f in r.faults[::4]] == ["cuda", "sparse-iterative"]
     np.testing.assert_allclose(r.objective, reference_result.objective, rtol=1e-6)
     plan = [InjectedFault(FaultKind.CRASH, iteration=1, times=None)]
     with pytest.raises(SolveFailure) as ei:
         supervised_solve(random_dense_lp(**_PROBLEM), backend=_backend(),
                          supervisor=_sup(fault_plan=plan, max_retries=20))
     actions = [f.action for f in ei.value.faults]
-    assert actions == ["rollback", "rollback+reg_bump", "recenter", "degrade:cpu-sparse"] + [
-        "rollback", "rollback+reg_bump", "recenter", "degrade:cpu"] + [
-        "rollback", "rollback+reg_bump", "recenter", "give_up"]
-    assert [f.backend for f in ei.value.faults[::4]] == ["cuda", "cpu-sparse", "cpu"]
+    assert actions == (ladder + ["degrade:sparse-iterative"] + ladder + ["degrade:cpu-sparse"]
+                       + ladder + ["degrade:cpu"] + ladder + ["give_up"])
+    assert [f.backend for f in ei.value.faults[::4]] == [
+        "cuda", "sparse-iterative", "cpu-sparse", "cpu"]
 
 
 def test_ladder_exhausted_without_degradation_raises():
