@@ -1,26 +1,27 @@
-"""Hybrid-ELL sparse products — the hand-written CUDA kernel for the H100
-and its plain PyTorch version.
+"""Sparse products over a sliced ELL layout — the hand-written CUDA kernel
+for the H100 and its plain PyTorch version.
 
 The kernel (``csrc/ell_spmv.cu``) replaces the device routines the JAX
 package's ``ops/sparse.py::SparseOperator`` leaves to XLA: ``matvec`` and
 ``rmatvec`` (a row-ELL gather-reduce plus a COO-tail scatter-add) and
 ``normal_diag`` (``diag(A·diag(d)·Aᵀ)`` without the matrix). Two
-functions over one hybrid row-ELL matrix (``vals``/``cols`` (m, k) and
-the tail of rows wider than k, :class:`EllTail`):
+functions of a sparse matrix:
 
-* :func:`ell_spmv` — ``out[i] = Σ_k vals[i,k]·v[cols[i,k]]`` + the tail
-  of row i;
-* :func:`ell_normal_diag` — ``out[i] = Σ_k vals[i,k]²·d[cols[i,k]]`` + the
-  tail's squares times d, + ``reg``.
+* :func:`ell_spmv` — ``out[i] = Σ_e val[e]·v[col[e]]`` over row i's entries;
+* :func:`ell_normal_diag` — ``out[i] = Σ_e val[e]²·d[col[e]] + reg``.
 
-Each launches the kernel for CUDA tensors (or raises) and uses its plain
-version for CPU tensors: the JAX package's eager formula, ELL sum then an
+Each uses its plain version for CPU tensors: the JAX package's eager
+formula over its hybrid row-ELL arrays (``vals``/``cols`` (m, k) and the
+COO tail of rows wider than k, :class:`EllTail`), ELL sum then an
 ``index_add_`` of the tail — which on a card adds with atomics, so the
-card path never takes it. The kernel instead sums each row's tail in a
-fixed order from the row pointers :func:`tail_index` builds at setup
-(heavy rows, whose tail is longer than :data:`HEAVY_TAIL`, get a thread
-block each): two launches give the same bits. Both run through the
-operators ``dlps::ell_spmv`` (``torch.library``; CPU and CUDA).
+card path never takes it. For CUDA tensors each launches the kernel (or
+raises) on the operator's own layout, :class:`SellLayout`, built once at
+setup by :func:`sell_layout` from the CSR: light rows in slices of 32
+sorted by their live count within windows of :data:`WINDOW` rows and
+padded to each slice's widest row; rows with more than :data:`HEAVY_MIN`
+entries cut into chunks of :data:`CHUNK` entries whose partials are summed
+in chunk order. Every output is summed in one fixed order: two launches
+give the same bits.
 
 The kernel is compiled by ``ops/kernel_build.py`` (``nvcc``, ``sm_90a``)
 at first use into ``build/dlps_torch/``; a build, load or launch failure
@@ -34,7 +35,6 @@ import os
 import threading
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from distributedlpsolver_tpu_torch.ops import kernel_build
@@ -44,9 +44,17 @@ _SOURCE = os.path.join(kernel_build.CSRC, "ell_spmv.cu")
 _STEM = "libdlps_ell_spmv"
 _ENTRY = {torch.float64: "dlps_ell_spmv_f64", torch.float32: "dlps_ell_spmv_f32"}
 
-# A row whose tail holds more entries than this gets a thread block of its
-# own; lighter rows are summed by a group of lanes with their ELL slots.
-HEAVY_TAIL = 256
+# The layout's choices (the kernel reads every offset from the index, so
+# these are the builder's alone). A slice is one warp's 32 rows, one
+# thread a row; a row with more live entries than HEAVY_MIN is heavy, and
+# a warp sums CHUNK of its entries (32 a lane). Rows are sorted by their
+# live count within windows of WINDOW rows (σ), which keeps the slices'
+# pads to ~1–2% of the entries at stormG2_1000's and netlib's profiles
+# while every write stays within a 32 KB window of the output.
+SLICE = 32
+HEAVY_MIN = 32
+CHUNK = 1024
+WINDOW = 4096
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -57,24 +65,159 @@ _nvcc = kernel_build.find_nvcc
 class EllTail(NamedTuple):
     """The COO spill of the rows wider than the ELL width, in CSR row
     order: ``vals``/``rows``/``cols`` (t,) with pad entries at row m and
-    value 0 (the JAX package's layout, read by the plain version), and the
-    kernel's index over it, ``ptr`` (m + 1,) row pointers of the live
-    entries and ``heavy`` the rows with more than :data:`HEAVY_TAIL` of
-    them (both int32, from :func:`tail_index`)."""
+    value 0 (the JAX package's layout, read by the plain version)."""
 
     vals: torch.Tensor
     rows: torch.Tensor
     cols: torch.Tensor
-    ptr: torch.Tensor
-    heavy: torch.Tensor
 
 
-def tail_index(tail_rows: np.ndarray, m: int):
-    """Row pointers ``(m + 1,)`` and heavy rows of a tail whose live
-    entries are sorted by row (pad entries at row m, at the end)."""
-    ptr = np.searchsorted(tail_rows, np.arange(m + 1), side="left").astype(np.int32)
-    heavy = np.flatnonzero(np.diff(ptr) > HEAVY_TAIL).astype(np.int32)
-    return ptr, heavy
+class SellLayout(NamedTuple):
+    """The kernel's layout of one matrix (or its transpose), from
+    :func:`sell_layout`.
+
+    ``vals``/``cols`` (E,): the slices, each stored slot-major (slot j of
+    lane r at ``slice_ptr[s] + 32·j + r``; pads value 0, column 0), then the
+    heavy rows' entries in CSR order. ``index`` (int32) packs
+    ``slice_ptr`` (n_slices + 1), ``perm`` (32·n_slices: each lane's output
+    row, -1 for a pad lane), ``chunk_ptr`` (n_chunks + 1 entry offsets),
+    ``chunk_row`` (n_chunks: the heavy row of each chunk), ``heavy_rows``
+    (n_heavy: their output rows) and ``heavy_first`` (n_heavy + 1: each
+    heavy row's first chunk). ``partials`` (n_chunks) and ``counters``
+    (n_heavy, zero between launches) are the kernel's scratch, so the
+    launches on one layout must run in stream order. Every tensor lies
+    contiguous on one device (the wrapper checks ``vals``' device)."""
+
+    vals: torch.Tensor
+    cols: torch.Tensor
+    index: torch.Tensor
+    partials: torch.Tensor
+    counters: torch.Tensor
+    rows: int
+    n_slices: int
+    n_chunks: int
+    n_heavy: int
+
+    def _part(self, start, length):
+        return self.index[start:start + length]
+
+    @property
+    def slice_ptr(self):
+        return self._part(0, self.n_slices + 1)
+
+    @property
+    def perm(self):
+        return self._part(self.n_slices + 1, SLICE * self.n_slices)
+
+    @property
+    def chunk_ptr(self):
+        return self._part((SLICE + 1) * self.n_slices + 1, self.n_chunks + 1)
+
+    @property
+    def chunk_row(self):
+        return self._part((SLICE + 1) * self.n_slices + self.n_chunks + 2, self.n_chunks)
+
+    @property
+    def heavy_rows(self):
+        return self._part((SLICE + 1) * self.n_slices + 2 * self.n_chunks + 2, self.n_heavy)
+
+    @property
+    def heavy_first(self):
+        return self._part((SLICE + 1) * self.n_slices + 2 * self.n_chunks + self.n_heavy + 2,
+                          self.n_heavy + 1)
+
+    def tensors(self) -> dict:
+        return {f: getattr(self, f) for f in ("vals", "cols", "index", "partials", "counters")}
+
+
+def sell_layout(indptr, indices, data, *, dtype, device) -> SellLayout:
+    """The kernel's layout of the CSR matrix (``indptr``, ``indices``,
+    ``data``; numpy arrays or tensors), built with torch on ``device``.
+    Entries keep their CSR order within a row."""
+    dev = torch.device(device)
+    as_t = lambda a, dt: torch.as_tensor(a).to(device=dev, dtype=dt)  # noqa: E731
+    indptr = as_t(indptr, torch.int64)
+    indices = as_t(indices, torch.int32)
+    data = as_t(data, dtype)
+    m = indptr.numel() - 1
+    counts = indptr[1:] - indptr[:-1]
+    heavy = torch.nonzero(counts > HEAVY_MIN).flatten()
+    light = torch.nonzero(counts <= HEAVY_MIN).flatten()
+
+    # Light rows: by live count, widest first, within windows of WINDOW
+    # rows (a stable sort keeps equal counts in row order).
+    n_light = light.numel()
+    cl = counts[light]
+    key = (torch.arange(n_light, device=dev) // WINDOW) * (HEAVY_MIN + 1) + (HEAVY_MIN - cl)
+    order = light[torch.sort(key, stable=True).indices]
+    n_slices = -(-n_light // SLICE)
+    lens = torch.zeros(n_slices * SLICE, dtype=torch.int64, device=dev)
+    lens[:n_light] = counts[order]
+    width = lens.view(n_slices, SLICE).amax(dim=1)
+    slice_ptr = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
+    slice_ptr[1:] = torch.cumsum(width * SLICE, 0)
+    perm = torch.full((n_slices * SLICE,), -1, dtype=torch.int64, device=dev)
+    perm[:n_light] = order
+
+    # Heavy rows, in row order, then cut into chunks.
+    hl = counts[heavy]
+    n_heavy = heavy.numel()
+    n_ch = -(-hl // CHUNK)
+    heavy_first = torch.zeros(n_heavy + 1, dtype=torch.int64, device=dev)
+    heavy_first[1:] = torch.cumsum(n_ch, 0)
+    n_chunks = int(heavy_first[-1])
+    e_light = int(slice_ptr[-1])
+    hbase = torch.zeros(n_heavy + 1, dtype=torch.int64, device=dev)
+    hbase[1:] = torch.cumsum(hl, 0)
+    hbase += e_light
+    chunk_row = torch.repeat_interleave(torch.arange(n_heavy, device=dev), n_ch)
+    chunk_ptr = torch.empty(n_chunks + 1, dtype=torch.int64, device=dev)
+    chunk_ptr[:-1] = hbase[chunk_row] + (
+        torch.arange(n_chunks, device=dev) - heavy_first[chunk_row]) * CHUNK
+    chunk_ptr[-1] = hbase[-1]
+    total = int(hbase[-1])
+    if total >= 2**31 or m >= 2**31:
+        raise ValueError(f"sell_layout: {total} entries / {m} rows exceed the kernel's int32 offsets")
+
+    vals = torch.zeros(total, dtype=dtype, device=dev)
+    cols = torch.zeros(total, dtype=torch.int32, device=dev)
+    # Light entries: entry j of the row at sorted position q goes to slot j
+    # of lane q % 32 of slice q // 32.
+    q, j = _entries(lens[:n_light])
+    src = indptr[order][q] + j
+    dst = slice_ptr[q // SLICE] + j * SLICE + q % SLICE
+    vals[dst] = data[src]
+    cols[dst] = indices[src]
+    # Heavy entries, row after row in CSR order.
+    h, j = _entries(hl)
+    src = indptr[heavy][h] + j
+    vals[hbase[h] + j] = data[src]
+    cols[hbase[h] + j] = indices[src]
+
+    index = torch.cat([slice_ptr, perm, chunk_ptr, chunk_row, heavy, heavy_first]).to(torch.int32)
+    return SellLayout(vals, cols, index, torch.zeros(n_chunks, dtype=dtype, device=dev),
+                      torch.zeros(n_heavy, dtype=torch.int32, device=dev), m, n_slices,
+                      n_chunks, n_heavy)
+
+
+def _entries(lens):
+    """(owner, position) of every entry of consecutive runs of ``lens``."""
+    owner = torch.repeat_interleave(torch.arange(lens.numel(), device=lens.device), lens)
+    starts = torch.cumsum(lens, 0) - lens
+    return owner, torch.arange(owner.numel(), device=lens.device) - starts[owner]
+
+
+def sell_entry_rows(layout: SellLayout) -> torch.Tensor:
+    """The row of every entry of ``layout`` (int64 (E,); -1 for the slots of
+    a pad lane)."""
+    dev = layout.vals.device
+    width = (layout.slice_ptr[1:] - layout.slice_ptr[:-1]).long() // SLICE
+    s, j = _entries(width * SLICE)
+    lane_row = layout.perm.long()[s * SLICE + j % SLICE]
+    c = torch.repeat_interleave(torch.arange(layout.n_chunks, device=dev),
+                                (layout.chunk_ptr[1:] - layout.chunk_ptr[:-1]).long())
+    heavy_row = layout.heavy_rows.long()[layout.chunk_row.long()[c]]
+    return torch.cat([lane_row, heavy_row])
 
 
 def build_job():
@@ -86,19 +229,20 @@ def load_library():
     """Build (once per source version) and load the kernel library; a
     failure raises :class:`KernelError`."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib = kernel_build.open_library(kernel_build.build(build_job())[0])
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            # (vals, cols, m, k, tail_ptr, tail_vals, tail_cols, heavy,
-            #  n_heavy, heavy_min, v, reg, square, group, out, stream)
+            # (vals, cols, index, n_slices, n_chunks, n_heavy, partials,
+            #  counters, v, reg, square, out, stream)
             fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_double,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
         _lib = lib
@@ -120,46 +264,26 @@ def ell_spmv_reference(vals, cols, v, tail: Optional[EllTail] = None, *, square=
     return out + reg if square else out
 
 
-def _group(k: int) -> int:
-    """Lanes a light row gets: the ELL width rounded up to a power of two,
-    at most a warp."""
-    g = 1
-    while g < min(k, 32):
-        g *= 2
-    return g
-
-
-def _launch(vals, cols, v, tail, square, reg, transpose):
+def _launch(layout: SellLayout, v, square, reg, transpose):
+    vals = layout.vals
     if vals.dtype not in _ENTRY:
         raise TypeError(f"ell_spmv: no kernel for {vals.dtype}")
-    m, k = vals.shape
-    for name, t in (("vals", vals), ("cols", cols), ("v", v)):
-        if t.device != vals.device or not t.is_contiguous():
-            raise ValueError(f"ell_spmv: {name} must be contiguous on {vals.device}")
-    if cols.dtype != torch.int32 or cols.shape != vals.shape or v.dtype != vals.dtype:
-        raise TypeError("ell_spmv: cols must be int32 (m, k) and v of vals' dtype")
-    out = torch.empty(m, dtype=vals.dtype, device=vals.device)
-    if m == 0:
+    if v.dtype != vals.dtype or v.dim() != 1:
+        raise TypeError(f"ell_spmv: v must be 1-D {vals.dtype}")
+    if vals.device != v.device or not v.is_contiguous():
+        raise ValueError(f"ell_spmv: v must be contiguous on the layout's {vals.device}")
+    out = torch.empty(layout.rows, dtype=vals.dtype, device=v.device)
+    if layout.rows == 0:
         return out
-    ptrs = (0, 0, 0, 0)
-    n_heavy = 0
-    if tail is not None:
-        for name in ("vals", "cols", "ptr", "heavy"):
-            t = getattr(tail, name)
-            if t.device != vals.device or not t.is_contiguous():
-                raise ValueError(f"ell_spmv: tail.{name} must be contiguous on {vals.device}")
-        if tail.ptr.shape != (m + 1,) or tail.ptr.dtype != torch.int32:
-            raise ValueError("ell_spmv: tail.ptr must be int32 (m + 1,)")
-        ptrs = (tail.ptr.data_ptr(), tail.vals.data_ptr(), tail.cols.data_ptr(),
-                tail.heavy.data_ptr())
-        n_heavy = int(tail.heavy.numel())
     fn = getattr(load_library(), _ENTRY[vals.dtype])
-    with torch.cuda.device(vals.device):
-        rc = fn(vals.data_ptr(), cols.data_ptr(), m, k, *ptrs, n_heavy, HEAVY_TAIL,
-                v.data_ptr(), float(reg), int(square), _group(k), out.data_ptr(),
-                torch.cuda.current_stream(vals.device).cuda_stream)
+    with torch.cuda.device(v.device):
+        rc = fn(vals.data_ptr(), layout.cols.data_ptr(), layout.index.data_ptr(),
+                layout.n_slices, layout.n_chunks, layout.n_heavy, layout.partials.data_ptr(),
+                layout.counters.data_ptr(), v.data_ptr(), float(reg), int(square),
+                out.data_ptr(), torch.cuda.current_stream(v.device).cuda_stream)
     if rc != 0:
-        raise KernelError(f"ell_spmv kernel launch failed: CUDA error {rc} (m={m}, k={k})")
+        raise KernelError(f"ell_spmv kernel launch failed: CUDA error {rc} (rows={layout.rows}, "
+                          f"slices={layout.n_slices}, chunks={layout.n_chunks})")
     if square:
         ell_normal_diag.launches += 1
     elif transpose:
@@ -169,56 +293,34 @@ def _launch(vals, cols, v, tail, square, reg, transpose):
     return out
 
 
-# The operator ``dlps::ell_spmv`` behind both functions (a plain
-# ``torch.library.Library`` fragment of the namespace ``ops/normal_eq.py``
-# defines; see the note there on ``custom_op``'s import cost).
-_LIB = torch.library.Library("dlps", "FRAGMENT")
-_LIB.define(
-    "ell_spmv(Tensor vals, Tensor cols, Tensor v, Tensor? tail_vals, Tensor? tail_rows, "
-    "Tensor? tail_cols, Tensor? tail_ptr, Tensor? heavy, bool square, float reg, bool transpose) -> Tensor"
-)
-
-
-def _ell_impl(vals, cols, v, tail_vals, tail_rows, tail_cols, tail_ptr, heavy, square, reg,
-              transpose):
-    tail = None if tail_vals is None else EllTail(tail_vals, tail_rows, tail_cols, tail_ptr, heavy)
-    if vals.device.type == "cpu":
-        return ell_spmv_reference(vals, cols, v, tail, square=square, reg=reg)
-    return _launch(vals, cols, v, tail, square, reg, transpose)
-
-
-_LIB.impl("ell_spmv", _ell_impl, "CPU")
-_LIB.impl("ell_spmv", _ell_impl, "CUDA")
-_ell_op = torch.ops.dlps.ell_spmv
-
-
-@torch.library.register_fake("dlps::ell_spmv", lib=_LIB)
-def _(vals, cols, v, tail_vals, tail_rows, tail_cols, tail_ptr, heavy, square, reg, transpose):
-    return vals.new_empty(vals.shape[:1])
-
-
-def _call(vals, cols, v, tail, square, reg, transpose=False):
+def _call(vals, cols, v, tail, layout, square, reg, transpose=False):
     if vals.device != v.device:
         raise ValueError(f"ell_spmv: vals on {vals.device}, v on {v.device}")
-    if vals.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ell_spmv: no kernel for device {vals.device}")
-    t = (None,) * 5 if tail is None else tuple(tail)
-    return _ell_op(vals, cols, v, *t, square, float(reg), transpose)
+    if v.device.type == "cpu":
+        return ell_spmv_reference(vals, cols, v, tail, square=square, reg=reg)
+    if v.device.type != "cuda":
+        raise ValueError(f"ell_spmv: no kernel for device {v.device}")
+    if layout is None:
+        raise ValueError("ell_spmv: the kernel needs the matrix's SellLayout (sell_layout)")
+    return _launch(layout, v, square, reg, transpose)
 
 
-def ell_spmv(vals, cols, v, tail: Optional[EllTail] = None, *, transpose: bool = False):
-    """``Σ_k vals[i,k]·v[cols[i,k]]`` + row i's tail, for every row i: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    ``transpose`` marks a call on an operator's transpose arrays (Aᵀ·v):
-    it changes nothing but the counter a launch adds to."""
-    return _call(vals, cols, v, tail, False, 0.0, transpose)
+def ell_spmv(vals, cols, v, tail: Optional[EllTail] = None, *, layout: Optional[SellLayout] = None,
+             transpose: bool = False):
+    """``Σ_e val[e]·v[col[e]]`` over row i's entries, for every row i: the
+    CUDA kernel on ``layout`` for CUDA tensors, the plain version on the
+    hybrid (``vals``, ``cols``, ``tail``) for CPU tensors. ``transpose``
+    marks a call on an operator's transpose (Aᵀ·v): it changes nothing but
+    the counter a launch adds to."""
+    return _call(vals, cols, v, tail, layout, False, 0.0, transpose)
 
 
-def ell_normal_diag(vals, cols, d, tail: Optional[EllTail] = None, reg=0.0):
-    """``Σ_k vals[i,k]²·d[cols[i,k]]`` + row i's tail squares times d +
-    ``reg``: the diagonal of A·diag(d)·Aᵀ for the rows of A (kernel on a
+def ell_normal_diag(vals, cols, d, tail: Optional[EllTail] = None, reg=0.0, *,
+                    layout: Optional[SellLayout] = None):
+    """``Σ_e val[e]²·d[col[e]]`` over row i's entries + ``reg``: the
+    diagonal of A·diag(d)·Aᵀ for the rows of A (kernel on ``layout`` on a
     card, plain version on the CPU)."""
-    return _call(vals, cols, d, tail, True, reg)
+    return _call(vals, cols, d, tail, layout, True, reg)
 
 
 # Launches of the CUDA kernel since the last reset, per function and

@@ -15,11 +15,14 @@ quantization constants, the width quantile and the dense fallback below
 are the JAX package's: they decide the shapes, and so the results.
 
 In this package the operator is a frozen dataclass of tensors on one
-device (no pytree). Its products go through ``ops/ell_spmv.py``: the
-hand-written CUDA kernel on a card (each row's tail summed in a fixed
-order from row pointers built here, no atomics), the JAX package's eager
-formula on the CPU. The dense fallback stores A itself and its products
-are library GEMVs, as they are XLA's in the JAX package.
+device (no pytree). Beside the hybrid it holds the kernel's own layout of
+each direction, a sliced ELL (``ops/ell_spmv.py::SellLayout``: slices of
+32 rows sorted by live count, heavy rows in chunks), built once here from
+the CSR. Its products go through ``ops/ell_spmv.py``: the hand-written
+CUDA kernel on that layout on a card (every output summed in one fixed
+order, no atomics), the JAX package's eager formula over the hybrid on the
+CPU. The dense fallback stores A itself and its products are library
+GEMVs, as they are XLA's in the JAX package.
 
 Not here: ``RowShardedOperator``/``shard_rows``, the row-distributed tier
 (ROADMAP Queue 1 item 13).
@@ -36,9 +39,11 @@ import torch
 
 from distributedlpsolver_tpu_torch.ops.ell_spmv import (
     EllTail,
+    SellLayout,
     ell_normal_diag,
     ell_spmv,
-    tail_index,
+    sell_entry_rows,
+    sell_layout,
 )
 
 # Quantize the ELL pad width so instances with nearly-equal row-count
@@ -61,10 +66,11 @@ DENSE_FALLBACK_DENSITY = 0.25
 _DENSE_FALLBACK_ENTRIES = 16_384
 
 _FIELDS = (
-    "vals", "cols", "tail_vals", "tail_rows", "tail_cols", "tail_ptr", "heavy",
-    "tvals", "tcols", "ttail_vals", "ttail_rows", "ttail_cols", "ttail_ptr", "theavy",
+    "vals", "cols", "tail_vals", "tail_rows", "tail_cols",
+    "tvals", "tcols", "ttail_vals", "ttail_rows", "ttail_cols",
     "dense",
 )
+_LAYOUTS = ("sell", "tsell")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +80,10 @@ class SparseOperator:
     ``fmt == "ell"``: ``vals``/``cols`` are (m, k) row-ELL arrays of A (pad
     entries carry col 0 / val 0) and ``tail_vals``/``tail_rows``/
     ``tail_cols`` the fixed-length COO spill of rows wider than k (pad
-    entries carry row m / val 0), with ``tail_ptr``/``heavy`` the kernel's
-    row pointers and heavy-row list over it (``ops/ell_spmv.py``);
-    ``t*`` the same hybrid for Aᵀ. ``fmt == "dense"``: ``dense`` holds A
-    and the hybrid fields are None.
+    entries carry row m / val 0), ``t*`` the same hybrid for Aᵀ: the JAX
+    package's layout, which the plain version reads. ``sell``/``tsell``
+    are the kernel's sliced-ELL layouts of A and Aᵀ. ``fmt == "dense"``:
+    ``dense`` holds A and the other fields are None.
     """
 
     shape: Tuple[int, int]
@@ -88,15 +94,13 @@ class SparseOperator:
     tail_vals: Optional[torch.Tensor] = None  # (t,)
     tail_rows: Optional[torch.Tensor] = None  # (t,) int32, pad → m
     tail_cols: Optional[torch.Tensor] = None  # (t,) int32
-    tail_ptr: Optional[torch.Tensor] = None  # (m + 1,) int32
-    heavy: Optional[torch.Tensor] = None  # (h,) int32
     tvals: Optional[torch.Tensor] = None  # (n, kt)
     tcols: Optional[torch.Tensor] = None  # (n, kt) int32
     ttail_vals: Optional[torch.Tensor] = None  # (tt,)
     ttail_rows: Optional[torch.Tensor] = None  # (tt,) int32, pad → n
     ttail_cols: Optional[torch.Tensor] = None  # (tt,) int32
-    ttail_ptr: Optional[torch.Tensor] = None  # (n + 1,) int32
-    theavy: Optional[torch.Tensor] = None  # (ht,) int32
+    sell: Optional[SellLayout] = None  # the kernel's layout of A
+    tsell: Optional[SellLayout] = None  # ... and of Aᵀ
     dense: Optional[torch.Tensor] = None  # (m, n) fallback
 
     @property
@@ -122,13 +126,12 @@ class SparseOperator:
     def tail(self) -> Optional[EllTail]:
         if self.tail_vals is None:
             return None
-        return EllTail(self.tail_vals, self.tail_rows, self.tail_cols, self.tail_ptr, self.heavy)
+        return EllTail(self.tail_vals, self.tail_rows, self.tail_cols)
 
     def ttail(self) -> Optional[EllTail]:
         if self.ttail_vals is None:
             return None
-        return EllTail(self.ttail_vals, self.ttail_rows, self.ttail_cols, self.ttail_ptr,
-                       self.theavy)
+        return EllTail(self.ttail_vals, self.ttail_rows, self.ttail_cols)
 
     # -- linear maps ------------------------------------------------------
 
@@ -136,37 +139,41 @@ class SparseOperator:
         """A @ v, (n,) → (m,)."""
         if self.fmt == "dense":
             return self.dense @ v
-        return ell_spmv(self.vals, self.cols, v, self.tail())
+        return ell_spmv(self.vals, self.cols, v, self.tail(), layout=self.sell)
 
     def rmatvec(self, v):
         """Aᵀ @ v, (m,) → (n,), through the transpose hybrid."""
         if self.fmt == "dense":
             return self.dense.T @ v
-        return ell_spmv(self.tvals, self.tcols, v, self.ttail(), transpose=True)
+        return ell_spmv(self.tvals, self.tcols, v, self.ttail(), layout=self.tsell,
+                        transpose=True)
 
     def normal_diag(self, d, reg=0.0):
         """diag(A·diag(d)·Aᵀ) + reg without forming the normal matrix:
         entry i is Σ_j A_ij²·d_j."""
         if self.fmt == "dense":
             return torch.sum(self.dense * self.dense * d[None, :], dim=1) + reg
-        return ell_normal_diag(self.vals, self.cols, d, self.tail(), reg)
+        return ell_normal_diag(self.vals, self.cols, d, self.tail(), reg, layout=self.sell)
 
     def row_norms(self):
         """Per-row 2-norms of A."""
         if self.fmt == "dense":
             return torch.sqrt(torch.sum(self.dense * self.dense, dim=1))
         ones = torch.ones(self.n, dtype=self.dtype, device=self.device)
-        return torch.sqrt(ell_normal_diag(self.vals, self.cols, ones, self.tail()))
+        return torch.sqrt(ell_normal_diag(self.vals, self.cols, ones, self.tail(),
+                                          layout=self.sell))
 
     def col_norms(self):
         if self.fmt == "dense":
             return torch.sqrt(torch.sum(self.dense * self.dense, dim=0))
         ones = torch.ones(self.m, dtype=self.dtype, device=self.device)
-        return torch.sqrt(ell_normal_diag(self.tvals, self.tcols, ones, self.ttail()))
+        return torch.sqrt(ell_normal_diag(self.tvals, self.tcols, ones, self.ttail(),
+                                          layout=self.tsell))
 
     def scaled(self, dr, dc) -> "SparseOperator":
-        """Dr·A·Dc as a new operator: only the value arrays are rescaled,
-        the pattern (and the shapes) are untouched."""
+        """Dr·A·Dc as a new operator: only the value arrays (the hybrid's
+        and the kernel layouts') are rescaled, the pattern (and the shapes)
+        are untouched. The layouts' products are the hybrid's bit for bit."""
         dr = torch.as_tensor(np.asarray(dr), dtype=self.dtype, device=self.device)
         dc = torch.as_tensor(np.asarray(dc), dtype=self.dtype, device=self.device)
         if self.fmt == "dense":
@@ -184,6 +191,14 @@ class SparseOperator:
             rep["tail_vals"] = self.tail_vals * dr1[self.tail_rows] * dc[self.tail_cols]
         if self.ttail_vals is not None:
             rep["ttail_vals"] = self.ttail_vals * dc1[self.ttail_rows] * dr[self.ttail_cols]
+        for name, lay, r_of, c_of in (("sell", self.sell, dr1, dc), ("tsell", self.tsell, dc1, dr)):
+            if lay is not None:
+                # A pad lane's slots (row -1) take r_of's trailing 1. The
+                # copy gets scratch of its own, so its launches need no
+                # order with the original's.
+                vals = lay.vals * r_of[sell_entry_rows(lay)] * c_of[lay.cols]
+                rep[name] = lay._replace(vals=vals, partials=torch.zeros_like(lay.partials),
+                                         counters=torch.zeros_like(lay.counters))
         return dataclasses.replace(self, **rep)
 
     # -- host-side helpers ------------------------------------------------
@@ -209,18 +224,23 @@ class SparseOperator:
     def memory_report(self) -> dict:
         """name → {shape, nbytes} of every device tensor held — the
         no-dense-normal-matrix guard: no entry may approach (m, m)."""
-        out = {}
+        return {
+            name: {"shape": tuple(int(s) for s in a.shape), "nbytes": int(a.numel()) * a.element_size()}
+            for name, a in self._named_arrays()
+        }
+
+    def _named_arrays(self):
         for name in _FIELDS:
-            a = getattr(self, name)
-            if a is not None:
-                out[name] = {
-                    "shape": tuple(int(s) for s in a.shape),
-                    "nbytes": int(a.numel()) * a.element_size(),
-                }
-        return out
+            if getattr(self, name) is not None:
+                yield name, getattr(self, name)
+        for lay_name in _LAYOUTS:
+            lay = getattr(self, lay_name)
+            if lay is not None:
+                for name, a in lay.tensors().items():
+                    yield f"{lay_name}.{name}", a
 
     def _arrays(self):
-        return [a for a in (getattr(self, f) for f in _FIELDS) if a is not None]
+        return [a for _, a in self._named_arrays()]
 
 
 def _quantize(k: int, q: int) -> int:
@@ -290,15 +310,14 @@ def _np_dtype(dtype):
 
 
 def _hybrid_tensors(A: sp.csr_matrix, dtype, device) -> dict:
-    """The hybrid of ``A`` as tensors on ``device``, with the kernel's
-    tail index (pointers and heavy rows)."""
+    """The hybrid of ``A`` as tensors on ``device``, and the kernel's
+    sliced-ELL layout of ``A`` (``sell``), built there from the CSR."""
     vals, cols, tv, tr, tc = _hybrid_from_csr(A, dtype)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     out = {"vals": put(vals), "cols": put(cols)}
     if tv is not None:
-        ptr, heavy = tail_index(tr, A.shape[0])
-        out.update(tail_vals=put(tv), tail_rows=put(tr), tail_cols=put(tc), tail_ptr=put(ptr),
-                   heavy=put(heavy))
+        out.update(tail_vals=put(tv), tail_rows=put(tr), tail_cols=put(tc))
+    out["sell"] = sell_layout(A.indptr, A.indices, A.data, dtype=out["vals"].dtype, device=device)
     return out
 
 

@@ -462,16 +462,32 @@ def test_solo_pdhg_on_the_card_matches_its_cpu_path(cuda):
 
 
 def _ell_operator(which, dtype, device):
+    import scipy.sparse as sp
+
     from distributedlpsolver_tpu_torch.models import netlib_sparse_lp, storm_sparse_lp
     from distributedlpsolver_tpu_torch.ops import sparse
 
-    # storm K=64: Aᵀ's first-stage rows carry ~340 tail entries each, past
-    # the kernel's heavy-row threshold; netlib: an uneven row profile with
-    # a tail in both directions.
-    p = storm_sparse_lp(64, 32, 48, 24, seed=2) if which == "storm" else netlib_sparse_lp(
+    np_dtype = {torch.float64: np.float64, torch.float32: np.float32}[dtype]
+    if which == "wide":
+        # Ragged slices (1,037 rows, 4,001 columns), empty rows, and dense
+        # rows and columns that span several heavy chunks in both
+        # directions.
+        A = sp.random(1037, 4001, density=0.002, random_state=5, format="lil")
+        rng = np.random.default_rng(5)
+        for i in (0, 511, 1036):
+            A[i] = rng.standard_normal(4001)
+        for j in (3, 3999):
+            A[:, j] = rng.standard_normal((1037, 1))
+        A[[17, 600]] = 0.0
+        A = A.tocsr()
+        A.eliminate_zeros()
+        return sparse.from_scipy(A, dtype=np_dtype, device=device)
+    # storm K=400: Aᵀ's first-stage rows carry ~2,100 entries each, over
+    # several heavy chunks; netlib: an uneven row profile with heavy rows
+    # of one chunk.
+    p = storm_sparse_lp(400, 32, 48, 24, seed=2) if which == "storm" else netlib_sparse_lp(
         2000, 4000, seed=3)
-    return sparse.from_scipy(p.A, dtype={torch.float64: np.float64, torch.float32: np.float32}[dtype],
-                             device=device)
+    return sparse.from_scipy(p.A, dtype=np_dtype, device=device)
 
 
 # Relative error (max |kernel − plain| over max |plain|) of the ELL kernel:
@@ -479,26 +495,32 @@ def _ell_operator(which, dtype, device):
 ELL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("which", ["storm", "netlib"])
-def test_ell_kernel_matches_plain_version(cuda, which, dtype):
-    from distributedlpsolver_tpu_torch.ops import ell_normal_diag, ell_spmv
+def _ell_cases(op, dtype, device, seed=0):
     from distributedlpsolver_tpu_torch.ops.ell_spmv import ell_spmv_reference
 
-    op = _ell_operator(which, dtype, cuda)
-    if which == "storm":
-        assert op.theavy.numel() > 0  # the heavy-row blocks run
-    rng = np.random.default_rng(0)
-    v = torch.tensor(rng.standard_normal(op.n), device=cuda).to(dtype)
-    w = torch.tensor(rng.standard_normal(op.m), device=cuda).to(dtype)
-    d = torch.tensor(rng.random(op.n) + 0.1, device=cuda).to(dtype)
-    before = (ell_spmv.launches, ell_spmv.launches_t, ell_normal_diag.launches)
-    cases = [
-        (op.matvec(v), ell_spmv_reference(op.vals, op.cols, v, op.tail())),
-        (op.rmatvec(w), ell_spmv_reference(op.tvals, op.tcols, w, op.ttail())),
-        (op.normal_diag(d, 1e-3),
+    rng = np.random.default_rng(seed)
+    v = torch.tensor(rng.standard_normal(op.n), device=device).to(dtype)
+    w = torch.tensor(rng.standard_normal(op.m), device=device).to(dtype)
+    d = torch.tensor(rng.random(op.n) + 0.1, device=device).to(dtype)
+    return [
+        (lambda: op.matvec(v), ell_spmv_reference(op.vals, op.cols, v, op.tail())),
+        (lambda: op.rmatvec(w), ell_spmv_reference(op.tvals, op.tcols, w, op.ttail())),
+        (lambda: op.normal_diag(d, 1e-3),
          ell_spmv_reference(op.vals, op.cols, d, op.tail(), square=True, reg=1e-3)),
     ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", ["storm", "netlib", "wide"])
+def test_ell_kernel_matches_plain_version(cuda, which, dtype):
+    from distributedlpsolver_tpu_torch.ops import ell_normal_diag, ell_spmv
+
+    op = _ell_operator(which, dtype, cuda)
+    if which != "netlib":
+        # The heavy rows of Aᵀ span several chunks (the last-warp sum runs).
+        assert op.tsell.n_chunks > op.tsell.n_heavy > 0
+    before = (ell_spmv.launches, ell_spmv.launches_t, ell_normal_diag.launches)
+    cases = [(kern(), ref) for kern, ref in _ell_cases(op, dtype, cuda)]
     after = (ell_spmv.launches, ell_spmv.launches_t, ell_normal_diag.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
     for got, ref in cases:
@@ -507,14 +529,30 @@ def test_ell_kernel_matches_plain_version(cuda, which, dtype):
         assert rel <= ELL_TOL[dtype]
 
 
-@pytest.mark.parametrize("which", ["storm", "netlib"])
-def test_ell_kernel_repeats_bit_for_bit(cuda, which):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", ["storm", "netlib", "wide"])
+def test_ell_kernel_repeats_bit_for_bit(cuda, which, dtype):
+    """Two launches give the same bits, and the heavy rows' counters are
+    back at zero after each."""
+    op = _ell_operator(which, dtype, cuda)
+    for kern, _ in _ell_cases(op, dtype, cuda, seed=1):
+        assert torch.equal(kern(), kern())
+    assert int(op.tsell.counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("which", ["storm", "wide"])
+def test_ell_kernel_on_a_scaled_operator(cuda, which):
+    """``scaled`` rescales the kernel's layout as it does the hybrid: the
+    kernel's products of Dr·A·Dc match the plain version's, and differ
+    from the unscaled operator's."""
     op = _ell_operator(which, torch.float64, cuda)
-    rng = np.random.default_rng(1)
-    v = torch.tensor(rng.standard_normal(op.n), device=cuda)
-    w = torch.tensor(rng.standard_normal(op.m), device=cuda)
-    for fn, x in ((op.matvec, v), (op.rmatvec, w), (lambda x: op.normal_diag(x, 0.5), v.abs())):
-        assert torch.equal(fn(x), fn(x))
+    rng = np.random.default_rng(2)
+    sop = op.scaled(rng.uniform(0.5, 2.0, op.m), rng.uniform(0.5, 2.0, op.n))
+    for (kern, ref), (kern0, _) in zip(_ell_cases(sop, torch.float64, cuda),
+                                       _ell_cases(op, torch.float64, cuda)):
+        got = kern()
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= ELL_TOL[torch.float64]
+        assert not torch.allclose(got, kern0())
 
 
 def test_sparse_iterative_solve_on_the_card(cuda):

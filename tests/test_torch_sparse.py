@@ -25,10 +25,10 @@ from distributedlpsolver_tpu_torch.models import generators as tgen
 from distributedlpsolver_tpu_torch.ops import ell_normal_diag, ell_spmv
 from distributedlpsolver_tpu_torch.ops import sparse as tsparse
 from distributedlpsolver_tpu_torch.ops.ell_spmv import (
-    HEAVY_TAIL,
+    CHUNK,
+    HEAVY_MIN,
     EllTail,
     ell_spmv_reference,
-    tail_index,
 )
 
 # The operator's maps against the JAX package's: the same products, summed
@@ -91,21 +91,13 @@ def test_storm_transpose_rides_the_tail_not_the_width():
     op = tsparse.from_scipy(p.A)
     assert op.tvals.shape[1] <= 32 and op.ttail_vals is not None
     assert op.nbytes() < 0.05 * op.m * op.n * 8
-    # The kernel's index: every first-stage column is a heavy transpose
-    # row, and its row pointers cover exactly the live tail.
-    counts = np.diff(op.ttail_ptr.numpy())
-    assert set(op.theavy.tolist()) == set(np.flatnonzero(counts > HEAVY_TAIL).tolist())
-    assert set(op.theavy.tolist()) == set(range(24))
-    assert counts.sum() == int((op.ttail_rows.numpy() < op.n).sum())
-
-
-def test_tail_index_points_at_each_rows_entries():
-    rows = np.array([0, 0, 2, 2, 2, 5, 6, 6], dtype=np.int32)  # pad entries at row m = 6
-    ptr, heavy = tail_index(rows, 6)
-    np.testing.assert_array_equal(ptr, [0, 2, 2, 5, 5, 5, 6])
-    assert heavy.size == 0
-    rows = np.repeat(np.arange(3, dtype=np.int32), [1, HEAVY_TAIL + 1, HEAVY_TAIL])
-    np.testing.assert_array_equal(tail_index(rows, 3)[1], [1])
+    # The kernel's index: every first-stage column, and no other, is a
+    # heavy transpose row, cut into chunks of CHUNK entries.
+    counts = np.diff(p.A.tocsc().indptr)
+    lay = op.tsell
+    assert lay.heavy_rows.tolist() == np.flatnonzero(counts > HEAVY_MIN).tolist() == list(range(24))
+    np.testing.assert_array_equal(np.diff(lay.heavy_first.numpy()), -(-counts[:24] // CHUNK))
+    assert op.sell.n_heavy == 0 and lay.n_slices == -(-(op.n - 24) // 32)
 
 
 @pytest.mark.parametrize("square", [False, True])
@@ -119,7 +111,7 @@ def test_plain_version_is_the_dense_product(square):
     A = A.tocsr()
     h = tsparse._hybrid_tensors(A.tocsr(), np.float64, torch.device("cpu"))
     vals, cols = h["vals"], h["cols"]
-    tail = EllTail(h["tail_vals"], h["tail_rows"], h["tail_cols"], h["tail_ptr"], h["heavy"])
+    tail = EllTail(h["tail_vals"], h["tail_rows"], h["tail_cols"])
     assert vals.shape[1] < 30  # row 5 spills into the tail
     x = torch.from_numpy(rng.uniform(0.5, 2.0, 30))
     before = (ell_spmv.launches, ell_spmv.launches_t, ell_normal_diag.launches)
@@ -171,7 +163,8 @@ def test_from_scipy_takes_the_dtype_and_device():
     A = tgen.netlib_sparse_lp(200, 360, seed=5).A
     op = tsparse.from_scipy(A, dtype=np.float32, device="cpu")
     assert op.dtype == torch.float32 and op.device.type == "cpu"
-    assert op.cols.dtype == torch.int32 and op.ttail_ptr.dtype == torch.int32
+    assert op.cols.dtype == torch.int32 and op.tsell.index.dtype == torch.int32
+    assert op.sell.vals.dtype == op.tsell.partials.dtype == torch.float32
     v = np.random.default_rng(0).standard_normal(A.shape[1])
     # f32 products against f64 dense algebra (the rounding of f32).
     assert _rel(op.matvec(torch.from_numpy(v).float()), A @ v) <= 1e-5
