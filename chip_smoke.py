@@ -158,7 +158,38 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    iterations, preconditioner and objective from
    ``scripts/port_sparse_jax_verdicts.py``, HiGHS in a side process
    within 1e-7, the memory guard, x bit for bit);
-17. prints the ``kernels`` JSON line, the card line, and last the result
+17. the network plane (``plane_phase``; ``--plane-only`` runs the build
+   and this phase alone), at the serve configuration's width (f64, tol
+   1e-8, the bucket (128, 512, 256), ``ServiceConfig(batch=256,
+   flush_s=0.02)``): (a) in process, two ``SolveService``s on the card,
+   each after ``warm_buckets`` (IPM at 1e-8, PDHG at 1e-4), each behind a
+   ``SolveHTTPServer``, and a ``Router`` + ``RouterHTTPServer`` over both;
+   64 client threads POST to the router the serve phase's cold stream as
+   1024 generated specs, 64 inline ``c/A/b`` bodies and 16 ``mps_text``
+   bodies (``random_request_stream(80, seed=26)``), and the PDHG wave's
+   first 128 loose requests at tol 1e-4, interleaved; every answer OPTIMAL
+   or the JAX package's verdict, every 32nd IPM answer against HiGHS
+   (1e-8), every OPTIMAL PDHG answer within the tol on its padded problem
+   and ``PDHG_REQUEST_KKT_BOUND`` on its own data, K1's launches (reset
+   before the wave, read after) equal to the IPM dispatches' start + warm
+   selection + bodies, no program built and no graph captured, and
+   ``/healthz`` ``devices_healthy: 1`` from the torch probe on each
+   backend; printed: requests/s, p50/p99 through HTTP, the routed counts,
+   and the same 1024 IPM requests through ``svc.submit`` on a fresh
+   service. (b) As processes: two ``cli serve-http`` backends (``--device``
+   defaulting to the card, ``--buckets`` + ``--warm-buckets``,
+   ``--registry``, journals) and ``cli route --registry``; 32 async
+   requests through the router, ``kill -9`` of one backend mid-wave and a
+   relaunch of its command line: every id resolves ``optimal`` or
+   ``timeout`` (never 404), zero duplicate solves in the journals; ``cli
+   obs-agg`` before the crash (16 routed requests, every reconciliation
+   check ``ok``) and after it (the router's attempts balance the records
+   once the records be-a lost with its process are counted from its
+   journal; consistent exactly when it lost none); then each backend's
+   ``/statusz`` K1 launches > 0, a drain by ``/quitquitquit``, ``cli
+   report`` over the backends' logs; then ``cli elastic --min-backends 1 --max-backends 2`` scales out
+   under a burst and back in after it;
+18. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -173,6 +204,7 @@ import importlib.util
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1040,8 +1072,9 @@ def host_kkt(c, A, b, x, y, u=None) -> tuple:
 PDHG_TOL = 1e-4
 # The JAX package's verdicts of the PDHG wave's requests that are not
 # "<engine>:optimal" (scripts/port_serve_jax_verdicts.py --streams pdhg,
-# on the CPU, two slot layouts): none — every loose request is
-# pdhg:optimal and every tight one ipm:optimal there.
+# on the CPU, each loose request at slot pdhg_seed(name, 256) of the JAX
+# engine, where its lane runs the port's): none — every loose request is
+# pdhg:optimal and every tight one (80, the plane's too) ipm:optimal there.
 PDHG_JAX_NOT_OPTIMAL = {"pdhg_loose": {}, "pdhg_tight": {}}
 # The PDHG bucket engine takes its verdict on the request padded into its
 # bucket, as the JAX package's does; on the request's own data the same
@@ -1126,6 +1159,607 @@ def pdhg_wave(torch, ne, svc, card):
     print("serve_pdhg_check " + json.dumps(out) + f" [{card}]")
     row.update(out)
     return row
+
+
+# -- the network plane (cli serve-http / route / elastic over the bucket engine) ------
+
+PLANE_CLIENTS = 64
+# Generated-spec requests: random_request_stream(1024, seed=21) (the serve
+# phase's cold wave) as specs. The JAX package's verdict that is not
+# OPTIMAL there: request 1007 stops at the iteration limit in its bucket and
+# its solo solve (scripts/port_serve_jax_verdicts.py).
+PLANE_GEN_JAX_NOT_OPTIMAL = {1007: ["iteration_limit"]}
+PLANE_LOOSE = 128  # the first loose requests of the PDHG wave's stream
+PLANE_INLINE, PLANE_MPS = 64, 16  # requests 0-63 / 64-79 of the tight stream
+
+
+def _http_json(url, body=None, timeout=600.0, raw=None, ctype="application/json"):
+    """(code, parsed body, seconds) of one request; transport failures come
+    back as 599."""
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else (None if body is None else json.dumps(body).encode())
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": ctype} if data else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        try:
+            return e.code, json.loads(e.read()), time.perf_counter() - t0
+        except ValueError:
+            return e.code, {}, time.perf_counter() - t0
+    except (urllib.error.URLError, OSError) as e:
+        return 599, {"error": str(e)}, time.perf_counter() - t0
+
+
+def plane_wave_requests():
+    """The HTTP wave: (kind, index, body, content type, problem, tol) of the
+    1024 generated specs, 64 inline ``c/A/b`` bodies, 16 MPS text bodies and
+    128 loose requests at tol 1e-4, interleaved."""
+    import tempfile
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.io import write_mps
+    from distributedlpsolver_tpu_torch.models import (
+        random_dense_lp,
+        random_request_stream,
+        sparse_request_stream,
+    )
+
+    shapes = ((96, 384), (BM, BN))
+    rng = np.random.default_rng(21)  # random_request_stream's draws, as specs
+    gen = []
+    for k in range(1024):
+        m, n = shapes[int(rng.integers(len(shapes)))]
+        gen.append({"m": m, "n": n, "seed": int(rng.integers(2**31 - 1))})
+    cold = list(random_request_stream(len(gen), shapes=shapes, seed=21))
+    for spec, p in zip(gen[::97], cold[::97]):
+        if random_dense_lp(spec["m"], spec["n"], seed=spec["seed"]).name != p.name:
+            fail(f"plane: spec {spec} is not the cold stream's {p.name}")
+    tight = list(random_request_stream(PLANE_INLINE + PLANE_MPS, shapes=((BM, BN),), seed=26))
+    loose = list(sparse_request_stream(PLANE_LOOSE, shapes=shapes, seed=25))
+    mk = lambda p: {"c": p.c.tolist(), "A": np.asarray(p.A).tolist(), "b": p.rlb.tolist()}
+    inline = [("inline", k, {"problem": mk(p), "id": p.name}, "application/json", p, 1e-8)
+              for k, p in enumerate(tight[:PLANE_INLINE])]
+    mps = []
+    with tempfile.TemporaryDirectory() as d:
+        for k, p in enumerate(tight[PLANE_INLINE:]):
+            path = os.path.join(d, f"{p.name}.mps")
+            write_mps(p, path)
+            with open(path) as fh:
+                text = fh.read()
+            mps.append(("mps", PLANE_INLINE + k, {"mps_text": text, "id": p.name},
+                        "application/json", p, 1e-8))
+    loose_b = [("loose", k, {"problem": mk(p), "id": p.name, "tol": tol}, "application/json", p,
+                tol) for k, (p, tol) in enumerate(loose)]
+    out = []
+    for k, spec in enumerate(gen):
+        out.append(("generated", k, spec, "application/json",
+                    cold[k], 1e-8))
+        if k % 16 == 0:
+            out.append(inline[k // 16])
+        if k % 64 == 0:
+            out.append(mps[k // 64])
+        if k % 8 == 0:
+            out.append(loose_b[k // 8])
+    return out
+
+
+def _results_by_name(svcs):
+    out = {}
+    for svc in svcs:
+        with svc._lock:
+            for r in svc._results:
+                out[r.name] = r
+    return out
+
+
+def plane_inprocess(torch, ne, card):
+    """Step 17(a) of the module note: two services behind HTTP front-ends
+    and a router, the HTTP wave through the router, its checks; then the
+    same 1024 IPM requests through ``svc.submit`` in process."""
+    import threading
+    from queue import Empty, Queue
+
+    from distributedlpsolver_tpu_torch.backends import batched as tb
+    from distributedlpsolver_tpu_torch.net import NetConfig, SolveHTTPServer
+    from distributedlpsolver_tpu_torch.net.router import Router, RouterConfig, RouterHTTPServer
+    from distributedlpsolver_tpu_torch.obs.metrics import MetricsRegistry
+    from distributedlpsolver_tpu_torch.obs.stats import percentile
+    from distributedlpsolver_tpu_torch.serve import (
+        BucketSpec,
+        ServiceConfig,
+        SolveService,
+        latency_summary,
+        pad_standard_form,
+        standard_form,
+    )
+
+    reqs = plane_wave_requests()
+    spec = BucketSpec(BM, BN, SERVE_BATCH)
+    svcs, fronts = [], []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        reg = MetricsRegistry()
+        svc = SolveService(ServiceConfig(batch=SERVE_BATCH, flush_s=0.02), metrics=reg)
+        svc.warm_buckets([spec])
+        svc.warm_buckets([spec], tol=PDHG_TOL, engines=["pdhg"])
+        svcs.append(svc)
+        fronts.append(SolveHTTPServer(svc, NetConfig(), metrics=reg).start())
+    router = Router([f.url for f in fronts], RouterConfig(poll_s=0.5), metrics=MetricsRegistry())
+    router.start()
+    rhttp = RouterHTTPServer(router, metrics=MetricsRegistry()).start()
+    setup_s = time.perf_counter() - t0
+    try:
+        health = []
+        for f in fronts:
+            code, h, _ = _http_json(f.url + "/healthz", timeout=30)
+            if code != 200 or h.get("devices_healthy") != 1 or not h.get("device", "").startswith("cuda"):
+                fail(f"plane: {f.url}/healthz {code} {h}")
+            health.append(h)
+        rows0 = [len(s.dispatch_report()) for s in svcs]
+        solo0 = sum(s.stats()["solo_retries"] for s in svcs)
+        size0, caps0 = tb.bucket_cache_size(), tb.bucket_capture_count()
+        work: "Queue" = Queue()
+        for k, r in enumerate(reqs):
+            work.put((k, r))
+        answers = [None] * len(reqs)
+
+        def client():
+            while True:
+                try:
+                    k, (kind, i, body, ctype, p, tol) = work.get_nowait()
+                except Empty:
+                    return
+                t_req = time.perf_counter()
+                while True:
+                    code, out, _ = _http_json(rhttp.url + "/v1/solve", body, ctype=ctype)
+                    if code in (429, 503, 599) and time.perf_counter() - t_req < 300:
+                        time.sleep(min(float(out.get("retry_after_s", 0.05) or 0.05), 1.0))
+                        continue
+                    break
+                answers[k] = (code, out, time.perf_counter() - t_req)
+
+        ne.normal_eq.launches = 0
+        t_wave = time.perf_counter()
+        threads = [threading.Thread(target=client, daemon=True) for _ in range(PLANE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t_wave
+        for s in svcs:
+            if not s.drain(timeout=300):
+                fail("plane: a service did not drain")
+        launches = ne.normal_eq.launches
+        built, captured = tb.bucket_cache_size() - size0, tb.bucket_capture_count() - caps0
+        rows = [r for s, n0 in zip(svcs, rows0) for r in s.dispatch_report()[n0:]]
+        solo = sum(s.stats()["solo_retries"] for s in svcs) - solo0
+        served = _results_by_name(svcs)
+        rst = router.statusz()
+        routed = {b["url"]: b["forwards"] for b in rst["backends"]}
+        hedging = {k: rst["hedging"].get(k) for k in ("hedges_launched", "outcomes")}
+        hedging["failovers"] = rst["failovers"]
+    finally:
+        rhttp.shutdown()
+        router.shutdown()
+        for f in fronts:
+            f.shutdown()
+    if any(a is None for a in answers):
+        fail(f"plane: {sum(a is None for a in answers)} requests never answered")
+    if built or captured:
+        fail(f"plane: {built} bucket programs built, {captured} graphs captured in the wave")
+    # Verdicts: OPTIMAL, or the JAX package's verdict for the request.
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+
+    ipm_checked, worst_highs, pdhg_checked = 0, 0.0, 0
+    worst_pad, worst_own = [0.0] * 3, [0.0] * 3
+    max_iter = SolverConfig().max_iter
+    n_ipm = 0
+    for (kind, i, body, ctype, p, tol), (code, out, _) in zip(reqs, answers):
+        status = out.get("status")
+        # HTTP carries the status, not the engine (checked below).
+        if kind == "generated":
+            allowed = {"optimal", *PLANE_GEN_JAX_NOT_OPTIMAL.get(i, [])}
+        else:
+            st, default = ("pdhg_loose", "pdhg") if kind == "loose" else ("pdhg_tight", "ipm")
+            allowed = {v.split(":")[1] for v in PDHG_JAX_NOT_OPTIMAL[st].get(
+                i, [f"{default}:optimal"])}
+        if code != 200 or status not in allowed:
+            fail(f"plane: {kind} request {i} ({p.name}): HTTP {code} {status}, the JAX "
+                 f"package's {sorted(allowed)}: {str(out)[:300]}")
+        if status == "iteration_limit" and out.get("iterations") != max_iter:
+            fail(f"plane: {kind} request {i} at the iteration limit after {out.get('iterations')}")
+        if out.get("bucket") not in (None, [BM, BN, SERVE_BATCH]):
+            fail(f"plane: {kind} request {i} in bucket {out.get('bucket')}")
+        if kind != "loose":
+            n_ipm += 1
+            if status == "optimal" and n_ipm % SERVE_SAMPLE == 1:
+                h = highs_tight_objective(p)
+                e = abs(out["objective"] - h) / (1.0 + abs(h))
+                worst_highs = max(worst_highs, e)
+                ipm_checked += 1
+                if not e <= 1e-8:
+                    fail(f"plane: {p.name} objective {out['objective']!r} vs HiGHS {h!r}")
+            continue
+        r = served.get(p.name)
+        if r is None:
+            fail(f"plane: no service record of {p.name}")
+        if r.engine != "pdhg":
+            fail(f"plane: loose request {p.name} on engine {r.engine}")
+        if status != "optimal" or r.retried_solo:
+            continue
+        e = host_kkt(*pad_standard_form(*standard_form(p), r.bucket[0], r.bucket[1]), *r.lane)
+        eo = host_kkt(p.c, p.A, p.rlb, r.lane[0][:p.n], r.lane[1][:p.m])
+        if max(e) > tol or any(v > lim for v, lim in zip(eo, PDHG_REQUEST_KKT_BOUND)):
+            fail(f"plane: {p.name} OPTIMAL at padded {e}, request {eo} (bound "
+                 f"{PDHG_REQUEST_KKT_BOUND})")
+        worst_pad = [max(a, b) for a, b in zip(worst_pad, e)]
+        worst_own = [max(a, b) for a, b in zip(worst_own, eo)]
+        pdhg_checked += 1
+    # K1: each IPM dispatch = start + warm selection + bodies; the wave's
+    # launches = the dispatches' (+ the solo solves', if any).
+    bucket_launches = 0
+    for r in rows:
+        if r["engine"] != "ipm":
+            continue
+        if r["launches"] != 2 + r["bodies"] or r["warmup_launches"] != (
+                (2 if r["warmup_bodies"] else 0) + r["warmup_bodies"]):
+            fail(f"plane: dispatch {r['dispatch']} K1 launches {r['launches']} for "
+                 f"{r['bodies']} bodies")
+        bucket_launches += r["launches"] + r["warmup_launches"]
+    if launches == 0 or launches < bucket_launches or (not solo and launches != bucket_launches):
+        fail(f"plane: {launches} K1 launches in the wave, {bucket_launches} in its dispatches, "
+             f"{solo} solo solves")
+    lat = [a[2] * 1e3 for a in answers]
+    row = {
+        "requests": len(reqs), "clients": PLANE_CLIENTS, "setup_s": setup_s, "wall_s": wall,
+        "rps": len(reqs) / wall, "latency_ms_p50": percentile(lat, 50),
+        "latency_ms_p99": percentile(lat, 99),
+        "kinds": {k: sum(r[0] == k for r in reqs) for k in ("generated", "inline", "mps", "loose")},
+        "routed": list(routed.values()), "router": hedging, "dispatches": len(rows),
+        "live_mean": sum(r["live"] for r in rows) / max(len(rows), 1),
+        "engines": {e: sum(r["engine"] == e for r in rows) for e in ("ipm", "pdhg")},
+        "normal_eq_launches": launches, "bucket_launches": bucket_launches, "solo": solo,
+        "programs_built": built, "graphs_captured": captured,
+        "highs_checked": ipm_checked, "highs_max_rel": worst_highs,
+        "pdhg_checked": pdhg_checked, "pdhg_padded_kkt_max": worst_pad,
+        "pdhg_request_kkt_max": worst_own,
+        "healthz": [{k: h[k] for k in ("devices_healthy", "device")} for h in health],
+        "statuses": {s: sum(a[1].get("status") == s for a in answers)
+                     for s in sorted({a[1].get("status") for a in answers})},
+    }
+    print("plane_http " + json.dumps(row) + f" [{card}]")
+    # The same 1024 IPM requests through svc.submit, on a fresh service
+    # (its warm cache empty, as the HTTP wave's was).
+    gen = [r[4] for r in reqs if r[0] == "generated"]
+    with SolveService(ServiceConfig(batch=SERVE_BATCH, flush_s=0.02)) as svc:
+        t0 = time.perf_counter()
+        futs = [svc.submit(p) for p in gen]
+        if not svc.drain(timeout=600):
+            fail("plane: the in-process service did not drain")
+        wall_in = time.perf_counter() - t0
+        res = [f.result() for f in futs]
+    summ = latency_summary(res)
+    inproc = {"requests": len(gen), "wall_s": wall_in, "rps": len(gen) / wall_in,
+              "latency_ms_p50": summ["latency_ms_p50"], "latency_ms_p99": summ["latency_ms_p99"],
+              "status": summ["status_breakdown"]}
+    print("plane_inprocess " + json.dumps(inproc) + f" [{card}]")
+    for s in svcs:
+        s.shutdown()
+    return row
+
+
+def _wait(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"plane cli: {what}")
+        time.sleep(0.2)
+
+
+def _journal_pending(plane) -> int:
+    """Jobs admitted but not finished, over the CLI leg's backends."""
+    return sum(_http_json(plane.procs[n].url + "/statusz", timeout=30)[1]["stats"]["journal"]
+               ["pending"] for n in ("be-a", "be-b"))
+
+
+def _obs_agg(reg, router_url):
+    """``cli obs-agg --json`` over the registry's two backends and the
+    router. Its exit code must be its own reconciliation's verdict (0
+    consistent, 1 a mismatch)."""
+    agg = subprocess.run(
+        [sys.executable, "-m", "distributedlpsolver_tpu_torch.cli", "obs-agg", "--registry",
+         reg, "--router", router_url, "--json"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    if not agg.stdout.strip():
+        fail(f"plane cli: obs-agg rc {agg.returncode}: {agg.stderr[-2000:]}")
+    fleet = json.loads(agg.stdout)
+    if (agg.returncode != (0 if fleet["reconciliation"]["consistent"] else 1)
+            or fleet["rollup"]["totals"].get("backends") != 2):
+        fail(f"plane cli: obs-agg rc {agg.returncode}, "
+             f"{fleet['rollup']['totals'].get('backends')} backends: {agg.stderr[-2000:]}")
+    return fleet, agg.returncode
+
+
+def _agg_totals(fleet) -> dict:
+    t = fleet["reconciliation"]["totals"]
+    return {k: t[k] for k in ("forwards_total", "hedges_launched", "cancels", "failovers",
+                              "backend_records", "journal_results")}
+
+
+def plane_cli(card):
+    """Step 17(b) of the module note: ``cli serve-http`` ×2 + ``cli route``
+    as processes on the card, a kill -9 and relaunch mid-wave, ``cli
+    elastic`` scaling out and in, ``cli report`` and ``cli obs-agg``."""
+    import shutil
+    import tempfile
+
+    from distributedlpsolver_tpu_torch.net.chaos import (
+        ChaosPlane,
+        free_port,
+        journal_duplicate_solves,
+    )
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="dlps-plane-", dir=os.path.join(ROOT, "build"))
+    plane = ChaosPlane(work, device="cuda")
+    out = {}
+    ladder = os.path.join(work, "ladder.json")
+    with open(ladder, "w") as fh:
+        json.dump([{"m": BM, "n": BN, "batch": SERVE_BATCH}], fh)
+    reg = os.path.join(work, "registry.json")
+    logs = {n: os.path.join(work, f"{n}.serve.jsonl") for n in ("be-a", "be-b")}
+    t0 = time.perf_counter()
+    try:
+        bes = {}
+        for name in ("be-a", "be-b"):
+            bes[name] = plane.spawn_backend(
+                name, port=free_port(), buckets_json=ladder,
+                extra_flags=["--registry", reg, "--flush-ms", "20", "--batch", str(SERVE_BATCH),
+                             "--log-jsonl", logs[name]])
+            if "--device" not in bes[name].cmd or "cuda" not in bes[name].cmd:
+                fail(f"plane cli: {bes[name].cmd}")
+        for name, be in bes.items():
+            if not plane.wait_ready(be, 300):
+                fail(f"plane cli: {name} did not come up:\n{open(be.log_path).read()[-3000:]}")
+        router = plane.spawn_router("router", [], reg)
+        if not plane.wait_ready(router, 60):
+            fail("plane cli: the router did not come up")
+        out["up_s"] = time.perf_counter() - t0
+        _wait(lambda: sum(b["healthy"] for b in _http_json(router.url + "/statusz")[1]
+                          .get("backends", [])) == 2, 60, "the router never saw both backends")
+        # A routed wave on the healthy fleet; once it is drained, cli
+        # obs-agg must reconcile the router's ledger with the backends'
+        # records and journals, every check "ok".
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(16) as ex:
+            answers = list(ex.map(lambda k: _http_json(
+                router.url + "/v1/solve", {"m": BM, "n": BN, "seed": 6900 + k}), range(16)))
+        for k, (code, resp, _) in enumerate(answers):
+            if code != 200 or resp.get("status") != "optimal":
+                fail(f"plane cli: routed request {k}: {code} {str(resp)[:200]}")
+        _wait(lambda: _journal_pending(plane) == 0, 60, "the journals never drained")
+        fleet, rc = _obs_agg(reg, router.url)
+        checks = {c["name"]: c["status"] for c in fleet["reconciliation"]["checks"]}
+        if rc != 0 or set(checks.values()) != {"ok"} or len(checks) != 3:
+            fail(f"plane cli: obs-agg on the healthy fleet rc {rc}: "
+                 f"{json.dumps(fleet['reconciliation'])[:3000]}")
+        out["obs_agg_healthy"] = {"rc": rc, "checks": checks, "totals": _agg_totals(fleet)}
+        ids = []
+        for k in range(32):
+            code, resp, _ = _http_json(router.url + "/v1/solve",
+                                       {"m": BM, "n": BN, "seed": 7000 + k, "async": True})
+            if code != 202:
+                fail(f"plane cli: async request {k}: {code} {resp}")
+            ids.append(resp["id"])
+        plane.kill9("be-a")  # mid-wave: acknowledged work is unfinished
+        t_kill = time.perf_counter()
+        be_a = plane.restart("be-a", wait=False)
+        if not plane.wait_ready(be_a, 300):
+            fail(f"plane cli: be-a did not come back:\n{open(be_a.log_path).read()[-3000:]}")
+        out["relaunch_s"] = time.perf_counter() - t_kill
+        verdicts = {}
+        deadline = time.monotonic() + 300
+        while len(verdicts) < len(ids):
+            if time.monotonic() > deadline:
+                fail(f"plane cli: unresolved ids {sorted(set(ids) - set(verdicts))}")
+            for rid in ids:
+                if rid in verdicts:
+                    continue
+                code, resp, _ = _http_json(router.url + f"/v1/solve/{rid}", timeout=30)
+                if code == 404:
+                    fail(f"plane cli: id {rid} answered 404 after the relaunch")
+                if code in (200, 504) and "status" in resp:
+                    verdicts[rid] = resp["status"]
+            time.sleep(0.1)
+        if not set(verdicts.values()) <= {"optimal", "timeout"}:
+            fail(f"plane cli: verdicts {verdicts}")
+        dups = {n: journal_duplicate_solves(be.journal_dir) for n, be in plane.procs.items()
+                if be.journal_dir}
+        if any(dups.values()):
+            fail(f"plane cli: duplicate solves {dups}")
+        out["verdicts"] = {s: sum(v == s for v in verdicts.values()) for s in set(verdicts.values())}
+        out["duplicate_solves"] = dups
+        # obs-agg after the crash. A backend's request records count its
+        # process's work, so those be-a finished before the kill died with
+        # it; its journal kept them. The fleet balances once they are
+        # counted from the journal: routed attempts = the backends' records
+        # + what be-a lost (its journal results - its records), within the
+        # cancels, and be-b lost nothing. The reconciliation is consistent
+        # exactly when be-a lost nothing.
+        _wait(lambda: _journal_pending(plane) == 0, 60, "the journals never drained")
+        fleet, rc = _obs_agg(reg, router.url)
+        rec = fleet["reconciliation"]
+        tot = rec["totals"]
+        checks = {c["name"]: c["status"] for c in rec["checks"]}
+        lost = {}
+        for row in fleet["backends"].values():
+            st = row["statusz"]["stats"]
+            lost[os.path.realpath(st["journal"]["dir"])] = st["journal"]["results"] - st["requests"]
+        lost_a = lost.pop(os.path.realpath(plane.procs["be-a"].journal_dir), None)
+        slack = tot["forwards_total"] + tot["hedges_launched"] - tot["backend_records"] - (lost_a or 0)
+        if (lost_a is None or lost_a < 0 or len(lost) != 1 or any(lost.values())
+                or not 0 <= slack <= tot["cancels"] or tot["journal_pending"]
+                or checks["hedge_outcomes_accounted"] != "ok"
+                or rec["consistent"] != (lost_a == 0)):
+            fail(f"plane cli: obs-agg after the crash rc {rc}, be-a lost {lost_a}, others {lost}, "
+                 f"slack {slack}: {json.dumps(rec)[:3000]}")
+        out["obs_agg_after_crash"] = {"rc": rc, "lost_with_be_a": lost_a, "checks": checks,
+                                      "totals": _agg_totals(fleet)}
+        # Each backend serves a few more requests, sent to it directly,
+        # then its /statusz must show the bucket programs' K1 launches.
+        launches = {}
+        for name in ("be-a", "be-b"):
+            be = plane.procs[name]
+            for k in range(4):
+                code, resp, _ = _http_json(be.url + "/v1/solve", {"m": BM, "n": BN,
+                                                                  "seed": 7100 + k})
+                if code != 200 or resp.get("status") != "optimal":
+                    fail(f"plane cli: {name} request {k}: {code} {str(resp)[:200]}")
+            st = _http_json(be.url + "/statusz")[1]["stats"]
+            launches[name] = st["dispatch_totals"].get("launches", 0)
+            if launches[name] <= 0 or not st["device"].startswith("cuda"):
+                fail(f"plane cli: {name} /statusz {st['device']} K1 launches {launches[name]}")
+        out["statusz_k1_launches"] = launches
+        # Drain the backends.
+        for name in ("be-a", "be-b"):
+            _http_json(plane.procs[name].url + "/quitquitquit", {}, timeout=30)
+        for name in ("be-a", "be-b"):
+            try:
+                plane.procs[name].popen.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                fail(f"plane cli: {name} did not exit after its drain")
+        rep = subprocess.run(
+            [sys.executable, "-m", "distributedlpsolver_tpu_torch.cli", "report", *logs.values(),
+             "--json"], capture_output=True, text=True, timeout=120, cwd=ROOT)
+        if rep.returncode != 0:
+            fail(f"plane cli: report rc {rep.returncode}: {rep.stderr[-2000:]}")
+        report = json.loads(rep.stdout)
+        out["report_keys"] = sorted(report)[:12]
+        out["elastic"] = plane_elastic(plane, work, ladder)
+    finally:
+        plane.shutdown_all()
+    out["wall_s"] = time.perf_counter() - t0
+    print("plane_cli " + json.dumps(out) + f" [{card}]")
+    shutil.rmtree(work, ignore_errors=True)  # journals and logs: kept only on a failure
+    return out
+
+
+def plane_elastic(plane, work, ladder):
+    """``cli elastic --min-backends 1 --max-backends 2``: scale out under a
+    burst of async requests, back in when it ends."""
+    import threading
+
+    reg = os.path.join(work, "elastic-registry.json")
+    log = os.path.join(work, "elastic.jsonl")
+    plane.spawn_controller("elastic", reg, min_backends=1, max_backends=2, buckets_json=ladder,
+                           extra_flags=["--poll-s", "0.25", "--load-high", "16",
+                                        "--out-sustain-s", "0.5", "--in-sustain-s", "2",
+                                        "--cooldown-s", "1", "--log-jsonl", log,
+                                        "--backend-flag", f"--flush-ms 20 --batch {SERVE_BATCH}"])
+
+    def events():
+        try:
+            with open(log) as fh:
+                return [json.loads(ln) for ln in fh if ln.strip()]
+        except (OSError, ValueError):
+            return []
+
+    def live():
+        try:
+            with open(reg) as fh:
+                doc = json.load(fh)
+        except (OSError, ValueError):
+            return []
+        return [u for u, e in doc.get("backends", {}).items() if not e.get("ejected")]
+
+    t0 = time.perf_counter()
+    _wait(lambda: len(live()) >= 1, 300, "elastic: the first backend never registered")
+    first = live()[0].rstrip("/")
+    stop = threading.Event()
+    sent = [0]
+
+    def flood():
+        k = 0
+        while not stop.is_set():
+            _http_json(first + "/v1/solve", {"m": BM, "n": BN, "seed": 9000 + k, "async": True},
+                       timeout=30)
+            k += 1
+            sent[0] += 1
+
+    threads = [threading.Thread(target=flood, daemon=True) for _ in range(8)]
+    for t in threads:
+        t.start()
+    burst_out = lambda ev: next((k for k, e in enumerate(ev) if e["event"] == "scale_out"
+                                 and e["reason"] != "min_backends"), None)
+    try:
+        _wait(lambda: burst_out(events()) is not None, 300,
+              "elastic: no scale-out under the burst")
+        _wait(lambda: len(live()) >= 2, 300, "elastic: the second backend never registered")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    t_out = time.perf_counter() - t0
+    # Back in once the burst is served: an idle scale-in after the burst's
+    # scale-out.
+    _wait(lambda: any(e["event"] == "scale_in" and e["reason"] == "idle"
+                      for e in events()[burst_out(events()):]), 300,
+          "elastic: no idle scale-in after the burst")
+    t_in = time.perf_counter() - t0 - t_out
+    # SIGINT: the controller drains its pool and exits; then no backend
+    # it spawned is left serving.
+    ctl = plane.procs["elastic"].popen
+    ctl.send_signal(signal.SIGINT)
+    try:
+        ctl.wait(timeout=180)
+    except subprocess.TimeoutExpired:
+        ctl.kill()
+        fail("elastic: the controller did not exit on SIGINT")
+    for url in live():
+        if _http_json(url.rstrip("/") + "/healthz", timeout=5)[0] != 599:
+            fail(f"elastic: {url} still serving after the controller's exit")
+    ev = events()
+    return {"scale_out": [e["reason"] for e in ev if e["event"] == "scale_out"],
+            "scale_in": [e["reason"] for e in ev if e["event"] == "scale_in"],
+            "burst_requests": sent[0], "to_scale_out_s": t_out, "to_scale_in_s": t_in}
+
+
+def plane_phase(torch, ne, card) -> int:
+    """Step 17 of the module note. Returns the HTTP wave's K1 launches."""
+    t0 = time.perf_counter()
+    http = plane_inprocess(torch, ne, card)
+    plane_cli(card)
+    print(f"plane phase: {time.perf_counter() - t0:.1f} s")
+    return http["normal_eq_launches"]
+
+
+def serve_bucket_row(parity, timing, launches) -> dict:
+    """K1's row at the serve bucket (128, 512, 256), f64: the serve phase's
+    and the network plane's launches."""
+    return {
+        "name": "normal_eq (serve bucket)",
+        "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        # One launch for every lane of a bucket at a time.
+        "launches": launches,
+        "max_abs_err": parity[1],
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "bound_share": timing["bound_share"],
+        "library_ms": timing["library_ms"],
+        "kernel_ms": timing["ms"],
+        "dtypes": ["float64"],
+        "shape": timing["shape"],
+    }
 
 
 def default_entry_phase(torch, ne, cuda_row, r_cuda):
@@ -1795,7 +2429,7 @@ def _sparse_phase(torch, card, highs):
 
 
 
-def main(sparse_only: bool = False) -> int:
+def main(sparse_only: bool = False, plane_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1826,9 +2460,21 @@ def main(sparse_only: bool = False) -> int:
         for ln in mod.build_info.get("ptxas", []):
             print(f"  {ln}")
 
-    rows = [] if sparse_only else dense_phases(torch, ne, card)
+    rows = [] if sparse_only or plane_only else dense_phases(torch, ne, card)
+    # 17. The network plane: its launches go to the serve bucket's K1 row,
+    # which a --plane-only run times on its own.
+    if not sparse_only:
+        launches = plane_phase(torch, ne, card)
+        if plane_only:
+            rows.append(serve_bucket_row(
+                kernel_parity(torch, ne, BM, BN, "float64", batch=SERVE_BATCH),
+                kernel_timing(torch, ne, BM, BN, "float64", iters=20, warm=3, batch=SERVE_BATCH), 0))
+        row = next(r for r in rows if r["name"] == "normal_eq (serve bucket)")
+        row["launches"] += launches
+        row["plane_launches"] = launches
     # 16. The matrix-free sparse tier.
-    rows += sparse_phase(torch, card)
+    if not plane_only:
+        rows += sparse_phase(torch, card)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1982,25 +2628,11 @@ def dense_phases(torch, ne, card):
         "dtypes": ["float64", "float32", "bfloat16"],
         "shape": batched_t["shape"],
         "timings": b_timings,
-    }, {
-        "name": "normal_eq (serve bucket)",
-        "route": "cuda",
-        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
-        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
-        # The serve path's launches over its three waves (one for every
-        # lane of a bucket at a time).
-        "launches": sum(r["normal_eq_launches"] for r in s_rows.values()),
-        "max_abs_err": s_parity[1],
-        "ms": s_timing["ms"],
-        "plain_ms": s_timing["plain_ms"],
-        "bound_ms": s_timing["bound_ms"],
-        "bound_by": s_timing["bound_by"],
-        "bound_share": s_timing["bound_share"],
-        "library_ms": s_timing["library_ms"],
-        "kernel_ms": s_timing["ms"],
-        "dtypes": ["float64"],
-        "shape": s_timing["shape"],
-    }]}
+    },
+        # The serve path's launches over its three waves; the plane phase
+        # adds its own.
+        serve_bucket_row(s_parity, s_timing, sum(r["normal_eq_launches"] for r in s_rows.values())),
+        ]}
     return kernels["kernels"]
 
 
@@ -2009,4 +2641,5 @@ if __name__ == "__main__":
         sys.exit(one_solve(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--highs-storm20k"]:
         sys.exit(highs_storm20k())
-    sys.exit(main(sparse_only=sys.argv[1:2] == ["--sparse-only"]))
+    sys.exit(main(sparse_only=sys.argv[1:2] == ["--sparse-only"],
+                  plane_only=sys.argv[1:2] == ["--plane-only"]))

@@ -64,6 +64,7 @@ from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
 from distributedlpsolver_tpu_torch.ipm.state import IPMState, Status
 from distributedlpsolver_tpu_torch.models.generators import BatchedLP
 from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
+from distributedlpsolver_tpu_torch.ops import kernel_build
 from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq
 
 _RUNNING, _OPTIMAL, _MAXITER, _NUMERR = 0, 1, 2, 3
@@ -757,7 +758,7 @@ class _BucketProgram:
         projection and one per body)."""
         B, dtype = self.B, self.A.dtype
         reg0 = cfg.reg_dual
-        launches0 = normal_eq.launches
+        launches0 = kernel_build.thread_launches(normal_eq)
         states0 = _batched_start(self.A, self.data, reg0, self.params, self.fdt)
         states0, warm_used = _warm_select(
             self.A, self.data, states0, tuple(self.warm), self.warm_mask, self.fdt, reg0)
@@ -780,7 +781,7 @@ class _BucketProgram:
         states, status, iters = carry[0], carry[5], carry[6]
         status = torch.where(status == _RUNNING, _MAXITER, status)
         pinf, dinf, rel_gap, pobj = _batched_norms(self.A, self.data, states, self.fdt)
-        acc["launches"] = normal_eq.launches - launches0
+        acc["launches"] = kernel_build.thread_launches(normal_eq) - launches0
         to_np = lambda v: v.detach().to(torch.float64).cpu().numpy()
         host = {
             "status": status.cpu().numpy(), "iterations": iters.cpu().numpy(),

@@ -28,7 +28,11 @@ The power iteration's start vector is the JAX package's
 ``jax.random.normal(PRNGKey(seed), (n,), dtype)``, computed in NumPy by
 ``utils/threefry.py``, so the step sizes — and the trajectories — follow
 the reference's. Seeds: an explicit seed, else ``crc32(name)`` for the
-solo backend; the slot index in the bucket engine.
+solo backend. In the bucket engine a lane's seed is an index into a
+static table of B start vectors (row k seeded with k): the serve layer
+passes ``crc32(request name) mod B`` (:func:`pdhg_seed`), so a request's
+step size — and its verdict — does not depend on the slot it lands in;
+a caller that passes no seeds gets each slot's own index.
 
 Working precision: off TPU the reference keeps ``config.dtype`` (f64);
 ``factor_dtype="float32"`` gives f32. ``mesh=`` is not ported (ROADMAP
@@ -60,6 +64,12 @@ CHECK_EVERY = 40  # inner PDHG steps per loop body
 RESTART_LEN = 2000
 RESTART_BETA = 0.5
 BURST = 400  # inner steps per driver iteration / per unit of max_iter
+
+
+def pdhg_seed(name: str, batch: int) -> int:
+    """A bucket lane's start-vector index for the request ``name``: the
+    solo backend's ``crc32(name)`` seed, modulo the bucket's ``batch``."""
+    return (zlib.crc32(name.encode()) & 0x7FFFFFFF) % batch
 
 
 def _mesh_unported(what: str) -> NotImplementedError:
@@ -419,7 +429,8 @@ class FirstOrderBackend(SolverBackend):
 # bucket never captures again (the invariant of batched._BucketProgram).
 # Each lane runs the restarted-PDHG loop of this module, vectorized over
 # the batch with per-lane convergence masks; per-lane step sizes come
-# from a slot-seeded power iteration run at every dispatch (A changes).
+# from a power iteration run at every dispatch (A changes), each lane
+# started from the table row its seed index names.
 # Verdicts are crossover-honest: a lane is OPTIMAL only when its true KKT
 # error (pinf, dinf, relative gap) passes the REQUEST tolerance.
 
@@ -541,11 +552,11 @@ class _PDHGBucketProgram:
     built the way ``backends/batched.py::_BucketProgram`` is.
 
     It owns static device buffers for the bucket's A, b, c, the lanes'
-    step sizes η and the slots' power-iteration start vectors (slot k is
-    seeded with k, so they are fixed per program), and the
-    :class:`DeviceLoop` of the masked batched loop over them. A dispatch
-    ``copy_``s its bucket into the buffers, runs the slot-seeded power
-    iteration and the start (eager), the loop (on a card ONE CUDA graph,
+    step sizes η and a table of B power-iteration start vectors (row k
+    seeded with k, fixed per program), and the :class:`DeviceLoop` of the
+    masked batched loop over them. A dispatch ``copy_``s its bucket into
+    the buffers, gathers each lane's start vector from the table by its
+    seed index, runs the power iteration and the start (eager), the loop (on a card ONE CUDA graph,
     captured at the program's first dispatch and only replayed after;
     ``tol`` and ``max_iter`` are fills) and the final report."""
 
@@ -573,22 +584,25 @@ class _PDHGBucketProgram:
             if dst is not src:
                 dst.copy_(src)
 
-    def _norms(self, iters: int = 30):
-        """Per-lane ‖A_k‖₂ from the slot-seeded power iteration."""
+    def _norms(self, seeds, iters: int = 30):
+        """Per-lane ‖A_k‖₂ from the power iteration started at row
+        ``seeds[k]`` of the start-vector table."""
         A = self.A
-        v = self.v0 / torch.linalg.vector_norm(self.v0, dim=1, keepdim=True)
+        v0 = self.v0.index_select(0, seeds)
+        v = v0 / torch.linalg.vector_norm(v0, dim=1, keepdim=True)
         for _ in range(iters):
             w = _bmtv(A, _bmv(A, v))
             v = w / torch.linalg.vector_norm(w, dim=1, keepdim=True).clamp_min(1e-30)
         return torch.sqrt(torch.linalg.vector_norm(_bmtv(A, _bmv(A, v)), dim=1))
 
-    def run(self, active, tol: float, max_inner: int):
+    def run(self, active, tol: float, max_inner: int, seeds):
         """Step sizes, the start, the loop and the final per-lane report,
-        on the filled buffers. Returns the host-side fields and the loop's
+        on the filled buffers; ``seeds`` (B,) int64 indexes each lane's
+        start vector. Returns the host-side fields and the loop's
         accounting for this dispatch."""
         A, b, c = self.A, self.b, self.c
         B, dtype = self.B, A.dtype
-        self.eta.copy_(0.9 / self._norms().clamp_min(1e-12))
+        self.eta.copy_(0.9 / self._norms(seeds).clamp_min(1e-12))
         zB = torch.zeros(B, dtype=dtype, device=A.device)
         err0 = _lanes_err(A, b, c, torch.zeros_like(c), torch.zeros_like(b))
         st0 = _PDHGLanes(
@@ -661,6 +675,7 @@ def solve_pdhg_bucket(
     mesh=None,
     max_iter: Optional[int] = None,
     device=None,
+    seeds=None,
     **config_overrides,
 ):
     """Solve one pre-padded serving bucket with batched restarted PDHG —
@@ -680,6 +695,11 @@ def solve_pdhg_bucket(
     warm cache the IPM engine draws from. Runs on the first CUDA card
     unless ``device`` names another; ``mesh`` is not ported and raises.
     The lanes' duals are in ``BatchedResult.dual``, for KKT checks.
+
+    ``seeds`` (B ints in [0, B)) picks each lane's power-iteration start
+    vector; the serve layer passes :func:`pdhg_seed` of each request's
+    name and each padding slot's own index. None = every slot its own
+    index. Two lanes may share a seed.
     """
     from distributedlpsolver_tpu_torch.backends.batched import BatchedResult, place_bucket
 
@@ -712,9 +732,13 @@ def solve_pdhg_bucket(
         built = prog is None
         if built:
             prog = _PROGRAMS[key] = _PDHGBucketProgram(Bsz, m, n, dtype, dev)
+    seed_idx = np.arange(Bsz) if seeds is None else np.asarray(seeds, dtype=np.int64)
+    if seed_idx.shape != (Bsz,) or seed_idx.min() < 0 or seed_idx.max() >= Bsz:
+        raise ValueError(f"seeds must be {Bsz} indices in [0, {Bsz}), got {seeds!r}")
+    seed_t = torch.as_tensor(seed_idx, dtype=torch.int64).to(dev, non_blocking=True)
     with prog.lock:
         prog.fill(A, b, c)
-        host, acc = prog.run(act, float(cfg.tol), inner_cap)
+        host, acc = prog.run(act, float(cfg.tol), inner_cap, seed_t)
     solve_time = time.perf_counter() - t1
 
     pinf, dinf, gap = host["pinf"], host["dinf"], host["gap"]

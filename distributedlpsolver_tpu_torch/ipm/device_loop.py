@@ -25,9 +25,11 @@ a fill, not a new capture. A failure to capture or replay raises: there
 is no fallback to an eager loop on the card.
 
 Launch counters: a kernel wrapper counts its launches in a ``launches``
-attribute. During capture the body's wrappers count launches that do not
-run; the loop takes those back and adds them once per replay, so each
-counter stays the number of launches that ran on the card.
+attribute (``ops/kernel_build.count_launch``: process-wide, and per
+thread). During capture the body's wrappers count launches that do not
+run; the loop takes those back (the capturing thread's own, so another
+thread's launches meanwhile stay counted) and adds them once per replay,
+so each counter stays the number of launches that ran on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import time
 
 import numpy as np
 import torch
+
+from distributedlpsolver_tpu_torch.ops import kernel_build
 
 # Replays in flight while the host waits on the oldest one's meta: two
 # keep the device busy while the host reads, and let at most one body run
@@ -188,7 +192,7 @@ class DeviceLoop:
     def _capture(self, leaves, rebuild):
         t0 = time.perf_counter()
         self._static = [t.clone() for t in leaves]
-        before = [c.launches for c in self._counters]
+        before = [kernel_build.thread_launches(c) for c in self._counters]
         # torch.cuda.graph empties the allocator's cache on entry; doing it
         # first makes the reserved bytes' growth the graph pool's own.
         torch.cuda.empty_cache()
@@ -199,9 +203,11 @@ class DeviceLoop:
             for st, v in zip(self._static, new):
                 st.copy_(v)
             self._out = out
-        self._per_replay = tuple(c.launches - b for c, b in zip(self._counters, before))
-        for c, b in zip(self._counters, before):
-            c.launches = b
+        # The capture launched nothing: its calls become the per-replay count.
+        self._per_replay = tuple(kernel_build.thread_launches(c) - b
+                                 for c, b in zip(self._counters, before))
+        for c, n in zip(self._counters, self._per_replay):
+            kernel_build.count_launch(c, -n)
         self._graph = graph
         self.captures += 1
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -221,7 +227,7 @@ class DeviceLoop:
                 self._graph.replay()
                 self.replays += 1
                 for c, n in zip(self._counters, self._per_replay):
-                    c.launches += n
+                    kernel_build.count_launch(c, n)
                 slot = queued % len(self._events)
                 queued += 1
                 self._pinned[slot].copy_(self._out, non_blocking=True)

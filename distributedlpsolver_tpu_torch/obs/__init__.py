@@ -1,11 +1,10 @@
-"""Observability substrate of the IPM host loop: metrics registry, span
-tracer and the request trace context.
+"""Observability layer: metrics registry, span tracer, the request trace
+context, shared stats, the ``cli report`` analyzer (``obs.report``) and
+the fleet telemetry aggregator (``obs.agg``, ``cli obs-agg``).
 
-A copy of the ``SCHEMA_VERSION``/``DefaultSlot`` part of the JAX
-package's ``obs/__init__.py`` plus its stdlib-only ``metrics``,
-``trace`` and ``context`` modules; the report and fleet-aggregation
-tools are not ported yet. Disabled by default: the module-level
-registry and tracer are no-ops that allocate nothing per call.
+A copy of the JAX package's ``obs/`` (all of it stdlib-only). Disabled by
+default: the module-level registry and tracer are no-ops that allocate
+nothing per call.
 """
 
 # Version of the shared JSONL record schema (the stamp fields
@@ -48,6 +47,10 @@ from distributedlpsolver_tpu_torch.obs.metrics import (  # noqa: E402
     get_registry,
     set_registry,
 )
+from distributedlpsolver_tpu_torch.obs.stats import (  # noqa: E402
+    percentile,
+    summarize,
+)
 from distributedlpsolver_tpu_torch.obs.trace import (  # noqa: E402
     NULL_TRACER,
     Tracer,
@@ -58,6 +61,7 @@ from distributedlpsolver_tpu_torch.obs.context import (  # noqa: E402
     TraceContext,
     new_context,
 )
+from distributedlpsolver_tpu_torch.obs import agg, report  # noqa: E402
 
 __all__ = [
     "SCHEMA_VERSION",
@@ -72,4 +76,8 @@ __all__ = [
     "get_tracer",
     "set_tracer",
     "new_context",
+    "percentile",
+    "summarize",
+    "agg",
+    "report",
 ]

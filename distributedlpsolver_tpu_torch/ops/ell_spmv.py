@@ -285,11 +285,9 @@ def _launch(layout: SellLayout, v, square, reg, transpose):
         raise KernelError(f"ell_spmv kernel launch failed: CUDA error {rc} (rows={layout.rows}, "
                           f"slices={layout.n_slices}, chunks={layout.n_chunks})")
     if square:
-        ell_normal_diag.launches += 1
-    elif transpose:
-        ell_spmv.launches_t += 1
+        kernel_build.count_launch(ell_normal_diag)
     else:
-        ell_spmv.launches += 1
+        kernel_build.count_launch(ell_spmv, attr="launches_t" if transpose else "launches")
     return out
 
 

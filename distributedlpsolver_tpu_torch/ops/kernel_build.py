@@ -11,6 +11,13 @@ waits for them together (a run that needs every kernel pays the slowest
 build, not the sum). :class:`KernelError` is the one exception type of a
 kernel that cannot be built, loaded or launched; the supervisor lets it
 propagate instead of degrading the solve onto another backend.
+
+Launch counts: a kernel wrapper counts each launch with
+:func:`count_launch`, into its process-wide ``launches`` attribute (what a
+run resets and reads) and into the calling thread's own count
+(:func:`thread_launches`), which attributes launches to the work of one
+thread when several threads launch kernels at once (two services in one
+process, a solo solve beside a bucket dispatch).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -31,6 +39,25 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def count_launch(fn, n: int = 1, attr: str = "launches") -> None:
+    """Add ``n`` launches of the kernel wrapper ``fn`` to its process-wide
+    count ``fn.<attr>`` and to this thread's count (a negative ``n`` takes
+    back counts that launched nothing, as a CUDA-graph capture's)."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
+    counts = _THREAD.__dict__.setdefault("counts", {})
+    counts[(id(fn), attr)] = counts.get((id(fn), attr), 0) + n
+
+
+def thread_launches(fn, attr: str = "launches") -> int:
+    """Launches of ``fn`` counted by this thread since it started."""
+    return _THREAD.__dict__.get("counts", {}).get((id(fn), attr), 0)
 
 
 class KernelError(RuntimeError):

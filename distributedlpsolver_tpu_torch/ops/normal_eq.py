@@ -220,7 +220,7 @@ def _launch(A, d, out_dtype):
         )
     if rc != 0:
         raise KernelError(f"normal_eq kernel launch failed: CUDA error {rc} (B={B}, m={m}, n={n})")
-    normal_eq.launches += 1
+    kernel_build.count_launch(normal_eq)
     return M
 
 

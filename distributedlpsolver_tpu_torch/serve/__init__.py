@@ -12,8 +12,8 @@ shape/padding telemetry (swap it in live with
 The port of the JAX package's ``serve/``: the framework-free modules
 are copies, the service drives the torch bucket engine
 (``backends/batched.py::solve_bucket``). The network plane over it (HTTP
-front-end, SLO-aware admission, brownout, router) and ``elastic.py`` are
-not ported yet (ROADMAP Queue 1 item 14).
+front-end, SLO-aware admission, brownout, router) is ``net/``;
+``serve/elastic.py`` autoscales a pool of ``cli serve-http`` backends.
 """
 
 from distributedlpsolver_tpu_torch.serve.autotune import (

@@ -44,9 +44,12 @@ the service's device, as in the JAX package: on the card that is
 ``device="cpu"`` ``auto(cpu-native)``; each solo record names the
 backend that served it.
 
-Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: scenario-tier requests (item 11), SLO admission and brownout (item
-14), and mesh or multi-host dispatch (``mesh_devices`` other than 0 or 1,
+SLO-aware admission (``ServiceConfig.admission``: per-tenant token-bucket
+quotas, weighted-fair shares, priority flush shading) and the overload
+brownout ladder (``ServiceConfig.brownout``) sit on the submit path, as
+in the JAX package (``net/admission.py``). Not ported, and refused with
+``NotImplementedError`` naming the ROADMAP item: scenario-tier requests
+(item 11) and mesh or multi-host dispatch (``mesh_devices`` other than 0 or 1,
 ``reshard``, ``slice_runner=``; item 13).
 
 Telemetry: one JSONL record per request, one per dispatched batch, and a
@@ -157,7 +160,10 @@ class ServiceConfig:
     # Warm-start & amortization layer (serve/warmcache.py).
     warm_start: bool = True
     warm_cache_entries: int = 512
-    # SLO-aware admission: refused (item 14).
+    # SLO-aware admission (net/admission.AdmissionConfig): per-tenant
+    # token-bucket quotas + weighted-fair shares + priority flush
+    # shading, layered above max_queue_depth (the global backstop).
+    # None = the classic depth-only admission.
     admission: Optional[object] = None
     # Tolerance-tiered engine routing: standard-form requests at
     # tol ≥ pdhg_tol dispatch to the bucketed batched PDHG engine
@@ -171,7 +177,11 @@ class ServiceConfig:
     journal_fsync: str = "flush"
     journal_compact_every: int = 4096
     journal_results_cap: int = 4096
-    # Overload brownout ladder: refused (item 14).
+    # Overload brownout ladder (net/admission.BrownoutConfig): staged
+    # degradation under sustained saturation — stage 1 sheds batch
+    # priority with a structured verdict and Retry-After, stage 2 widens
+    # every flush window, stage 3 re-routes tol-eligible work to the PDHG
+    # engine. Auto-releases on recovery; None = no brownout.
     brownout: Optional[object] = None
 
 
@@ -216,6 +226,9 @@ class _Packed:
     warm_host: object = None
     # Event recorded on the pack stream after the copies (None on the CPU).
     ready: object = None
+    # PDHG lanes' start-vector indices (first_order.pdhg_seed of each
+    # member's name, each padding slot its own index); None on the IPM.
+    seeds: object = None
 
     def tensors(self):
         lanes = tuple(self.warm) if self.warm is not None else ()
@@ -255,10 +268,6 @@ class SolveService:
             raise _unported("mesh dispatch (mesh=, mesh_devices > 1)", 13)
         if slice_runner is not None:
             raise _unported("multi-host slice serving (slice_runner=)", 13)
-        if self.config.admission is not None:
-            raise _unported("SLO-aware admission (admission=)", 14)
-        if self.config.brownout is not None:
-            raise _unported("the overload brownout ladder (brownout=)", 14)
         from distributedlpsolver_tpu_torch.backends.base import check_backend_name
 
         check_backend_name(self.config.solo_backend)
@@ -329,6 +338,26 @@ class SolveService:
             help="safeguard fallbacks: offered warm starts rejected for the cold start",
         )
         self._m_iters_by_start: dict = {}  # start label -> histogram
+        # SLO-aware admission (net/admission.py): consulted on the submit
+        # path before the scheduler's depth backstop; priorities shade
+        # flush windows. ``admission`` is the HTTP front-end's read-only
+        # surface (its tenant labeler); None without the SLO layer.
+        self._admission: Optional[object] = None
+        self._brownout: Optional[object] = None
+        if self.config.admission is not None:
+            from distributedlpsolver_tpu_torch.net.admission import AdmissionController
+
+            self._admission = AdmissionController(
+                self.config.admission, max_depth=self.config.max_queue_depth,
+                flush_s=self.config.flush_s, metrics=m,
+            )
+        self.admission = self._admission
+        if self.config.brownout is not None:
+            from distributedlpsolver_tpu_torch.net.admission import BrownoutController
+
+            self._brownout = BrownoutController(
+                self.config.brownout, max_depth=self.config.max_queue_depth, metrics=m,
+            )
         self.scheduler = Scheduler(  # guarded-by: _lock
             BucketTable(self.config.buckets, batch=self.config.batch, devices=1),
             self.config.max_queue_depth,
@@ -358,6 +387,9 @@ class SolveService:
         self._pack_current: Optional[float] = None  # guarded-by: _span_lock
         self._span_lock = threading.Lock()
         self._dispatch_rows: List[dict] = []  # guarded-by: _lock
+        # Running sums of the dispatch rows' device-loop counts (bodies,
+        # replays, captures, K1 launches, and their warm-up twins).
+        self._dispatch_totals: dict = {}  # guarded-by: _lock
         self._overlap_ms_total = 0.0  # guarded-by: _lock
         self._pack_ms_total = 0.0  # guarded-by: _lock
         self._phase_iters: dict = {}  # engine -> total iters; guarded-by: _lock
@@ -696,6 +728,9 @@ class SolveService:
             fp=fp,
             tenant=tenant,
             priority=priority,
+            flush_scale=(
+                self._admission.flush_scale(priority) if self._admission is not None else 1.0
+            ),
             engine=engine,
             jid=_replay_job.jid if _replay_job is not None else None,
             jfp=_replay_job.fp if _replay_job is not None else jfp,
@@ -705,6 +740,29 @@ class SolveService:
                 else trace
             ),
         )
+        # Overload brownout ladder: observe saturation (logging stage
+        # transitions), then apply the current stage — shed batch
+        # priority, widen the flush window, re-route tol-eligible work to
+        # PDHG. Replays are exempt: the journal owes them a verdict.
+        if self._brownout is not None and _replay_job is None:
+            with self._lock:
+                depth_now = self.scheduler.depth()
+            for ev in self._brownout.observe(depth_now, now):
+                self._logger.event(ev)
+            if self._brownout.should_shed(priority):
+                retry = self._brownout.config.retry_after_s
+                self._log_reject(p, "brownout", retry)
+                raise ServiceOverloaded(
+                    "brownout: batch-priority work shed under overload "
+                    f"(stage {self._brownout.stage()})",
+                    reason="brownout", retry_after_s=retry, tenant=tenant,
+                )
+            p.flush_scale *= self._brownout.flush_widen()
+            if (p.engine == "ipm" and sf is not None and self.config.pdhg_routing
+                    and self._brownout.reroute_pdhg(req_tol)):
+                # Stage 3: the PDHG engine takes tol-eligible traffic; a
+                # lane short of its tol still crosses over to the solo IPM.
+                p.engine = "pdhg"
         with self._wake:
             if self._stopping:
                 raise RuntimeError("SolveService is shut down")
@@ -726,12 +784,23 @@ class SolveService:
                     self._replayed_by_fp.pop(jfp, None)
             p.request_id = self._next_id
             self._next_id += 1
+            if self._admission is not None and _replay_job is None:
+                v = self._admission.admit(tenant, priority, now, units=p.units)
+                if not v.admitted:
+                    self._log_reject(p, v.reason, v.retry_after_s)
+                    raise ServiceOverloaded(
+                        f"admission rejected tenant {tenant!r}: {v.reason} — {v.detail}",
+                        reason=v.reason, retry_after_s=v.retry_after_s, tenant=tenant,
+                    )
             try:
-                # Replays are depth-exempt: the journal owes them a verdict.
+                # Replays are depth- and admission-exempt: the journal
+                # owes them a verdict.
                 key = self.scheduler.add(p, exempt=_replay_job is not None)
             except ServiceOverloaded as e:
                 self._log_reject(p, e.reason, e.retry_after_s)
                 raise
+            if self._admission is not None:
+                self._admission.on_admitted(tenant, units=p.units)
             if self._journal is not None:
                 if _replay_job is not None:
                     self._journal.readmit(_replay_job)
@@ -757,6 +826,11 @@ class SolveService:
 
     def _log_reject(self, p: PendingRequest, reason: str, retry_after_s: float) -> None:  # holds: _lock
         """One reject record per shed request."""
+        if self._brownout is not None and reason != "brownout":
+            # Non-brownout rejections feed the saturation signal's
+            # reject-rate half; brownout's own sheds are excluded or
+            # stage 1 would sustain itself.
+            self._brownout.note_reject()
         self.tracer.instant(
             "serve.reject",
             args={"id": p.request_id, "name": p.name, "reason": reason},
@@ -886,11 +960,18 @@ class SolveService:
         for k in range(len(live), B):  # inactive slots: well-posed copies
             A[k], b[k], c[k] = A[0], b[0], c[0]
         batch = BatchedLP(c=c_t, A=A_t, b=b_t, name=f"bucket_{spec.m}x{spec.n}")
+        seeds = None
         if engine == "pdhg":
+            from distributedlpsolver_tpu_torch.backends.first_order import pdhg_seed
+
             # The first-order engine neither consumes nor produces warm
             # iterates (a tol-loose PDHG point must not seed the IPM warm
-            # cache); its lanes stay cold by design.
+            # cache); its lanes stay cold by design. Each lane's step size
+            # follows its request, not its slot.
             warm_states, warm_mask, warm_hits = None, None, None
+            seeds = np.arange(B)
+            for k, p in enumerate(live):
+                seeds[k] = pdhg_seed(p.name, B)
         else:
             warm_states, warm_mask, warm_hits = self._build_warm_lanes(spec, live)
         cfg = self.solver_config.replace(tol=tol)
@@ -915,6 +996,7 @@ class SolveService:
             warm_hits=warm_hits,
             warm_host=warm_states,
             ready=ready,
+            seeds=seeds,
         )
 
     def _await_packed(self, packed: _Packed) -> None:
@@ -1117,8 +1199,9 @@ class SolveService:
                     with self.tracer.span(
                         f"compile {spec.m}x{spec.n}x{spec.batch}/{engine}", cat="pipeline",
                     ):
+                        extra = {"seeds": packed.seeds} if engine == "pdhg" else {}
                         warmup = solve_engine_fn(batch, active, cfg, max_iter=1,
-                                                 device=self.device)
+                                                 device=self.device, **extra)
                     compile_ms = (time.perf_counter() - t0) * 1e3
                     new_programs = bucket_cache_size() - size0
                     self._m_compiles.inc(new_programs)
@@ -1128,7 +1211,8 @@ class SolveService:
 
                 def _solve():
                     if engine == "pdhg":
-                        return solve_pdhg_bucket(batch, active, cfg, device=self.device)
+                        return solve_pdhg_bucket(batch, active, cfg, device=self.device,
+                                                 seeds=packed.seeds)
                     return solve_bucket(
                         batch, active, cfg, warm=packed.warm, warm_mask=packed.warm_mask,
                         device=self.device,
@@ -1235,6 +1319,9 @@ class SolveService:
             for r in sched_rows:
                 self._phase_iters[r["engine"]] = self._phase_iters.get(r["engine"], 0) + r["iters"]
             self._engine_dispatches[engine] = self._engine_dispatches.get(engine, 0) + 1
+            for k, v in device_rows.items():
+                if k != "replay_ms":
+                    self._dispatch_totals[k] = self._dispatch_totals.get(k, 0) + v
             self._dispatch_rows.append(
                 {
                     "dispatch": seq,
@@ -1487,6 +1574,8 @@ class SolveService:
         # Tenant/priority attribution is stamped here — the one funnel
         # every result path flows through.
         result = dataclasses.replace(result, tenant=p.tenant, priority=p.priority, trace=p.trace)
+        if self._admission is not None:
+            self._admission.on_finished(p.tenant, units=p.units)
         if self._journal is not None and p.jid is not None:
             # Persist the verdict BEFORE resolving the future.
             rec = result.record()
@@ -1681,6 +1770,17 @@ class SolveService:
         with self._lock:
             return list(self._dispatch_rows)
 
+    def _brownout_stats(self) -> Optional[dict]:
+        """Brownout state for stats()/statusz, observing on the way so
+        status polls drive stage release when traffic is idle."""
+        if self._brownout is None:
+            return None
+        with self._lock:
+            depth = self.scheduler.depth()
+        for ev in self._brownout.observe(depth):
+            self._logger.event(ev)
+        return self._brownout.stats()
+
     def stats(self) -> dict:
         platform = self.device.type
         with self._lock:
@@ -1693,6 +1793,7 @@ class SolveService:
             pack_total = self._pack_ms_total
             phase_iters = dict(self._phase_iters)
             engine_dispatches = dict(self._engine_dispatches)
+            dispatch_totals = dict(self._dispatch_totals)
             buckets = [list(s.key()) for s in self.scheduler.table.specs()]
             idle = {
                 "waits": self._idle_waits,
@@ -1718,8 +1819,15 @@ class SolveService:
             "fused_iters": self.solver_config.fused_iters_resolved(platform),
             "phase_iters": phase_iters,
             "engine_dispatches": engine_dispatches,
+            # Every dispatch's device-loop counts summed (launches: K1 by
+            # the bucket programs; warmup_*: their cold-bucket warm-ups).
+            "dispatch_totals": dispatch_totals,
             "idle": idle,
             "buckets": buckets,
+            # Per-tenant admission accounting and the brownout ladder's
+            # state (None without them).
+            "admission": self._admission.stats() if self._admission is not None else None,
+            "brownout": self._brownout_stats(),
             "draining": self.draining,
             "journal": self._journal.stats() if self._journal is not None else None,
         }

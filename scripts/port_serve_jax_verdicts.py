@@ -20,11 +20,14 @@ The PDHG wave's two streams (``--streams pdhg``) go the same way through
 the JAX service's tolerance tiers: the loose stream
 (``sparse_request_stream(1024, seed=25)`` at its tol 1e-4) through the
 JAX bucketed PDHG engine (``backends/first_order.py::solve_pdhg_bucket``)
-under two slot layouts — slices of ``--slice`` and of 256 slots, since a
-lane's power-iteration seed is its slot — and a lane left short of its
-tol through the JAX solo ladder at that tol (the crossover); the tight
-stream (``random_request_stream(64, seed=26)`` at 1e-8) through the IPM
-bucket engine and its solo ladder. Their verdicts carry the engine:
+in buckets of 256 slots with each request at slot
+``pdhg_seed(name, 256)`` — the JAX engine seeds a lane's power iteration
+with its slot, the port with that index whatever the slot, so there the
+two run the same lane — and a lane left short of its tol through the JAX
+solo ladder at that tol (the crossover); the tight stream
+(``random_request_stream(80, seed=26)`` at 1e-8; the PDHG wave takes its
+first 64, the network plane's inline and MPS requests all 80) through the
+IPM bucket engine and its solo ladder. Their verdicts carry the engine:
 ``"pdhg:optimal"``, ``"ipm:optimal"`` (a crossover's), and so on.
 
     JAX_PLATFORMS=cpu python scripts/port_serve_jax_verdicts.py [--streams ipm|pdhg|all]
@@ -62,7 +65,7 @@ def pdhg_waves(gen):
     at their tol 1e-4 and tight ones at 1e-8."""
     return {
         "pdhg_loose": list(gen.sparse_request_stream(1024, shapes=((96, 384), (M, N)), seed=25)),
-        "pdhg_tight": [(p, 1e-8) for p in gen.random_request_stream(64, shapes=((M, N),),
+        "pdhg_tight": [(p, 1e-8) for p in gen.random_request_stream(80, shapes=((M, N),),
                                                                      seed=26)],
     }
 
@@ -92,6 +95,35 @@ def jax_bucket(problems, B, engine="ipm", tol=1e-8):
             out.append((r.status[k], tuple(np.asarray(v[k]) for v in (r.x, r.y, r.s, r.w, r.z)),
                         p.m, p.n))
     return out
+
+
+def jax_pdhg_at_seed_slots(problems, B, tol):
+    """The JAX PDHG bucket status of each request, each at slot
+    ``pdhg_seed(name, B)`` of a bucket of ``B`` slots: the requests are
+    packed greedily, at most one per slot in a dispatch."""
+    from distributedlpsolver_tpu.backends.first_order import solve_pdhg_bucket
+    from distributedlpsolver_tpu.ipm.config import SolverConfig
+    from distributedlpsolver_tpu.models.generators import BatchedLP
+    from distributedlpsolver_tpu.serve import pad_standard_form, standard_form
+    from distributedlpsolver_tpu_torch.backends.first_order import pdhg_seed
+
+    rows = [pad_standard_form(*standard_form(p), M, N) for p in problems]
+    todo = list(range(len(problems)))
+    out = {}
+    while todo:
+        slots, rest = {}, []
+        for k in todo:
+            slot = pdhg_seed(problems[k].name, B)
+            (rest.append(k) if slot in slots else slots.__setitem__(slot, k))
+        part = [rows[slots[j]] if j in slots else rows[todo[0]] for j in range(B)]
+        c, A, b = (np.stack(v) for v in zip(*part))
+        r = solve_pdhg_bucket(BatchedLP(c=c, A=A, b=b, name="seeded"),
+                              np.array([j in slots for j in range(B)]), SolverConfig(tol=tol))
+        for j, k in slots.items():
+            out[k] = r.status[j]
+        print(f"  seeded dispatch: {len(slots)} requests, {len(rest)} left", flush=True)
+        todo = rest
+    return [out[k] for k in range(len(problems))]
 
 
 def warm_solo(pkg, problem, prior, m, n):
@@ -131,22 +163,24 @@ def pdhg_verdicts(slice_slots: int) -> dict:
         t0 = time.perf_counter()
         problems, tol = [p for p, _ in stream], stream[0][1]
         engine = "pdhg" if tag == "pdhg_loose" else "ipm"
-        layouts = [slice_slots, 256] if engine == "pdhg" else [slice_slots]
         seen = {k: set() for k in range(len(problems))}
-        for B in layouts:
-            for k, (st, *_) in enumerate(jax_bucket(problems, B, engine, tol)):
-                if st is Status.OPTIMAL:
-                    seen[k].add(f"{engine}:optimal")
-                    continue
-                try:  # the crossover / solo ladder at the request's tol
-                    r = supervised_solve(problems[k], backend="auto", tol=tol,
-                                         supervisor=SupervisorConfig(backoff_base=0.01))
-                    v = r.status.value
-                except Exception:  # SolveFailure: the service's FAILED verdict
-                    v = "failed"
-                seen[k].add(f"{engine}:{v}")
-                print(f"{tag} {k} {problems[k].name} (slots of {B}): bucket {st.value}, "
-                      f"solo {v}")
+        B = 256 if engine == "pdhg" else slice_slots
+        if engine == "pdhg":
+            statuses = jax_pdhg_at_seed_slots(problems, B, tol)
+        else:
+            statuses = [st for st, *_ in jax_bucket(problems, B, engine, tol)]
+        for k, st in enumerate(statuses):
+            if st is Status.OPTIMAL:
+                seen[k].add(f"{engine}:optimal")
+                continue
+            try:  # the crossover / solo ladder at the request's tol
+                r = supervised_solve(problems[k], backend="auto", tol=tol,
+                                     supervisor=SupervisorConfig(backoff_base=0.01))
+                v = r.status.value
+            except Exception:  # SolveFailure: the service's FAILED verdict
+                v = "failed"
+            seen[k].add(f"{engine}:{v}")
+            print(f"{tag} {k} {problems[k].name}: bucket {st.value}, solo {v}")
         out = {k: sorted(v) for k, v in seen.items() if v != {f"{engine}:optimal"}}
         verdicts[tag] = out
         print(f"{tag}: {len(problems)} requests at tol {tol:g} on {engine}, {len(out)} not always "

@@ -27,6 +27,7 @@ from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
 from distributedlpsolver_tpu_torch.ipm.state import IPMState
 from distributedlpsolver_tpu_torch.interop import batched_lp_from_arrays
 from distributedlpsolver_tpu_torch.models import random_batched_lp
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -28,6 +28,7 @@ from distributedlpsolver_tpu_torch.models.generators import (
 )
 from distributedlpsolver_tpu_torch.serve import pad_standard_form, standard_form
 from distributedlpsolver_tpu_torch.serve.warmcache import WarmCache
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

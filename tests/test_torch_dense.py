@@ -28,6 +28,7 @@ from distributedlpsolver_tpu_torch.models.problem import LPProblem
 from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
 
 from tests.oracle import highs_on_general
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 GENERATED = [

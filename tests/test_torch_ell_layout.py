@@ -33,6 +33,7 @@ from distributedlpsolver_tpu_torch.ops.ell_spmv import (
     ell_spmv_reference,
     sell_layout,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # The walk against the plain version and the JAX operator: the same
 # products summed in another order.

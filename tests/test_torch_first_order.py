@@ -37,6 +37,7 @@ from distributedlpsolver_tpu_torch.models.problem import LPProblem, to_interior_
 from distributedlpsolver_tpu_torch.utils import threefry
 
 from tests.oracle import highs_on_general
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 
@@ -228,3 +229,125 @@ def test_bucket_budget_ends_at_the_iteration_limit():
     assert set(s.value for s in r.status) == {"iteration_limit"}
     np.testing.assert_array_equal(r.iterations, rj.iterations)
     assert r.iterations.max() == 400
+
+
+# -- a lane's step size follows its request, not its slot ---------------------
+
+
+def _padded_requests(B, m, n, count, seed):
+    """``count`` sparse-stream requests padded into one (m, n) bucket, as
+    the serve layer pads them (``serve.pad_standard_form``)."""
+    from distributedlpsolver_tpu_torch.serve import pad_standard_form, standard_form
+
+    stream = list(tgen.sparse_request_stream(count, shapes=((m - 4, n - 8),), seed=seed))
+    return [(p.name, tol, pad_standard_form(*standard_form(p), m, n)) for p, tol in stream]
+
+
+def _bucket(lanes, B):
+    """A BatchedLP of the padded ``lanes`` (name, tol, (c, A, b)), the
+    remaining slots copies of lane 0 (inactive)."""
+    rows = [c_A_b for _, _, c_A_b in lanes] + [lanes[0][2]] * (B - len(lanes))
+    return tgen.BatchedLP(c=np.stack([r[0] for r in rows]), A=np.stack([r[1] for r in rows]),
+                          b=np.stack([r[2] for r in rows]))
+
+
+def test_pdhg_seed_is_the_solo_backends_crc32_modulo_the_bucket():
+    import zlib
+
+    for name in ("sparse_req_96x384_r402", "random_dense_8x24_s3", "x"):
+        for B in (1, 8, 256):
+            assert tfo.pdhg_seed(name, B) == (zlib.crc32(name.encode()) & 0x7FFFFFFF) % B
+    # The sweep's case: r402 takes row 70 of a 256-slot bucket's table.
+    assert tfo.pdhg_seed("sparse_req_96x384_r402", 256) == 70
+
+
+@pytest.mark.parametrize("B, m, n, seed", [(8, 16, 40, 31), (4, 12, 32, 32)])
+def test_a_lanes_step_size_is_the_jax_norm_estimate_at_its_seed(B, m, n, seed):
+    """η of each lane equals 0.9 / the JAX package's ``_estimate_norm(seed=
+    pdhg_seed(name, B))`` on the lane's padded A, within 1e-12 relative."""
+    lanes = _padded_requests(B, m, n, B - 1, seed)
+    seeds = np.arange(B)
+    seeds[: len(lanes)] = [tfo.pdhg_seed(name, B) for name, _, _ in lanes]
+    active = np.arange(B) < len(lanes)
+    tfo.solve_pdhg_bucket(_bucket(lanes, B), active, SolverConfig(tol=1e-4), max_iter=1,
+                          device="cpu", seeds=seeds)
+    eta = tfo._PROGRAMS[(B, m, n, torch.float64, CPU)].eta.numpy()
+    for k, (name, _, (_, A, _)) in enumerate(lanes):
+        Aj = jnp.asarray(A)
+        nrm = float(jfo._estimate_norm(lambda v: Aj @ v, lambda v: Aj.T @ v, n, jnp.float64,
+                                       seed=int(seeds[k])))
+        ref = 0.9 / max(nrm, 1e-12)
+        assert abs(eta[k] - ref) <= 1e-12 * ref, (k, name)
+
+
+def test_a_request_in_two_slots_gives_the_same_x_bit_for_bit():
+    """The same request at slot 0 of one dispatch and slot 5 of another
+    (other requests around it) gets the same seed, so the same x bit for
+    bit: its verdict no longer depends on where arrival timing put it."""
+    B, m, n = 8, 16, 40
+    lanes = _padded_requests(B, m, n, 6, 33)
+    order_a = lanes
+    order_b = lanes[1:6] + [lanes[0]]
+    out = []
+    for order in (order_a, order_b):
+        seeds = np.arange(B)
+        seeds[: len(order)] = [tfo.pdhg_seed(name, B) for name, _, _ in order]
+        r = tfo.solve_pdhg_bucket(_bucket(order, B), np.arange(B) < len(order),
+                                  SolverConfig(tol=1e-4), device="cpu", seeds=seeds)
+        out.append({name: (r.status[k].value, r.x[k].copy(), int(r.iterations[k]))
+                    for k, (name, _, _) in enumerate(order)})
+    for name in out[0]:
+        assert out[0][name][0] == out[1][name][0]
+        assert out[0][name][2] == out[1][name][2]
+        np.testing.assert_array_equal(out[0][name][1], out[1][name][1])
+
+
+def test_the_jax_bucket_with_the_request_at_its_seed_slot_gives_its_verdict():
+    """The unedited JAX engine seeds lane k with k: a request placed at
+    slot ``pdhg_seed(name, B)`` there runs the port lane's power
+    iteration, so the verdicts agree and objectives within 1e-9."""
+    B, m, n = 8, 16, 40
+    lanes = _padded_requests(B, m, n, 6, 34)
+    seeds = np.arange(B)
+    seeds[: len(lanes)] = [tfo.pdhg_seed(name, B) for name, _, _ in lanes]
+    r = tfo.solve_pdhg_bucket(_bucket(lanes, B), np.arange(B) < len(lanes),
+                              SolverConfig(tol=1e-4), device="cpu", seeds=seeds)
+    for k, (name, tol, (c, A, b)) in enumerate(lanes):
+        slot = int(seeds[k])
+        # The request at its seed slot, every slot filled with it.
+        bj = jgen.BatchedLP(c=np.stack([c] * B), A=np.stack([A] * B), b=np.stack([b] * B))
+        active = np.zeros(B, dtype=bool)
+        active[slot] = True
+        rj = jfo.solve_pdhg_bucket(bj, active, JaxConfig(tol=1e-4))
+        assert r.status[k].value == rj.status[slot].value, name
+        assert int(r.iterations[k]) == int(rj.iterations[slot]), name
+        ref = float(rj.objective[slot])
+        assert abs(float(r.objective[k]) - ref) <= 1e-9 * (1 + abs(ref)), name
+
+
+def test_seeds_must_index_the_table():
+    bt = tgen.random_batched_lp(4, 6, 12, seed=1)
+    with pytest.raises(ValueError, match="seeds"):
+        tfo.solve_pdhg_bucket(bt, np.ones(4, bool), SolverConfig(tol=1e-4), device="cpu",
+                              seeds=[0, 1, 2, 4])
+
+
+def test_service_pdhg_verdicts_do_not_depend_on_arrival_order():
+    """Two services get the same loose requests in opposite orders: each
+    request gets the same x bit for bit and the same verdict."""
+    from distributedlpsolver_tpu_torch.serve import ServiceConfig, SolveService
+
+    stream = list(tgen.sparse_request_stream(12, shapes=((12, 32),), seed=35))
+    runs = []
+    for order in (stream, stream[::-1]):
+        with SolveService(ServiceConfig(batch=8, flush_s=0.01), device="cpu",
+                          auto_start=False) as svc:
+            futs = {p.name: svc.submit(p, tol=tol) for p, tol in order}
+            svc.start()
+            svc.drain(timeout=120)
+            runs.append({k: f.result() for k, f in futs.items()})
+    for name, r0 in runs[0].items():
+        r1 = runs[1][name]
+        assert r0.engine == r1.engine == "pdhg"
+        assert (r0.status, r0.iterations) == (r1.status, r1.iterations)
+        np.testing.assert_array_equal(r0.x, r1.x)

@@ -39,6 +39,7 @@ from distributedlpsolver_tpu_torch.ipm.state import IPMState
 from distributedlpsolver_tpu_torch.models import generators as tgen
 from distributedlpsolver_tpu_torch.models.problem import LPProblem, to_interior_form
 from distributedlpsolver_tpu_torch.models.scaling import equilibrate
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 GENERATED = {

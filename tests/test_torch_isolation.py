@@ -61,6 +61,9 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
         "import distributedlpsolver_tpu_torch.backends.sparse_iterative, distributedlpsolver_tpu_torch.ops.ildl\n"
         "import distributedlpsolver_tpu_torch.ops.sparse, distributedlpsolver_tpu_torch.ops.pcg\n"
         "import distributedlpsolver_tpu_torch.ops.ell_spmv, distributedlpsolver_tpu_torch.ops.kernel_build\n"
+        "import distributedlpsolver_tpu_torch.net, distributedlpsolver_tpu_torch.net.chaos\n"
+        "import distributedlpsolver_tpu_torch.serve.elastic, distributedlpsolver_tpu_torch.obs\n"
+        "import distributedlpsolver_tpu_torch.utils.utilization\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -70,8 +73,8 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
 
 
 def test_the_serving_modules_are_scanned():
-    """The AST scan above covers the serving stack and the sparse tier this
-    package added."""
+    """The AST scan above covers the serving stack, the sparse tier and the
+    network plane this package added."""
     rel = {os.path.relpath(f, PORT) for f in _port_sources()}
     for mod in ("serve/service.py", "serve/buckets.py", "serve/scheduler.py", "serve/records.py",
                 "serve/warmcache.py", "serve/journal.py", "serve/autotune.py", "obs/stats.py",
@@ -81,7 +84,9 @@ def test_the_serving_modules_are_scanned():
                 "backends/cpu_sparse.py", "backends/first_order.py", "models/structure.py",
                 "utils/threefry.py", "utils/accel.py", "backends/sparse_iterative.py",
                 "ops/sparse.py", "ops/pcg.py", "ops/ildl.py", "ops/ell_spmv.py",
-                "ops/kernel_build.py"):
+                "ops/kernel_build.py", "net/__init__.py", "net/protocol.py", "net/admission.py",
+                "net/registry.py", "net/server.py", "net/router.py", "net/chaos.py",
+                "serve/elastic.py", "obs/report.py", "obs/agg.py", "utils/utilization.py"):
         assert mod in rel
 
 

@@ -25,6 +25,7 @@ from distributedlpsolver_tpu.ops import sparse as jsparse
 from distributedlpsolver_tpu_torch.ops import ildl as tildl
 from distributedlpsolver_tpu_torch.ops import pcg as tpcg
 from distributedlpsolver_tpu_torch.ops import sparse as tsparse
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Factors, applies and CG solutions against the JAX package's: the same
 # arithmetic, rounded in another order by the library Cholesky and solves.

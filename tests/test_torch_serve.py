@@ -50,6 +50,7 @@ from distributedlpsolver_tpu_torch.serve.journal import (
     request_spec,
 )
 from distributedlpsolver_tpu_torch.serve.scheduler import PendingRequest, Scheduler
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
@@ -373,12 +374,32 @@ def test_cli_serve_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("kw, item", [
     ({"mesh_devices": 2}, "item 13"),
-    ({"admission": object()}, "item 14"),
-    ({"brownout": object()}, "item 14"),
 ])
 def test_unported_service_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _svc(**kw)
+
+
+@pytest.mark.parametrize("key, cls", [
+    ("admission", "AdmissionConfig"),
+    ("brownout", "BrownoutConfig"),
+])
+def test_service_admission_and_brownout_serve(key, cls):
+    """SLO admission and the brownout ladder: the service builds their
+    controllers and serves."""
+    from distributedlpsolver_tpu_torch.net import admission
+
+    svc = _svc(**{key: getattr(admission, cls)()})
+    try:
+        assert svc.submit(random_dense_lp(8, 24, seed=0)).result(timeout=WAIT).status \
+            == Status.OPTIMAL
+        stats = svc.stats()
+        if key == "admission":
+            assert svc.admission is not None and stats["admission"]["default"]["admitted"] == 1
+        else:
+            assert stats["brownout"]["stage"] == 0
+    finally:
+        svc.shutdown()
 
 
 def test_unported_requests_and_calls_raise():

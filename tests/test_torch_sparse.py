@@ -30,6 +30,7 @@ from distributedlpsolver_tpu_torch.ops.ell_spmv import (
     EllTail,
     ell_spmv_reference,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # The operator's maps against the JAX package's: the same products, summed
 # in another order.

@@ -28,6 +28,7 @@ from distributedlpsolver_tpu_torch.backends import get_backend
 from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
 from distributedlpsolver_tpu_torch.ipm import solve
 from distributedlpsolver_tpu_torch.models import generators as tgen
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 # The objective against the JAX package's: both stop at a 1e-8 gap.

@@ -38,6 +38,7 @@ from distributedlpsolver_tpu_torch.supervisor import (
     supervised_solve,
 )
 from distributedlpsolver_tpu_torch.supervisor import supervisor as sup_mod
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # The module (the package's ``ops.normal_eq`` attribute is the function).
 ne = importlib.import_module("distributedlpsolver_tpu_torch.ops.normal_eq")
