@@ -189,7 +189,31 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    ``/statusz`` K1 launches > 0, a drain by ``/quitquitquit``, ``cli
    report`` over the backends' logs; then ``cli elastic --min-backends 1 --max-backends 2`` scales out
    under a burst and back in after it;
-18. prints the ``kernels`` JSON line, the card line, and last the result
+18. the block-angular tier (``block_phase``; ``--block-only`` runs the
+   build and this phase alone), the pds family's classes at full width,
+   ``block_angular_lp(K, 432, 1400, link, seed=0, sparse=True,
+   density=0.005)``: pds-10 (K 32, link 800; 14,624 × 44,800) through
+   ``solve(p, backend="auto")`` twice — ``auto(block)``, OPTIMAL,
+   ``max_violation ≤ 1e-6``, the JAX package's status, iterations and
+   objective (≤ 1e-8; ``BLOCK_JAX``, from
+   ``scripts/port_block_jax_verdicts.py``), within 1e-8 of its recorded
+   ``cpu-sparse`` objective, x bit for bit, K1's launches (reset before,
+   read after) 1 + bodies for the K lanes and as many for the linking
+   matrix — with its setup by part (generation, interior form, the host
+   tensors, the transfer to the card), ms an iteration and peak device
+   memory, then a third solve under ``torch.profiler``; the same class
+   written by ``cli generate block`` and solved by ``cli solve`` with no
+   backend (no hint in the file: presolve and ``auto``'s detection pass;
+   ``auto(block)``, the JAX package's CLI's status, iterations and
+   objective on the same file, within 1e-8 of the recorded objective); the
+   pds-20 class (K 64, link 1600; 29,248 × 89,600) through
+   ``backend="block"`` twice, the same checks against the JAX package and
+   ``SCALE_RUNS.json``'s objective; K1 at the tier's four shapes (the
+   lanes K × mb × nb and the linking (link, K·nb + n0) of each class)
+   against its plain version (lower triangles ≤ 1e-12, M = Mᵀ and two
+   launches bit for bit, each lane the unbatched kernel's bits) and timed
+   beside ``torch.einsum`` and its bound;
+19. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -2429,7 +2453,224 @@ def _sparse_phase(torch, card, highs):
 
 
 
-def main(sparse_only: bool = False, plane_only: bool = False) -> int:
+# The block-angular tier (step 18): the pds family's classes at full width,
+# block_angular_lp(K, 432, 1400, link, seed=0, sparse=True, density=0.005).
+PDS_KW = dict(seed=0, sparse=True, density=0.005)
+PDS10 = (32, 432, 1400, 800)  # 14,624 × 44,800; K=32, mb=432, nb=1263, link=800, n0=5831
+PDS20 = (64, 432, 1400, 1600)  # 29,248 × 89,600; K=64, mb=432, nb=1265, link=1600, n0=11853
+# The JAX package's block backend on the CPU, single-phase f64 (its path
+# off the TPU): ``JAX_PLATFORMS=cpu python scripts/port_block_jax_verdicts.py``.
+BLOCK_JAX = {
+    "pds10": {"status": "optimal", "iterations": 34, "objective": 22707.91725093084},
+    "pds20": {"status": "optimal", "iterations": 31, "objective": 46665.29021638479},
+    # The pds-10 file through its CLI's solve, auto routed as on an
+    # accelerator (presolve, then the detection pass: block).
+    "pds10_file": {"status": "optimal", "iterations": 35, "objective": 22707.91724371506},
+}
+# The JAX package's recorded objectives: pds-10 through cpu-sparse
+# (.pds10_cpu.json), pds-20 on the TPU (SCALE_RUNS.json "pds20_tpu").
+PDS10_CPU_SPARSE = 22707.91725211212
+PDS20_TPU = 46665.29021635177
+BLOCK_OBJ_TOL = 1e-8
+
+
+def block_counts_reset(ne):
+    ne.normal_eq.launches = ne.normal_eq.launches_batched = 0
+
+
+def block_counts(ne) -> dict:
+    """K1 launches since the reset: the K lanes (batched launches) and
+    the linking matrix (the rest)."""
+    lanes = ne.normal_eq.launches_batched
+    return {"lanes": lanes, "link": ne.normal_eq.launches - lanes}
+
+
+def block_solve(torch, ne, name, p, jax_ref, recorded, backend, **kw):
+    """One solve through ``backend`` with K1's launches reset just before
+    and read just after; held to OPTIMAL, ``max_violation ≤ 1e-6``, the
+    JAX package's status, iterations and objective (≤ 1e-8 relative) and
+    the recorded objective (≤ 1e-8). Returns the result, its row and the
+    backend."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+
+    be = get_backend(backend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_counts_reset(ne)
+    t0 = time.perf_counter()
+    r = solve(p, backend=be, tol=1e-8, **kw)
+    wall = time.perf_counter() - t0
+    counts = block_counts(ne)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    inner = getattr(be, "inner", be)
+    phases = be.phase_report
+    bodies = sum(row["bodies"] for row in phases)
+    viol = p.max_violation(np.asarray(r.x))
+    rel_rec = abs(r.objective - recorded) / abs(recorded)
+    row = {
+        "problem": p.name, "backend": be.name, "status": r.status.value,
+        "iterations": r.iterations, "objective": r.objective, "max_violation": viol,
+        "rel_gap": r.rel_gap, "pinf": r.pinf, "dinf": r.dinf, "objective_rel_recorded": rel_rec,
+        "layout": dict(inner.layout._asdict()), "wall_s": wall, "setup_s": r.setup_time,
+        "solve_s": r.solve_time, "ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1),
+        **{f"setup_{k}": v for k, v in inner.setup_report.items()},
+        "bodies": bodies, "masked": sum(row["masked"] for row in phases),
+        "capture_ms": [row["capture_ms"] for row in phases],
+        "replay_ms": [row["replay_ms"] for row in phases],
+        "k1_launches": counts, "peak_device_gb": peak,
+    }
+    if r.status.value != "optimal" or not viol <= 1e-6:
+        fail(f"{name}: {r.status.value}, max_violation {viol:.3e}")
+    if jax_ref is not None:
+        rel = abs(r.objective - jax_ref["objective"]) / (1.0 + abs(jax_ref["objective"]))
+        row["objective_rel_jax"] = rel
+        if (r.status.value != jax_ref["status"] or r.iterations != jax_ref["iterations"]
+                or not rel <= BLOCK_OBJ_TOL):
+            fail(f"{name}: {r.status.value} {r.iterations} it objective {r.objective!r} against the "
+                 f"JAX package's {jax_ref['status']} {jax_ref['iterations']} it "
+                 f"{jax_ref['objective']!r} ({rel:.3e})")
+    if not rel_rec <= BLOCK_OBJ_TOL:
+        fail(f"{name}: objective {r.objective!r} is {rel_rec:.3e} from the recorded {recorded!r}")
+    # Each factorization launches K1 twice: the start, then every body.
+    if not (counts["lanes"] == counts["link"] == 1 + bodies):
+        fail(f"{name}: K1 launches {counts} for 1 + {bodies} factorizations")
+    return r, row, be
+
+
+def block_phase(torch, ne, card):
+    """The block-angular tier on the card (module note, step 18). Returns
+    the kernels-line rows of K1 at the tier's four shapes."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch import cli
+    from distributedlpsolver_tpu_torch.backends import block_angular as ba
+    from distributedlpsolver_tpu_torch.models import block_angular_lp
+    from distributedlpsolver_tpu_torch.models.problem import to_interior_form
+
+    _T0[0] = time.perf_counter()
+    # 1. pds-10 through auto, its setup by part.
+    t0 = time.perf_counter()
+    p10 = block_angular_lp(*PDS10, **PDS_KW)
+    parts = {"generate_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    inf10 = to_interior_form(p10)
+    parts["interior_form_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays, lay10 = ba.build_arrays(inf10)
+    parts["build_arrays_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ba.place_tensors(arrays, lay10, torch.float64, "cuda")
+    torch.cuda.synchronize()
+    parts["transfer_s"] = time.perf_counter() - t0
+    del arrays
+    torch.cuda.empty_cache()
+    print(f"block_setup {since()} {p10.name} {p10.m}x{p10.n} nnz {p10.A.nnz}, layout "
+          f"{dict(lay10._asdict())}: " + json.dumps(parts))
+    runs = []
+    for tag in ("cold", "warm"):
+        r, row, be = block_solve(torch, ne, f"pds-10 auto ({tag})", p10, BLOCK_JAX["pds10"],
+                                 PDS10_CPU_SPARSE, "auto")
+        if be.name != "auto(block)":
+            fail(f"pds-10 routes to {be.name}")
+        print(f"block_pds10_{tag} {since()} " + json.dumps(row))
+        runs.append((r, row))
+    if not np.array_equal(runs[0][0].x, runs[1][0].x):
+        fail("pds-10: x differs between two solves")
+    print("block_pds10 x bit for bit across two solves")
+    # Where a warm solve's device time goes.
+    r, prof = device_profile(torch, lambda: block_solve(
+        torch, ne, "pds-10 auto (profiled)", p10, BLOCK_JAX["pds10"], PDS10_CPU_SPARSE, "auto")[0],
+        "block_pds10")
+    print("block_pds10_profile " + json.dumps({
+        "iterations": r.iterations, "solve_s_profiled": r.solve_time,
+        "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * (r.setup_time + r.solve_time)),
+        **prof}))
+    p10_counts = runs[0][1]["k1_launches"]
+    del runs, r, inf10
+    torch.cuda.empty_cache()
+
+    # 2. The same class as an MPS file through cli generate and cli solve
+    # (no hint in the file: presolve, then auto's detection pass).
+    path = os.path.join(ROOT, "build", "dlps_torch", "pds10.mps")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    K, mb, nb, link = PDS10
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["generate", "block", path, "--blocks", str(K), "--m", str(mb), "--n", str(nb),
+                       "--link", str(link), "--seed", "0", "--density", str(PDS_KW["density"])])
+    if rc != 0:
+        fail(f"cli generate block: rc {rc}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["solve", path, "--json", "--quiet"])
+    wall = time.perf_counter() - t0
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rel = abs(out["objective"] - PDS10_CPU_SPARSE) / abs(PDS10_CPU_SPARSE)
+    ref = BLOCK_JAX["pds10_file"]
+    rel_jax = abs(out["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
+    if (rc != 0 or out["status"] != ref["status"] or out["backend"] != "auto(block)"
+            or out["iterations"] != ref["iterations"] or not rel <= BLOCK_OBJ_TOL
+            or not rel_jax <= BLOCK_OBJ_TOL):
+        fail(f"cli solve pds10.mps: rc {rc}, {out}, {rel:.3e} from {PDS10_CPU_SPARSE!r}; the JAX "
+             f"package's CLI: {ref}")
+    print(f"block_cli {since()} " + json.dumps({
+        "file": os.path.basename(path), "backend": out["backend"], "status": out["status"],
+        "iterations": out["iterations"], "objective": out["objective"], "objective_rel_recorded": rel,
+        "objective_rel_jax": rel_jax, "wall_s": wall}))
+
+    # 3. pds-20 class by name, twice.
+    t0 = time.perf_counter()
+    p20 = block_angular_lp(*PDS20, **PDS_KW)
+    gen20 = time.perf_counter() - t0
+    runs = []
+    for tag in ("cold", "warm"):
+        r, row, be = block_solve(torch, ne, f"pds-20 block ({tag})", p20, BLOCK_JAX["pds20"],
+                                 PDS20_TPU, "block")
+        row["generate_s"] = gen20
+        print(f"block_pds20_{tag} {since()} " + json.dumps(row))
+        runs.append((r, row))
+    if not np.array_equal(runs[0][0].x, runs[1][0].x):
+        fail("pds-20: x differs between two solves")
+    print("block_pds20 x bit for bit across two solves")
+    p20_counts = runs[0][1]["k1_launches"]
+    lay20 = be.layout
+    del runs, r, be
+    torch.cuda.empty_cache()
+
+    # 4. K1 at the tier's four shapes: parity and timing.
+    rows = []
+    for tag, lay, counts in (("pds-10", lay10, p10_counts), ("pds-20", lay20, p20_counts)):
+        for part, (m, n, batch) in (("lanes", (lay.mb, lay.nb, lay.K)),
+                                    ("link", (lay.link, lay.K * lay.nb + lay.n0, None))):
+            rel_err, mx = kernel_parity(torch, ne, m, n, "float64", batch=batch)
+            t = kernel_timing(torch, ne, m, n, "float64", iters=20, warm=3, batch=batch)
+            print(f"block_k1 {tag} {part} {shape_name(m, n, batch)}: rel_err {rel_err:.3e} max_abs_err "
+                  f"{mx:.3e} (tol {TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise equal; "
+                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} "
+                  f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_share']:.3f} "
+                  f"[{card}]")
+            rows.append({
+                "name": f"normal_eq (block {part}, {tag})", "route": "cuda",
+                "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+                "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+                "launches": counts[part],
+                "launches_path": f"{tag} {'auto' if tag == 'pds-10' else 'block'} cold solve",
+                "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+                "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
+            })
+    print(f"block phase {since()}")
+    return rows
+
+
+
+def main(only: str = "") -> int:
+    """The whole run, or with ``only`` ("sparse", "plane" or "block") the
+    build and that phase alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2460,12 +2701,12 @@ def main(sparse_only: bool = False, plane_only: bool = False) -> int:
         for ln in mod.build_info.get("ptxas", []):
             print(f"  {ln}")
 
-    rows = [] if sparse_only or plane_only else dense_phases(torch, ne, card)
+    rows = [] if only else dense_phases(torch, ne, card)
     # 17. The network plane: its launches go to the serve bucket's K1 row,
     # which a --plane-only run times on its own.
-    if not sparse_only:
+    if only in ("", "plane"):
         launches = plane_phase(torch, ne, card)
-        if plane_only:
+        if only == "plane":
             rows.append(serve_bucket_row(
                 kernel_parity(torch, ne, BM, BN, "float64", batch=SERVE_BATCH),
                 kernel_timing(torch, ne, BM, BN, "float64", iters=20, warm=3, batch=SERVE_BATCH), 0))
@@ -2473,8 +2714,11 @@ def main(sparse_only: bool = False, plane_only: bool = False) -> int:
         row["launches"] += launches
         row["plane_launches"] = launches
     # 16. The matrix-free sparse tier.
-    if not plane_only:
+    if only in ("", "sparse"):
         rows += sparse_phase(torch, card)
+    # 18. The block-angular tier.
+    if only in ("", "block"):
+        rows += block_phase(torch, ne, card)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2641,5 +2885,7 @@ if __name__ == "__main__":
         sys.exit(one_solve(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--highs-storm20k"]:
         sys.exit(highs_storm20k())
-    sys.exit(main(sparse_only=sys.argv[1:2] == ["--sparse-only"],
-                  plane_only=sys.argv[1:2] == ["--plane-only"]))
+    only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block"}
+    if sys.argv[1:] and sys.argv[1] not in only:
+        raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
+    sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

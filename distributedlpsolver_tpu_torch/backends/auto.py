@@ -25,10 +25,12 @@ route because the card is missing. The backend's name is
 A problem with a ``bordered`` hint, or a sparse one of at least 20,000
 rows below density 0.1, goes to the matrix-free ``sparse-iterative``
 backend, on the card or (with ``device="cpu"``) on the CPU, as in the
-reference. Routes to backends this package does not have yet raise
-``NotImplementedError`` naming their ROADMAP item when
-:class:`AutoBackend` takes them (``backends/base.py::UNPORTED_BACKENDS``):
-``scenario`` and ``block`` (item 11).
+reference. A problem with a block hint of two or more blocks, or a
+sparse one whose blocks the detection pass finds, goes on the card to
+the Schur backend ``block`` (``backends/block_angular.py``). The one route
+to a backend this package does not have yet, ``scenario`` (item 11),
+raises ``NotImplementedError`` naming its ROADMAP item when
+:class:`AutoBackend` takes it (``backends/base.py::UNPORTED_BACKENDS``).
 
 The supervisor's degradation order lives here, as in the reference.
 """

@@ -94,7 +94,7 @@ _REGISTRY: Dict[str, Type[SolverBackend]] = {}
 # with the ROADMAP Queue 1 item that ports each: ``get_backend`` refuses
 # them by name.
 UNPORTED_BACKENDS = {
-    "block": 11, "schur": 11, "block-angular": 11, "scenario": 11,
+    "scenario": 11,
     "sharded": 13, "tpu-sharded": 13, "mesh": 13,
 }
 

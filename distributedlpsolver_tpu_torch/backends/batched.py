@@ -266,8 +266,7 @@ def _batched_loop(A, Af, data, params, factor_dtype, stall_window, stall_status,
         "max_refactor": torch.zeros((), **i32),
         "reg_grow": torch.zeros((), dtype=A.dtype, device=A.device),
     }
-    return device_loop.DeviceLoop(body, cond, _batched_meta, inputs, counters=(normal_eq,),
-                                  **loop_kw)
+    return device_loop.DeviceLoop(body, cond, _batched_meta, inputs, **loop_kw)
 
 
 def _run_loop(loop, carry, it_stop, cfg):

@@ -175,7 +175,7 @@ def _dense_solve_full(
         _step_fn(A, data, params, factor_dtype, refine_steps, Af),
         state0, reg0, params, max_iter, max_refactor, reg_grow, buf_cap,
         stall_window=stall_window, stall_patience_floor=1e3 * params.tol,
-        counters=(normal_eq,), report=report,
+        report=report,
     )
 
 
@@ -186,7 +186,7 @@ def _dense_loop(A, data, params, factor_dtype, refine_steps, buf_cap, Af=None,
     return core.fused_loop(
         _step_fn(A, data, params, factor_dtype, refine_steps, Af), params,
         buf_cap, A.device, A.dtype, stall_window=stall_window,
-        stall_patience_floor=patience, counters=(normal_eq,),
+        stall_patience_floor=patience,
     )
 
 

@@ -684,6 +684,9 @@ def cmd_generate(args) -> int:
         p = gen.random_dense_lp(args.m, args.n, seed=args.seed)
     elif args.kind == "general":
         p = gen.random_general_lp(args.m, args.n, seed=args.seed)
+    elif args.kind == "block":
+        kw = {} if args.density is None else {"density": args.density}
+        p = gen.block_angular_lp(args.blocks, args.m, args.n, args.link, seed=args.seed, **kw)
     else:
         raise NotImplementedError(
             f"generate {args.kind}: the {args.kind} generator is not ported to the torch "
@@ -980,6 +983,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap_g.add_argument("--link", type=int, default=20)
     ap_g.add_argument("--scenarios", type=int, default=8)
     ap_g.add_argument("--seed", type=int, default=0)
+    ap_g.add_argument(
+        "--density", type=float, default=None,
+        help="kind=block: the blocks' and linking rows' density (default: the generator's 0.3; "
+        "the pds classes use 0.005)",
+    )
     ap_g.set_defaults(fn=cmd_generate)
 
     # The unported commands take any flags of the reference's and raise.

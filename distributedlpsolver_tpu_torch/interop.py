@@ -22,9 +22,10 @@ from distributedlpsolver_tpu_torch.models.generators import BatchedLP
 from distributedlpsolver_tpu_torch.models.problem import _SHIFT, InteriorForm
 
 
-def interior_form_from_arrays(A, b, c, u, name: str = "LP") -> InteriorForm:
+def interior_form_from_arrays(A, b, c, u, name: str = "LP", block_structure=None) -> InteriorForm:
     """An :class:`InteriorForm` ``min cᵀx, Ax=b, 0≤x≤u`` from arrays, with
-    identity recovery (the interior variables are the original ones)."""
+    identity recovery (the interior variables are the original ones) and
+    the block-structure hint, if any, carried across."""
     c = np.asarray(c, dtype=np.float64)
     n = c.shape[0]
     return InteriorForm(
@@ -39,7 +40,31 @@ def interior_form_from_arrays(A, b, c, u, name: str = "LP") -> InteriorForm:
         col_shift=np.zeros(n),
         col_sign=np.ones(n),
         name=name,
+        block_structure=block_structure,
     )
+
+
+def block_tensors_from_arrays(B_all, L_all, A0, col_idx, border_idx, row_idx, link_idx,
+                              layout, *, device, dtype=torch.float64):
+    """The block tier's device tensors (``backends/block_angular.py::
+    BlockTensors``, with its layout) from the host arrays of the JAX
+    package's ``BlockTensors`` (its (K, link, nb) ``L_all`` and ``A0``
+    laid out as the port's (link, K·nb + n0) ``L_cat``) and its
+    ``BlockLayout`` fields."""
+    from distributedlpsolver_tpu_torch.backends.block_angular import (
+        BlockArrays,
+        BlockLayout,
+        place_tensors,
+    )
+
+    lay = BlockLayout(*(int(v) for v in layout))
+    L_all = np.asarray(L_all, dtype=np.float64)
+    L_cat = np.concatenate(
+        [L_all.transpose(1, 0, 2).reshape(lay.link, lay.K * lay.nb),
+         np.asarray(A0, dtype=np.float64).reshape(lay.link, lay.n0)], axis=1)
+    arrays = BlockArrays(np.asarray(B_all, dtype=np.float64), L_cat, np.asarray(col_idx),
+                         np.asarray(border_idx), np.asarray(row_idx), np.asarray(link_idx))
+    return place_tensors(arrays, lay, dtype, device), lay
 
 
 def batched_lp_from_arrays(A, b, c, name: str = "batched") -> BatchedLP:

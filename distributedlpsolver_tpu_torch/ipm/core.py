@@ -493,13 +493,12 @@ def fused_body(carry, step_fn, params, max_iter, max_refactor, reg_grow,
 
 
 def fused_loop(step_fn, params, buf_cap, device, dtype, *, stall_window=0,
-               stall_patience_floor=0.0, counters=()):
+               stall_patience_floor=0.0):
     """The fused loop's masked body in a :class:`device_loop.DeviceLoop`.
 
     Its inputs ``max_iter``, ``it_stop``, ``max_refactor`` and
     ``reg_grow`` are device scalars that each ``run`` sets in place, so a
-    new segment bound needs no new capture. ``counters`` are the launch
-    counters of the kernels the step launches (see ``DeviceLoop``)."""
+    new segment bound needs no new capture."""
     def i32():
         return torch.zeros((), dtype=torch.int32, device=device)
 
@@ -519,7 +518,7 @@ def fused_loop(step_fn, params, buf_cap, device, dtype, *, stall_window=0,
             stall_window=stall_window, stall_patience_floor=stall_patience_floor,
         )
 
-    return device_loop.DeviceLoop(body, cond, pack_segment_meta, inputs, counters)
+    return device_loop.DeviceLoop(body, cond, pack_segment_meta, inputs)
 
 
 def fused_solve(
@@ -539,7 +538,6 @@ def fused_solve(
     it_stop=None,
     resume=None,
     return_carry=False,
-    counters=(),
     report=None,
 ):
     """The whole IPM solve as one device loop: :func:`fused_body` run by
@@ -557,8 +555,7 @@ def fused_solve(
     carry. ``max_iter``, ``max_refactor`` and ``reg_grow`` become device
     scalars of the loop; ``buf_cap`` defaults to :func:`buffer_cap`.
 
-    ``counters`` go to the ``DeviceLoop``; ``report`` (a dict), when
-    given, receives the loop's body counts and the bad-step count.
+    ``report`` (a dict), when given, receives the loop's body counts and the bad-step count.
     """
     if buf_cap is None:
         buf_cap = buffer_cap(int(max_iter))
@@ -588,7 +585,7 @@ def fused_solve(
     x = carry0[0].x
     loop = fused_loop(
         step_fn, params, buf_cap, x.device, x.dtype, stall_window=stall_window,
-        stall_patience_floor=stall_patience_floor, counters=counters,
+        stall_patience_floor=stall_patience_floor,
     )
     try:
         carry, _ = loop.run(

@@ -24,12 +24,13 @@ body run after the exit leaves the carry bit for bit unchanged
 a fill, not a new capture. A failure to capture or replay raises: there
 is no fallback to an eager loop on the card.
 
-Launch counters: a kernel wrapper counts its launches in a ``launches``
-attribute (``ops/kernel_build.count_launch``: process-wide, and per
+Launch counters: a kernel wrapper counts its launches in attributes such
+as ``launches`` (``ops/kernel_build.count_launch``: process-wide, and per
 thread). During capture the body's wrappers count launches that do not
-run; the loop takes those back (the capturing thread's own, so another
-thread's launches meanwhile stay counted) and adds them once per replay,
-so each counter stays the number of launches that ran on the card.
+run; the loop takes every one of those counts back (the capturing
+thread's own, so another thread's launches meanwhile stay counted) and
+adds them once per replay, so each counter stays the number of launches
+that ran on the card.
 """
 
 from __future__ import annotations
@@ -75,9 +76,8 @@ class DeviceLoop:
 
     ``body(carry, inputs)`` and ``cond(carry, inputs)`` take the carry and
     the dict ``inputs`` of device scalars; ``meta(carry)`` packs the
-    scalars the caller reads after a run into a 1-D float tensor.
-    ``counters`` are objects with an integer ``launches`` attribute (see
-    the module note). One graph is captured at the first ``run`` that
+    scalars the caller reads after a run into a 1-D float tensor (launch
+    counts: see the module note). One graph is captured at the first ``run`` that
     gets past its first body, and replayed by every later ``run`` until
     :meth:`close`.
 
@@ -90,12 +90,10 @@ class DeviceLoop:
     pack thread does.
     """
 
-    def __init__(self, body, cond, meta, inputs: dict, counters=(),
-                 capture_on_exit: bool = False):
+    def __init__(self, body, cond, meta, inputs: dict, capture_on_exit: bool = False):
         self._body, self._cond, self._meta = body, cond, meta
         self.inputs = inputs
         self.device = next(iter(inputs.values())).device
-        self._counters = tuple(counters)
         self._capture_on_exit = capture_on_exit
         self.runs = self.eager = self.replays = self.masked = self.captures = 0
         # Device memory the capture reserved for the graph's private pool,
@@ -107,7 +105,7 @@ class DeviceLoop:
         self._graph = None
         self._static = None  # the carry's tensors the graph reads and writes
         self._out = None  # meta ++ [cond], written by each replay
-        self._per_replay = ()
+        self._per_replay = {}
         self._stream = None
         self._pinned = None
         self._events = None
@@ -192,7 +190,7 @@ class DeviceLoop:
     def _capture(self, leaves, rebuild):
         t0 = time.perf_counter()
         self._static = [t.clone() for t in leaves]
-        before = [kernel_build.thread_launches(c) for c in self._counters]
+        before = kernel_build.thread_counts()
         # torch.cuda.graph empties the allocator's cache on entry; doing it
         # first makes the reserved bytes' growth the graph pool's own.
         torch.cuda.empty_cache()
@@ -204,10 +202,11 @@ class DeviceLoop:
                 st.copy_(v)
             self._out = out
         # The capture launched nothing: its calls become the per-replay count.
-        self._per_replay = tuple(kernel_build.thread_launches(c) - b
-                                 for c, b in zip(self._counters, before))
-        for c, n in zip(self._counters, self._per_replay):
-            kernel_build.count_launch(c, -n)
+        self._per_replay = {key: n - before.get(key, 0)
+                            for key, n in kernel_build.thread_counts().items()
+                            if n != before.get(key, 0)}
+        for (fn, attr), n in self._per_replay.items():
+            kernel_build.count_launch(fn, -n, attr)
         self._graph = graph
         self.captures += 1
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -226,8 +225,8 @@ class DeviceLoop:
             if done is None:
                 self._graph.replay()
                 self.replays += 1
-                for c, n in zip(self._counters, self._per_replay):
-                    kernel_build.count_launch(c, n)
+                for (fn, attr), n in self._per_replay.items():
+                    kernel_build.count_launch(fn, n, attr)
                 slot = queued % len(self._events)
                 queued += 1
                 self._pinned[slot].copy_(self._out, non_blocking=True)

@@ -4,9 +4,10 @@ A copy of ``random_dense_lp``, ``random_sparse_lp``, ``random_general_lp``,
 ``random_batched_lp`` (with ``BatchedLP``), ``random_request_stream``,
 ``correlated_request_stream``, ``sparse_request_stream`` (the PDHG
 tier's stream) and the sparse tier's ``storm_sparse_lp`` and
-``netlib_sparse_lp`` from the JAX package's ``models/generators.py``: the
-same seed gives the same problem (and the same stream) in both packages,
-bit for bit. The block-angular generator is not ported yet.
+``netlib_sparse_lp``, and the block-angular tier's ``block_angular_lp``
+(the pds family's profile), from the JAX package's
+``models/generators.py``: the same seed gives the same problem (and the
+same stream) in both packages, bit for bit.
 
 All generators construct problems that are feasible and bounded *by
 construction* (primal point and dual certificate built first, data derived
@@ -411,3 +412,91 @@ def sparse_request_stream(
             ),
             tol,
         )
+
+
+def block_angular_lp(
+    num_blocks: int,
+    block_m: int,
+    block_n: int,
+    link_m: int,
+    seed: int = 0,
+    density: float = 0.3,
+    sparse: Optional[bool] = None,
+) -> LPProblem:
+    """pds-like block-angular LP (BASELINE.json:8 structure).
+
+    Structure (primal block-angular, as in multicommodity flow / stochastic
+    programs like stormG2):
+
+    .. code-block:: text
+
+        min Σ_k c_kᵀ x_k
+        s.t. B_k x_k = b_k           (local block rows, k = 1..K)
+             Σ_k L_k x_k ≤ d        (dense-ish linking rows)
+             x ≥ 0
+
+    Feasible+bounded by the same primal/dual construction as
+    :func:`random_dense_lp`. Returns a single assembled LPProblem whose rows
+    are ordered [block 1 rows, ..., block K rows, linking rows]; the
+    block-structured backend re-detects the structure from metadata stored in
+    ``prob.block_structure``.
+    """
+    rng = np.random.default_rng(seed)
+    K, mb, nb = num_blocks, block_m, block_n
+    n = K * nb
+    m = K * mb + link_m
+
+    x0 = rng.uniform(0.5, 2.0, size=n)
+    blocks = []
+    links = []
+    b_loc = []
+    for k in range(K):
+        Bk = rng.standard_normal((mb, nb)) * (rng.uniform(size=(mb, nb)) < density)
+        # Guard against empty rows (would make the row trivially infeasible
+        # unless rhs is 0; keep the matrix numerically well-posed instead).
+        zero_rows = ~Bk.any(axis=1)
+        if zero_rows.any():
+            Bk[zero_rows, rng.integers(0, nb, size=zero_rows.sum())] = 1.0
+        Lk = rng.standard_normal((link_m, nb)) * (rng.uniform(size=(link_m, nb)) < density)
+        blocks.append(Bk)
+        links.append(Lk)
+        b_loc.append(Bk @ x0[k * nb : (k + 1) * nb])
+
+    L_full = np.hstack(links)
+    d = L_full @ x0 + rng.uniform(0.1, 1.0, size=link_m)  # strict slack
+
+    use_sparse = sparse if sparse is not None else (m * n > 200_000)
+    if use_sparse:
+        A = sp.bmat(
+            [
+                [sp.csr_matrix(blocks[k]) if kk == k else None for kk in range(K)]
+                for k in range(K)
+            ]
+            + [[sp.csr_matrix(links[k]) for k in range(K)]],
+            format="csr",
+        )
+    else:
+        A = np.zeros((m, n))
+        for k in range(K):
+            A[k * mb : (k + 1) * mb, k * nb : (k + 1) * nb] = blocks[k]
+        A[K * mb :, :] = L_full
+
+    # Dual certificate for boundedness: c = Aᵀy + s, s > 0.
+    y0 = rng.standard_normal(m)
+    y0[K * mb :] = -np.abs(y0[K * mb :])  # linking rows are ≤ → dual y ≤ 0
+    s0 = rng.uniform(0.5, 2.0, size=n)
+    c = np.asarray(A.T @ y0).ravel() + s0
+
+    rlb = np.concatenate([np.concatenate(b_loc), np.full(link_m, -_INF)])
+    rub = np.concatenate([np.concatenate(b_loc), d])
+    prob = LPProblem(
+        c=c, A=A, rlb=rlb, rub=rub, lb=np.zeros(n), ub=np.full(n, _INF),
+        name=f"block_angular_K{K}_{mb}x{nb}_link{link_m}_s{seed}",
+    )
+    prob.block_structure = {
+        "num_blocks": K,
+        "block_m": mb,
+        "block_n": nb,
+        "link_m": link_m,
+    }
+    return prob

@@ -52,12 +52,17 @@ def count_launch(fn, n: int = 1, attr: str = "launches") -> None:
     with _COUNT_LOCK:
         setattr(fn, attr, getattr(fn, attr) + n)
     counts = _THREAD.__dict__.setdefault("counts", {})
-    counts[(id(fn), attr)] = counts.get((id(fn), attr), 0) + n
+    counts[(fn, attr)] = counts.get((fn, attr), 0) + n
 
 
 def thread_launches(fn, attr: str = "launches") -> int:
     """Launches of ``fn`` counted by this thread since it started."""
-    return _THREAD.__dict__.get("counts", {}).get((id(fn), attr), 0)
+    return _THREAD.__dict__.get("counts", {}).get((fn, attr), 0)
+
+
+def thread_counts() -> dict:
+    """A copy of every count of this thread, keyed by ``(fn, attr)``."""
+    return dict(_THREAD.__dict__.get("counts", {}))
 
 
 class KernelError(RuntimeError):

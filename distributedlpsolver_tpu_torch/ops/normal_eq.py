@@ -221,10 +221,14 @@ def _launch(A, d, out_dtype):
     if rc != 0:
         raise KernelError(f"normal_eq kernel launch failed: CUDA error {rc} (B={B}, m={m}, n={n})")
     kernel_build.count_launch(normal_eq)
+    if batched:
+        kernel_build.count_launch(normal_eq, attr="launches_batched")
     return M
 
 
 # Launches of the CUDA kernel since the last reset (the CPU path never
-# counts; a batched launch counts once): a run sets it to 0 and reads it
-# to show the kernel ran.
+# counts; a batched launch counts once), and of those the batched ones
+# (a lane axis): a run sets them to 0 and reads them to show the kernel
+# ran.
 normal_eq.launches = 0
+normal_eq.launches_batched = 0

@@ -3,8 +3,9 @@
 sides, and the port's ``"cuda"`` against the reference's ``"tpu"`` (whose
 dense accelerator backend is the port's ``cuda``; where the reference
 sends a problem from the accelerator to the host, the port keeps it on
-the card, ``cuda``) — with and without the structure detection pass; the routes the port has not ported raise and
-name their ROADMAP item, the sparse routes set up ``sparse-iterative``; ``AutoBackend(device="cpu")`` solves as the JAX
+the card, ``cuda``) — with and without the structure detection pass; the route the port has not ported
+(``scenario``) raises and names its ROADMAP item, the card's block routes set up ``block`` with the JAX
+package's hint, the sparse routes set up ``sparse-iterative``; ``AutoBackend(device="cpu")`` solves as the JAX
 package's auto does on the CPU; without a card the default device raises.
 """
 
@@ -56,6 +57,14 @@ def _hinted(fn, kind):
     return make
 
 
+def _unhinted(fn):
+    def make(cls):
+        p = fn(cls)
+        p.block_structure = None
+        return p
+    return make
+
+
 def _gen(name, *args, **kw):
     """A generator of the JAX package, as a problem of either class."""
     def make(cls):
@@ -72,6 +81,8 @@ INPUTS = {
     "sparse_small": _gen("random_sparse_lp", 300, 900, seed=0, density=0.05),
     "block_angular_dense": _gen("block_angular_lp", 8, 96, 256, 64, seed=0, sparse=False),
     "block_angular_sparse": _gen("block_angular_lp", 8, 96, 256, 64, seed=0, sparse=True),
+    "block_angular_nohint": _unhinted(
+        _gen("block_angular_lp", 8, 96, 256, 64, seed=0, sparse=True, density=0.05)),
     "two_stage_hint": _hinted(_gen("random_dense_lp", 600, 1200, seed=1), "two_stage"),
     "bordered_hint": _hinted(_gen("random_dense_lp", 600, 1200, seed=2), "bordered"),
     "huge_sparse": _huge_sparse,
@@ -125,7 +136,6 @@ def test_the_routes_cover_every_tier(forms):
 
 @pytest.mark.parametrize("name, platform, item", [
     ("two_stage_hint", "cpu", "item 11"),
-    ("block_angular_dense", "cuda", "item 11"),
 ])
 def test_unported_routes_raise_and_name_their_item(forms, name, platform, item):
     inf, _ = forms(name)
@@ -135,6 +145,34 @@ def test_unported_routes_raise_and_name_their_item(forms, name, platform, item):
     with pytest.raises(NotImplementedError, match=item):
         be.setup(inf, None)
     assert inf.block_structure is hint  # refused before touching the problem
+
+
+@pytest.mark.parametrize("name", ["block_angular_dense", "block_angular_nohint"])
+def test_the_card_route_sets_up_the_block_tier(forms, name, monkeypatch):
+    """On the card a block-hinted problem, and a sparse one whose blocks
+    the detection pass finds, set up ``BlockAngularBackend`` with the JAX
+    package's hint (the generator's, or the one its detector returns),
+    laid out as the JAX package lays it out. The backend is built on the
+    CPU: the route reads only the platform name."""
+    from distributedlpsolver_tpu.backends.block_angular import analyze_structure as jax_layout
+    from distributedlpsolver_tpu_torch.backends import auto as auto_mod
+    from distributedlpsolver_tpu_torch.backends.block_angular import BlockAngularBackend
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+
+    real = auto_mod.choose_backend_name
+    monkeypatch.setattr(auto_mod, "choose_backend_name",
+                        lambda inf, platform, detect=False: real(inf, "cuda", detect=detect))
+    inf, ij = forms(name)
+    inf = dataclasses.replace(inf)  # the fixture's form stays unhinted
+    jname, jhint = jax_choose(ij, "tpu", detect=True)
+    assert jname == "block"
+    be = AutoBackend(device="cpu")
+    be.setup(inf, SolverConfig())
+    assert be.name == "auto(block)" and isinstance(be.inner, BlockAngularBackend)
+    assert be.inner.device.type == "cpu"
+    _same_hint(inf.block_structure, jhint or ij.block_structure)
+    ij = dataclasses.replace(ij, block_structure=jhint or ij.block_structure)
+    assert tuple(be.inner.layout) == tuple(jax_layout(ij)[0])
 
 
 @pytest.mark.parametrize("name, precond", [("huge_sparse", "jacobi"), ("storm", "bordered")])

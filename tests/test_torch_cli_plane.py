@@ -37,17 +37,21 @@ def test_unported_commands_name_their_items(cmd):
         cli.main([cmd, "--world-size", "2"])
 
 
-@pytest.mark.parametrize("kind", ["block", "scenario"])
+@pytest.mark.parametrize("kind", ["scenario"])
 def test_generate_of_unported_generators_names_item_11(kind, tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         cli.main(["generate", kind, str(tmp_path / "x.mps")])
 
 
-@pytest.mark.parametrize("kind, m, n", [("dense", 6, 15), ("general", 7, 12)])
-def test_generate_writes_the_reference_file(kind, m, n, tmp_path, capsys):
+@pytest.mark.parametrize("kind, m, n, extra", [
+    ("dense", 6, 15, []), ("general", 7, 12, []),
+    ("block", 5, 11, ["--blocks", "3", "--link", "4"]),
+])
+def test_generate_writes_the_reference_file(kind, m, n, extra, tmp_path, capsys):
     a, b = tmp_path / "port.mps", tmp_path / "ref.mps"
-    assert cli.main(["generate", kind, str(a), "--m", str(m), "--n", str(n), "--seed", "4"]) == 0
-    assert jcli.main(["generate", kind, str(b), "--m", str(m), "--n", str(n), "--seed", "4"]) == 0
+    argv = ["--m", str(m), "--n", str(n), "--seed", "4"] + extra
+    assert cli.main(["generate", kind, str(a)] + argv) == 0
+    assert jcli.main(["generate", kind, str(b)] + argv) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0].replace(str(a), "X") == out[1].replace(str(b), "X")
     assert a.read_text() == b.read_text()

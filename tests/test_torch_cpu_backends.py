@@ -9,7 +9,6 @@ port's native library is held to the reference's NumPy oracle.
 """
 
 import ctypes
-import dataclasses
 import json
 import os
 
@@ -38,15 +37,9 @@ from tests.oracle import highs_on_general
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _port_lp(jp) -> LPProblem:
-    """A JAX-package problem as the port's LPProblem (the generators the
-    port has not ported yet, e.g. ``block_angular_lp``)."""
-    return LPProblem(**{f.name: getattr(jp, f.name) for f in dataclasses.fields(LPProblem)})
-
-
 def _pair(fn, *args, **kw):
     jp = getattr(jgen, fn)(*args, **kw)
-    tp = getattr(tgen, fn)(*args, **kw) if hasattr(tgen, fn) else _port_lp(jp)
+    tp = getattr(tgen, fn)(*args, **kw)
     return tp, jp
 
 

@@ -2,8 +2,8 @@
 lanes), the fused loop (a captured CUDA graph of the Mehrotra step)
 against the host loop, the batched solver against its CPU path, and the
 bucket engine and solve service (one captured graph per bucket, reused),
-and the sparse tier's hybrid-ELL kernel against its plain version and a
-``sparse-iterative`` solve, on the card.
+the sparse tier's hybrid-ELL kernel against its plain version and a
+``sparse-iterative`` solve, and the block tier's solves, on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -594,3 +594,37 @@ def test_kernel_load_failure_is_not_degraded(cuda, monkeypatch, tmp_path):
     with pytest.raises(KernelError, match="withheld"):
         supervised_solve(random_dense_lp(32, 96, seed=0), backend="cuda", tol=1e-8,
                          supervisor=SupervisorConfig(backoff_base=0.001))
+
+
+@pytest.mark.parametrize("args", [(4, 12, 30, 8), (6, 10, 25, 5), (8, 96, 256, 64)])
+def test_block_solve_on_the_card_matches_its_cpu_path(cuda, args):
+    """The block tier on the card: its CPU path's status and iterations,
+    the objective within 1e-9, the fused, host and segmented loops the
+    same bits, two launches of K1 a factorization (the K lanes, one of
+    them batched, and the linking matrix)."""
+    from distributedlpsolver_tpu_torch.models import block_angular_lp
+
+    p = block_angular_lp(*args, seed=1, sparse=True, density=0.3)
+    ref = solve(p, backend=get_backend("block", device="cpu"), tol=1e-8)
+    be = get_backend("block")
+    normal_eq.launches = normal_eq.launches_batched = 0
+    r = solve(p, backend=be, tol=1e-8)
+    bodies = be.phase_report[0]["bodies"]
+    assert normal_eq.launches_batched == 1 + bodies
+    assert normal_eq.launches == 2 * (1 + bodies)
+    assert be.phase_report[0]["captures"] == 1
+    assert r.status == ref.status == Status.OPTIMAL and r.iterations == ref.iterations
+    assert abs(r.objective - ref.objective) <= 1e-9 * (1 + abs(ref.objective))
+    for kw in ({"fused_loop": False}, {"segment_iters": 3}, {}):
+        r2 = solve(p, backend="block", tol=1e-8, **kw)
+        assert np.array_equal(r2.x, r.x), kw
+
+
+def test_auto_routes_a_block_problem_to_the_block_tier(cuda):
+    from distributedlpsolver_tpu_torch.models import block_angular_lp
+
+    p = block_angular_lp(8, 96, 256, 64, seed=0, sparse=True, density=0.05)
+    r = solve(p, backend="auto", tol=1e-8)
+    r_block = solve(p, backend="block", tol=1e-8)
+    assert r.backend == "auto(block)" and r.status == Status.OPTIMAL
+    assert np.array_equal(r.x, r_block.x)

@@ -125,6 +125,6 @@ def test_cli_json_matches_the_jax_cli(capsys):
 def test_cli_lists_the_ports_backends(capsys):
     assert cli.main(["backends"]) == 0
     assert capsys.readouterr().out.split() == [
-        "auto", "cpu", "cpu-native", "cpu-sparse", "cuda", "dense", "first-order", "inexact-ipm",
-        "native", "numpy", "pdhg", "pdlp", "scipy", "sparse", "sparse-iterative", "sparse-pcg",
-        "torch"]
+        "auto", "block", "block-angular", "cpu", "cpu-native", "cpu-sparse", "cuda", "dense",
+        "first-order", "inexact-ipm", "native", "numpy", "pdhg", "pdlp", "schur", "scipy", "sparse",
+        "sparse-iterative", "sparse-pcg", "torch"]
