@@ -213,7 +213,41 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    against its plain version (lower triangles ≤ 1e-12, M = Mᵀ and two
    launches bit for bit, each lane the unbatched kernel's bits) and timed
    beside ``torch.einsum`` and its bound;
-19. prints the ``kernels`` JSON line, the card line, and last the result
+19. the stochastic scenario tier (``scenario_phase``; ``--scenario-only``
+   runs the build and this phase alone): the tier's own family at a full
+   bucket, ``two_stage_storm(1024, 24, 36, 24, 2, seed=1)`` lowered
+   (24,578 × 36,888), its setup by part (generation, lowering, interior
+   form, the stacks scattered on the card, the operator's transfer), the
+   ELL kernel against its plain version on that operator (as step 16
+   holds it; timed beside cuSPARSE), then ``solve(p, backend="auto")``
+   twice and once through the ``ScenarioBackend`` and ``solve_scenario``
+   — ``auto(scenario)``, 1,024 lanes, OPTIMAL, ``max_violation ≤ 1e-6``,
+   the JAX package's status, iterations and objective (≤ 1e-8;
+   ``SCENARIO_JAX``, from ``scripts/port_scenario_jax_verdicts.py``), x
+   bit for bit across all four, K1 once a factorization over every lane
+   and the ELL kernel in both directions (each reset before, read after),
+   with the factorizations' Schur/link ms and the CG solves' ms, CG
+   iterations by step beside the reference's, host syncs a Newton solve
+   and peak device memory, then a fifth solve with its step 10 under
+   ``torch.profiler``;
+   stormG2's blocks at K = 8 through ``scenario``
+   (``storm_sparse_lp(8, 528, 1259, 121, seed=1, t_nnz_per_row=2,
+   w_nnz_per_row=4)`` with a ``two_stage`` hint; the same checks, and the
+   ELL kernel on its operator), then K = 16 for its first 35 iterations,
+   printed and not a gate; K1 at the main path's lanes (1024 × 24 × 36),
+   at the K = 8 path's (8 × 528 × 1259) and over a full bucket at that
+   width (1024 × 528 × 1259, which no path runs) against its plain
+   version (lower triangles ≤ 1e-12, M = Mᵀ and two launches bit for bit,
+   each lane the unbatched kernel's bits), timed beside ``torch.einsum``
+   and its bound; ``cli generate scenario --scenarios 64 --m 24 --n 36``
+   then ``cli solve`` (no hint in the file: ``auto``'s detection,
+   ``auto(scenario)``, the JAX CLI's verdict); a ``SolveService`` on the
+   card with the reference's delta wave (median warm iterations below the
+   cold ones), a 64-scenario warm-up and K = 33..64 (one bucket, admission
+   units ``ceil(K/16)`` off the tenant's tokens), a 64-scenario HTTP body
+   (200 OPTIMAL), and ``stats()["scenario"]``, the metrics and ``cli
+   report``'s table over the log reconciled;
+20. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -2667,10 +2701,374 @@ def block_phase(torch, ne, card):
     return rows
 
 
+# The stochastic scenario tier (step 19): the tier's own family at a full
+# bucket of 1,024 scenarios (the block shape of bench.py --scenario at
+# stormG2_1000's scenario count padded to its bucket; 24,578 × 36,888).
+SCENARIO_MAIN = dict(num_scenarios=1024, block_m=24, block_n=36, first_stage_n=24,
+                     first_stage_m=2, seed=1)
+# stormG2's own blocks (STORM_FULL's shapes) at K = 8, with a two_stage hint:
+# 4,224 × 10,193, no first-stage rows. At K = 16 the reference's CG grinds at
+# its cap from iteration 29 on (ROADMAP Queue 3), so K = 16 is an observation.
+SCENARIO_STORM = dict(block_m=528, block_n=1259, first_stage_n=121, seed=1, t_nnz_per_row=2,
+                      w_nnz_per_row=4)
+SCENARIO_K16_ITERS = 35
+# K1 alone at the scenario lanes of stormG2's block width, a full bucket.
+SCENARIO_K1 = (1024, 528, 1259)
+# The JAX package's scenario backend on the CPU (tol 1e-8):
+# ``JAX_PLATFORMS=cpu python scripts/port_scenario_jax_verdicts.py``.
+SCENARIO_JAX = {
+    "main": {"status": "optimal", "iterations": 22, "objective": 37182.08404374491, "cg_iters": 652,
+             "cg_per_iteration": [2, 8, 8, 8, 8, 8, 8, 8, 8, 12, 12, 14, 14, 14, 20, 20, 28, 42, 58,
+                                  76, 86, 96, 94]},
+    "storm8": {"status": "optimal", "iterations": 28, "objective": 6735.873380717234,
+               "cg_iters": 1762,
+               "cg_per_iteration": [2, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 10, 14, 14, 16,
+                                    20, 26, 38, 62, 116, 231, 483, 602]},
+    # cli generate scenario --scenarios 64 --m 24 --n 36, then cli solve (auto).
+    "cli_file": {"status": "optimal", "iterations": 18, "objective": 1922.6162423151154},
+}
+SCENARIO_OBJ_TOL = 1e-8
+
+
+def scenario_storm(K):
+    """stormG2's blocks at K scenarios with a two_stage hint (no
+    first-stage rows): such a hint routes to ``scenario`` on every
+    platform."""
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+
+    p = storm_sparse_lp(K, **SCENARIO_STORM)
+    p.block_structure = dict(p.block_structure, kind="two_stage", first_stage_m=0)
+    return p
+
+
+def scenario_solve(torch, ne, name, p, jax_ref, backend, **kw):
+    """One solve with K1's and the ELL kernel's launches reset just before
+    and read just after;
+    held to OPTIMAL, ``max_violation ≤ 1e-6`` and, with ``jax_ref``, the JAX
+    package's status, iterations and objective (≤ 1e-8). K1 must run once a
+    factorization (setup's unit-diagonal one included), every launch
+    batched over all padded lanes, and CG's operator must have launched
+    the ELL kernel in both directions. Returns the result and its row."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.backends import scenario as sc
+    from distributedlpsolver_tpu_torch.ipm import solve
+
+    be = get_backend(backend) if isinstance(backend, str) else backend
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_counts_reset(ne)
+    ell_counts_reset()
+    t0 = time.perf_counter()
+    r = solve(p, backend=be, tol=1e-8, **kw)
+    wall = time.perf_counter() - t0
+    launches, batched = ne.normal_eq.launches, ne.normal_eq.launches_batched
+    ell = ell_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    inner = getattr(be, "inner", be)
+    rep = sc.last_solve_report()
+    cg = inner.cg_report()
+    viol = p.max_violation(np.asarray(r.x))
+    row = {
+        "problem": p.name, "backend": be.name, "status": r.status.value,
+        "iterations": r.iterations, "objective": r.objective, "max_violation": viol,
+        "rel_gap": r.rel_gap, "pinf": r.pinf, "dinf": r.dinf,
+        "layout": dict(inner.layout._asdict()), "wall_s": wall, "setup_s": r.setup_time,
+        "solve_s": r.solve_time, "ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1),
+        **{f"setup_{k}": v for k, v in inner.setup_report.items()},
+        "schur_ms": rep["schur_ms"], "link_ms": rep["link_ms"], "solve_ms": rep["solve_ms"],
+        "factorizations": rep["factorizations"], "applications": rep["solves"],
+        "ms_per_factorization": (rep["schur_ms"] + rep["link_ms"]) / max(rep["factorizations"], 1),
+        "ms_per_cg_solve": rep["solve_ms"] / max(cg["newton_solves"], 1),
+        "cg_iters": cg["cg_iters"], "cg_masked": rep["cg_masked"],
+        "newton_solves": cg["newton_solves"], "host_syncs": cg["host_syncs"],
+        "host_syncs_per_newton_solve": cg["host_syncs"] / max(cg["newton_solves"], 1),
+        "cg_per_iteration": cg["cg_per_iteration"],
+        "k1_launches": launches, "k1_launches_batched": batched, "ell_launches": ell,
+        "peak_device_gb": peak,
+    }
+    if jax_ref is not None:
+        rel = abs(r.objective - jax_ref["objective"]) / (1.0 + abs(jax_ref["objective"]))
+        row["objective_rel_jax"] = rel
+        row["jax_cg_per_iteration"] = jax_ref["cg_per_iteration"]
+        if (r.status.value != jax_ref["status"] or r.iterations != jax_ref["iterations"]
+                or not rel <= SCENARIO_OBJ_TOL):
+            fail(f"{name}: {r.status.value} {r.iterations} it objective {r.objective!r} against the "
+                 f"JAX package's {jax_ref['status']} {jax_ref['iterations']} it "
+                 f"{jax_ref['objective']!r} ({rel:.3e})")
+        if r.status.value != "optimal" or not viol <= 1e-6:
+            fail(f"{name}: {r.status.value}, max_violation {viol:.3e}")
+    # One K1 launch over every lane a factorization: setup's, then each step's.
+    if not launches == batched == 1 + rep["factorizations"]:
+        fail(f"{name}: K1 launches {launches} ({batched} batched) for 1 + {rep['factorizations']} "
+             "factorizations")
+    # CG's operator: both products of the ELL kernel, every CG iteration.
+    if ell["A·v"] <= 0 or ell["Aᵀ·v"] <= 0:
+        fail(f"{name}: ELL kernel launches {ell}")
+    return r, row
+
+
+def scenario_phase(torch, ne, card):
+    """The stochastic scenario tier on the card (module note, step 19).
+    Returns the kernels-line rows of K1 over the scenario lanes and of the
+    ELL kernel on CG's operator."""
+    import math
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch import cli
+    from distributedlpsolver_tpu_torch.backends import scenario as sc
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.models import scenario_delta_stream, two_stage_storm
+    from distributedlpsolver_tpu_torch.models.problem import to_interior_form
+    from distributedlpsolver_tpu_torch.net.admission import AdmissionConfig, TenantQuota
+    from distributedlpsolver_tpu_torch.net.server import NetConfig, SolveHTTPServer
+    from distributedlpsolver_tpu_torch.obs.metrics import MetricsRegistry
+    from distributedlpsolver_tpu_torch.obs.report import report_from_paths
+    from distributedlpsolver_tpu_torch.ops import sparse as sparse_ops
+    from distributedlpsolver_tpu_torch.serve import ServiceConfig, SolveService
+
+    _T0[0] = time.perf_counter()
+    # 1. The main path at a full bucket, its setup by part.
+    t0 = time.perf_counter()
+    slp = two_stage_storm(**SCENARIO_MAIN)
+    parts = {"generate_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    p = slp.to_block_angular()
+    parts["lower_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inf = to_interior_form(p)
+    parts["interior_form_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, lay = sc.build_tensors(inf, torch.float64, "cuda")
+    torch.cuda.synchronize()
+    parts["stacks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op_main = sparse_ops.from_scipy(inf.A, device="cuda")
+    torch.cuda.synchronize()
+    parts["operator_transfer_s"] = time.perf_counter() - t0
+    del inf
+    print(f"scenario_setup {since()} {p.name} {p.m}x{p.n} nnz {p.A.nnz}, layout "
+          f"{dict(lay._asdict())}: " + json.dumps(parts))
+    # CG's operator, the ELL kernel, against its plain version at this
+    # path's shapes (A: 24,576 rows over 32 entries, each one heavy chunk;
+    # Aᵀ: the 24 first-stage columns as rows of 24,576 entries).
+    ell_rows = {"main": ell_phase(torch, op_main, "scenario main", card)}
+    del op_main
+    torch.cuda.empty_cache()
+    runs = []
+    for tag in ("cold", "warm"):
+        r, row = scenario_solve(torch, ne, f"scenario main auto ({tag})", p, SCENARIO_JAX["main"],
+                                "auto")
+        if row["backend"] != "auto(scenario)" or row["layout"]["k_pad"] != 1024:
+            fail(f"scenario main path routes to {row['backend']} with {row['layout']}")
+        print(f"scenario_main_{tag} {since()} " + json.dumps(row))
+        runs.append((r, row))
+    if not np.array_equal(runs[0][0].x, runs[1][0].x):
+        fail("scenario main path: x differs between two solves")
+    r_sc, row_sc = scenario_solve(torch, ne, "scenario main ScenarioBackend", p, SCENARIO_JAX["main"],
+                                  sc.ScenarioBackend())
+    print(f"scenario_main_backend {since()} " + json.dumps(row_sc))
+    # Where a step's device time goes: step 10 (12 CG iterations) under the
+    # profiler, its neighbours' unprofiled walls for the idle share (a whole
+    # solve's ~120k device ops take a minute to post-process).
+    at = 10
+    hooks = profile_one_step(torch, at=at, tag="scenario_step")
+    _, row_p = scenario_solve(torch, ne, "scenario main auto (step profiled)", p,
+                              SCENARIO_JAX["main"], "auto", hooks=hooks)
+    wall_ms = 1e3 * (hooks.step_s[at - 1] + hooks.step_s[at + 1]) / 2
+    print(f"scenario_main_step_profile {since()} " + json.dumps({
+        "step": at, "cg_iters": row_p["cg_per_iteration"][at],
+        "neighbour_steps_wall_ms": wall_ms,
+        "device_idle_share": 1.0 - hooks.prof["device_busy_ms"] / wall_ms, **hooks.prof}))
+    t0 = time.perf_counter()
+    r_entry = sc.solve_scenario(slp, tol=1e-8)
+    wall = time.perf_counter() - t0
+    if not (np.array_equal(r_sc.x, runs[0][0].x) and np.array_equal(r_entry.x, runs[0][0].x)):
+        fail("scenario main path: solve_scenario's x differs from auto's")
+    print(f"scenario_main_solve_scenario {since()} x bit for bit with auto's (twice); "
+          + json.dumps({"wall_s": wall, "iterations": r_entry.iterations}))
+    main_launches = runs[0][1]["k1_launches"]
+    main_ell = runs[0][1]["ell_launches"]
+    del runs, r_sc, r_entry
+    torch.cuda.empty_cache()
+
+    # 2. stormG2's block width at K = 8 through scenario, then K = 16 observed.
+    p8 = scenario_storm(8)
+    r8, row8 = scenario_solve(torch, ne, "stormG2 blocks K=8", p8, SCENARIO_JAX["storm8"], "scenario")
+    print(f"scenario_storm8 {since()} " + json.dumps(row8))
+    storm_launches, storm_ell, lay8 = row8["k1_launches"], row8["ell_launches"], row8["layout"]
+    op8 = sparse_ops.from_scipy(to_interior_form(p8).A, device="cuda")
+    ell_rows["storm8"] = ell_phase(torch, op8, "stormG2 blocks K=8", card)
+    del op8
+    t0 = time.perf_counter()
+    _, row16 = scenario_solve(torch, ne, "stormG2 blocks K=16", scenario_storm(16), None, "scenario",
+                              max_iter=SCENARIO_K16_ITERS)
+    print(f"scenario_storm16_observed {since()} (first {SCENARIO_K16_ITERS} iterations, not a gate; "
+          f"cap {SolverConfig().cg_iters} CG iterations a Newton solve) " + json.dumps(
+              {k: row16[k] for k in ("status", "iterations", "objective", "rel_gap", "pinf", "dinf",
+                                     "cg_iters", "cg_per_iteration", "newton_solves", "solve_s",
+                                     "ms_per_iteration")} | {"wall_s": time.perf_counter() - t0}))
+    del r8
+    torch.cuda.empty_cache()
+
+    # 3. K1 alone at the lanes: the main path's, the K = 8 path's at
+    # stormG2's block width, and a full bucket at that width, which no
+    # path runs (an observation: launches 0).
+    rows = []
+    for tag, (batch, m, n), launches, path in (
+            ("main path", (lay.k_pad, lay.mb, lay.nb), main_launches, "main path auto cold solve"),
+            ("stormG2 width, K=8 path", (lay8["k_pad"], lay8["mb"], lay8["nb"]), storm_launches,
+             "stormG2 blocks K=8 scenario solve"),
+            ("stormG2 width, full bucket", SCENARIO_K1, 0, None)):
+        rel_err, mx = kernel_parity(torch, ne, m, n, "float64", batch=batch)
+        t = kernel_timing(torch, ne, m, n, "float64", iters=10, warm=2, batch=batch)
+        print(f"scenario_k1 {tag} {shape_name(m, n, batch)}: rel_err {rel_err:.3e} max_abs_err "
+              f"{mx:.3e} (tol {TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise equal, "
+              f"each lane the unbatched kernel's bits; kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+              f"ms ({t['bound_by']}), share {t['bound_share']:.3f}; launches {launches} [{card}]")
+        rows.append({
+            "name": f"normal_eq (scenario lanes, {tag})", "route": "cuda",
+            "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+            "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+            "launches": launches, "launches_path": path,
+            "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+            "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
+        })
+    # The ELL kernel on CG's operator, each direction's launches from its
+    # path's cold solve.
+    for key, counts, path, shape in (
+            ("main", main_ell, "main path auto cold solve", [p.m, p.n]),
+            ("storm8", storm_ell, "stormG2 blocks K=8 scenario solve", [p8.m, p8.n])):
+        for name, replaces in (("A·v", "distributedlpsolver_tpu/ops/sparse.py:123"),
+                               ("Aᵀ·v", "distributedlpsolver_tpu/ops/sparse.py:133")):
+            t = ell_rows[key][name]
+            rows.append({
+                "name": f"ell_spmv ({name}, scenario {key})", "route": "cuda",
+                "source": "distributedlpsolver_tpu_torch/csrc/ell_spmv.cu", "replaces": replaces,
+                "launches": counts[name], "launches_path": path,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+                "library_ms": t["library_ms"], "library": "cuSPARSE CSR SpMV (torch.sparse)",
+                "ms_cold": t["ms_cold"], "library_ms_cold": t["library_ms_cold"],
+                "layout_bytes": t["layout_bytes"], "slices": t["slices"],
+                "heavy_chunks": t["heavy_chunks"], "dtypes": ["float64"], "shape": shape,
+            })
+
+    # 4. The CLI: generate a file, solve it with the default backend.
+    path = os.path.join(ROOT, "build", "dlps_torch", "scenario64.mps")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["generate", "scenario", path, "--scenarios", "64", "--m", "24", "--n", "36"])
+    if rc != 0:
+        fail(f"cli generate scenario: rc {rc}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["solve", path, "--json", "--quiet"])
+    wall = time.perf_counter() - t0
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ref = SCENARIO_JAX["cli_file"]
+    rel = abs(out["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
+    if (rc != 0 or out["backend"] != "auto(scenario)" or out["status"] != ref["status"]
+            or out["iterations"] != ref["iterations"] or not rel <= SCENARIO_OBJ_TOL):
+        fail(f"cli solve scenario64.mps: rc {rc}, {out}; the JAX package's CLI: {ref}")
+    print(f"scenario_cli {since()} " + json.dumps({
+        "file": os.path.basename(path), "backend": out["backend"], "status": out["status"],
+        "iterations": out["iterations"], "objective": out["objective"], "objective_rel_jax": rel,
+        "wall_s": wall}))
+
+    # 5. Serving on the card: a delta wave, a K-mixed stream inside one
+    # bucket, admission units, stats/metrics/report, HTTP.
+    log = os.path.join(ROOT, "build", "dlps_torch", "scenario_serve.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    reg = MetricsRegistry()
+    burst = 1e6
+    svc = SolveService(ServiceConfig(flush_s=0.005, log_jsonl=log, admission=AdmissionConfig(
+        quotas={"wave": TenantQuota(rate=1e-9, burst=burst)})), metrics=reg)
+    front = SolveHTTPServer(svc, NetConfig(), metrics=reg).start()
+    try:
+        # The reference's delta-wave acceptance stream (tests/test_scenario.py).
+        t0 = time.perf_counter()
+        futs = [svc.submit(s.to_block_angular(), tol=1e-8) for s in scenario_delta_stream(
+            10, num_scenarios=8, block_m=6, block_n=10, first_stage_n=6, first_stage_m=2, seed=11)]
+        wave = [f.result(timeout=600) for f in futs]
+        wave_s = time.perf_counter() - t0
+        warm = [r.iterations for r in wave if r.warm == "warm"]
+        cold = [r.iterations for r in wave if r.warm != "warm"]
+        if (not all(r.status.value == "optimal" and r.engine == "scenario"
+                    and r.backend == "scenario" for r in wave)
+                or not warm or not cold or not np.median(warm) < np.median(cold)):
+            fail(f"scenario delta wave: {[(r.status.value, r.warm, r.iterations, r.backend) for r in wave]}")
+        print(f"scenario_serve_delta_wave {since()} " + json.dumps({
+            "requests": len(wave), "wall_s": wave_s, "cold_iterations": cold,
+            "warm_iterations": warm, "schur_ms_p50": float(np.median([r.schur_ms for r in wave])),
+            "link_ms_p50": float(np.median([r.link_ms for r in wave]))}))
+        # K = 33..64: one bucket (64); units ceil(K/16) each.
+        r64 = svc.submit(two_stage_storm(64, 24, 36, 24, 2, seed=64).to_block_angular(),
+                         tol=1e-8).result(timeout=600)
+        # Constant by construction (the port compiles nothing per key):
+        # printed, not a gate.
+        meter = sc.scenario_program_cache_size()
+        ks = list(range(33, 65))
+        t0 = time.perf_counter()
+        futs = [svc.submit(two_stage_storm(K, 24, 36, 24, 2, seed=K).to_block_angular(), tol=1e-8,
+                           tenant="wave") for K in ks]
+        mixed = [f.result(timeout=600) for f in futs]
+        mixed_s = time.perf_counter() - t0
+        units = burst - svc.stats()["admission"]["wave"]["tokens"]
+        want = sum(math.ceil(K / 16) for K in ks)
+        if (r64.status.value != "optimal" or not all(r.status.value == "optimal" for r in mixed)
+                or {r.scenario_bucket for r in mixed} != {64} or abs(units - want) > 0.01):
+            fail(f"scenario K-mixed stream: {[(r.status.value, r.scenario_bucket) for r in mixed]}, "
+                 f"units {units} (want {want})")
+        lat = sorted(r.total_ms for r in mixed)
+        print(f"scenario_serve_kmixed {since()} " + json.dumps({
+            "requests": len(mixed), "wall_s": mixed_s, "rps": len(mixed) / mixed_s,
+            "total_ms_p50": lat[len(lat) // 2], "total_ms_max": lat[-1],
+            "iterations": [r.iterations for r in mixed],
+            "programs_compiled": [meter, sc.scenario_program_cache_size()],
+            "admission_units": units, "admission_units_expected": want}))
+        # HTTP: a generated 64-scenario body.
+        code, body, _ = _http_json(front.url + "/v1/solve",
+                                   {"scenarios": {"n_scenarios": 64, "seed": 7}})
+        if (code != 200 or body.get("status") != "optimal" or body.get("n_scenarios") != 64
+                or body.get("scenario_bucket") != 64):
+            fail(f"scenario HTTP: {code} {body}")
+        print(f"scenario_http {since()} " + json.dumps(
+            {k: body.get(k) for k in ("status", "iterations", "objective", "n_scenarios",
+                                      "scenario_bucket", "schur_ms", "link_ms", "total_ms")}))
+        stats = svc.stats()
+    finally:
+        front.shutdown()
+        svc.shutdown()
+    # stats()["scenario"], the metrics and cli report over the log reconcile.
+    n = len(wave) + 1 + len(mixed) + 1
+    snap = reg.snapshot()
+    solves = sum(v for k, v in snap.items() if k.startswith("scenario_solves_total"))
+    rep = report_from_paths([log])
+    ok = (solves == n == stats["scenario"]["solves"] == rep["scenario"]["solves"]
+          and snap["scenario_k"]["count"] == n
+          and set(rep["scenario"]["by_bucket"]) == set(stats["scenario"]["by_bucket"]))
+    for b, row in rep["scenario"]["by_bucket"].items():
+        srow = stats["scenario"]["by_bucket"][b]
+        ok = ok and row["count"] == srow["count"] and row["k_max"] == srow["k_max"]
+        ok = ok and abs(row["total_ms"]["p50"] - srow["total_ms_p50"]) <= 2e-3
+    if not ok:
+        fail(f"scenario stats/metrics/report: {solves} metric solves, stats {stats['scenario']}, "
+             f"report {rep['scenario']}")
+    print(f"scenario_serve_reconcile {since()} " + json.dumps(
+        {"solves": n, "stats": stats["scenario"], "metric_solves": solves}))
+    print(f"scenario phase {since()}")
+    return rows
 
 def main(only: str = "") -> int:
-    """The whole run, or with ``only`` ("sparse", "plane" or "block") the
-    build and that phase alone."""
+    """The whole run, or with ``only`` ("sparse", "plane", "block" or
+    "scenario") the build and that phase alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2719,6 +3117,9 @@ def main(only: str = "") -> int:
     # 18. The block-angular tier.
     if only in ("", "block"):
         rows += block_phase(torch, ne, card)
+    # 19. The stochastic scenario tier.
+    if only in ("", "scenario"):
+        rows += scenario_phase(torch, ne, card)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2885,7 +3286,8 @@ if __name__ == "__main__":
         sys.exit(one_solve(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--highs-storm20k"]:
         sys.exit(highs_storm20k())
-    only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block"}
+    only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block",
+            "--scenario-only": "scenario"}
     if sys.argv[1:] and sys.argv[1] not in only:
         raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
     sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

@@ -27,10 +27,10 @@ rows below density 0.1, goes to the matrix-free ``sparse-iterative``
 backend, on the card or (with ``device="cpu"``) on the CPU, as in the
 reference. A problem with a block hint of two or more blocks, or a
 sparse one whose blocks the detection pass finds, goes on the card to
-the Schur backend ``block`` (``backends/block_angular.py``). The one route
-to a backend this package does not have yet, ``scenario`` (item 11),
-raises ``NotImplementedError`` naming its ROADMAP item when
-:class:`AutoBackend` takes it (``backends/base.py::UNPORTED_BACKENDS``).
+the Schur backend ``block`` (``backends/block_angular.py``). A problem with
+a ``two_stage`` hint, or a hint-less sparse one whose two-stage arrow the
+detection pass finds, goes on both devices to the scenario-decomposed
+backend ``scenario`` (``backends/scenario.py``), as in the reference.
 
 The supervisor's degradation order lives here, as in the reference.
 """
@@ -67,7 +67,8 @@ DEGRADATION_CHAIN = ("sharded", "cuda", "sparse-iterative", "cpu-sparse", "cpu")
 HOST_BACKENDS = frozenset({"cpu", "cpu-native", "cpu-sparse"})
 
 # The scenario-decomposed engine degrades onto the rungs that solve its
-# lowered block-angular form.
+# lowered block-angular form (on the card only ``sparse-iterative``: the
+# host rungs are taken from a backend placed on the CPU alone).
 _SCENARIO_CHAIN = ("sparse-iterative", "cpu-sparse", "cpu")
 
 

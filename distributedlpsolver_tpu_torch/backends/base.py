@@ -93,10 +93,7 @@ _REGISTRY: Dict[str, Type[SolverBackend]] = {}
 # Backend names of the JAX package this package does not register yet,
 # with the ROADMAP Queue 1 item that ports each: ``get_backend`` refuses
 # them by name.
-UNPORTED_BACKENDS = {
-    "scenario": 11,
-    "sharded": 13, "tpu-sharded": 13, "mesh": 13,
-}
+UNPORTED_BACKENDS = {"sharded": 13, "tpu-sharded": 13, "mesh": 13}
 
 
 def register_backend(*names: str) -> Callable[[Type[SolverBackend]], Type[SolverBackend]]:

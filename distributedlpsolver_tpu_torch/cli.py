@@ -684,14 +684,20 @@ def cmd_generate(args) -> int:
         p = gen.random_dense_lp(args.m, args.n, seed=args.seed)
     elif args.kind == "general":
         p = gen.random_general_lp(args.m, args.n, seed=args.seed)
-    elif args.kind == "block":
+    elif args.kind == "scenario":
+        # Lowered two-stage stochastic LP. The hint is not representable in
+        # MPS; for sparse-stored ingests (m·n > 200k) `solve --backend auto`
+        # recovers it from the sparsity pattern
+        # (models/structure.detect_two_stage) and routes back to the
+        # scenario engine.
+        from distributedlpsolver_tpu_torch.models.scenario import two_stage_storm
+
+        p = two_stage_storm(
+            args.scenarios, block_m=args.m, block_n=args.n, seed=args.seed,
+        ).to_block_angular()
+    else:
         kw = {} if args.density is None else {"density": args.density}
         p = gen.block_angular_lp(args.blocks, args.m, args.n, args.link, seed=args.seed, **kw)
-    else:
-        raise NotImplementedError(
-            f"generate {args.kind}: the {args.kind} generator is not ported to the torch "
-            "package yet (ROADMAP Queue 1 item 11)"
-        )
     write_mps(p, args.out)
     print(f"wrote {p.name} ({p.m}x{p.n}) to {args.out}")
     return 0
@@ -981,7 +987,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap_g.add_argument("--n", type=int, default=250)
     ap_g.add_argument("--blocks", type=int, default=4)
     ap_g.add_argument("--link", type=int, default=20)
-    ap_g.add_argument("--scenarios", type=int, default=8)
+    ap_g.add_argument("--scenarios", type=int, default=8,
+                      help="scenario count K of the two-stage instance "
+                      "(kind=scenario; --m/--n are the recourse block shape)")
     ap_g.add_argument("--seed", type=int, default=0)
     ap_g.add_argument(
         "--density", type=float, default=None,

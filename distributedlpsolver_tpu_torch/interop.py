@@ -67,6 +67,42 @@ def block_tensors_from_arrays(B_all, L_all, A0, col_idx, border_idx, row_idx, li
     return place_tensors(arrays, lay, dtype, device), lay
 
 
+def scenario_tensors_from_arrays(W, T, rowmask, A0, rows0, cols0, rows_idx, cols_idx, colmask,
+                                 m, n, *, device, dtype=torch.float64):
+    """The scenario tier's device tensors (``backends/scenario.py::
+    ScenarioTensors``, with its layout) from the host arrays of the JAX
+    package's ``ScenarioBackend`` state: its lane stacks ``_Wd``/``_Td``/
+    ``_rowmask_d`` with the chunks concatenated to (k_pad, ·, ·), ``_A0d``,
+    ``_rows0``/``_cols0`` and the (k_pad, ·) ``_rows_idx``/``_cols_idx``
+    with their masks. Padded slots, which the reference points at row or
+    column 0 under a zero mask, point at m or n here."""
+    from distributedlpsolver_tpu_torch.backends.scenario import ScenarioLayout, ScenarioTensors
+
+    W = np.asarray(W, dtype=np.float64)
+    T = np.asarray(T, dtype=np.float64)
+    rowmask = np.asarray(rowmask).reshape(W.shape[:2]) > 0
+    colmask = np.asarray(colmask).reshape(W.shape[0], W.shape[2]) > 0
+    rows0 = np.asarray(rows0, dtype=np.int64)
+    k_pad, mb, nb = W.shape
+    rows_idx = np.where(rowmask, np.asarray(rows_idx).reshape(rowmask.shape), m)
+    cols_idx = np.where(colmask, np.asarray(cols_idx).reshape(colmask.shape), n)
+    row_pos = np.empty(m, dtype=np.int64)
+    row_pos[rows_idx[rowmask]] = np.flatnonzero(rowmask.ravel())
+    row_pos[rows0] = k_pad * mb + np.arange(rows0.size)
+    lay = ScenarioLayout(K=int(rowmask.any(axis=1).sum()), k_pad=k_pad, mb=mb, nb=nb,
+                         m0=rows0.size, n0=T.shape[2], m=int(m), n=int(n))
+
+    def put(a, dt=torch.int64):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+    tensors = ScenarioTensors(
+        W=put(W, dtype), T=put(T, dtype), A0=put(np.asarray(A0).reshape(lay.m0, lay.n0), dtype),
+        rows0=put(rows0), cols0=put(cols0), rows_idx=put(rows_idx), cols_idx=put(cols_idx),
+        pad_row=put(~rowmask, dtype), row_pos=put(row_pos),
+    )
+    return tensors, lay
+
+
 def batched_lp_from_arrays(A, b, c, name: str = "batched") -> BatchedLP:
     """A :class:`BatchedLP` (B standard-form members ``min cᵀx, Ax=b,
     x≥0``) from arrays of shape (B, m, n), (B, m) and (B, n) — the fields

@@ -146,6 +146,11 @@ def solve(
         cache_entry = warm_cache.lookup(cache_fp, inf.m, inf.n)
         if warm_start is None and cache_entry is not None and cache_entry.state is not None:
             warm_start = warm_mod.WarmStart(cache_entry.state, source="cache")
+    if cache_entry is not None and cache_entry.structure is not None and inf.block_structure is None:
+        # Structure detection amortized across the stream: the hint a prior
+        # same-structure solve recorded routes this one without detecting
+        # again (the reference's rule).
+        inf.block_structure = cache_entry.structure
 
     scaling = None
     inf_solve = inf

@@ -11,10 +11,9 @@ generators.
   ``{"m": 8, "n": 24, "seed": 3}`` (the load-test surface — the same
   feasible+bounded generator the JSONL debug loop uses), a two-stage
   stochastic scenario set ``{"scenarios": {...}}`` (explicit base +
-  per-scenario T/W/b/c blocks, or generated ``n_scenarios``/``seed``;
-  the scenario tier is not ported to the torch package, so such a body
-  raises ``NotImplementedError`` naming ROADMAP item 11), or an MPS
-  document inline as
+  per-scenario T/W/b/c blocks, or generated ``n_scenarios``/``seed``
+  — routed to the scenario-decomposed engine, admission charged by K),
+  or an MPS document inline as
   ``{"mps_text": "..."}`` — plus the request fields ``tol``,
   ``deadline_ms``, ``tenant``, ``priority``, ``async``, ``id``; or
 - a raw MPS text body (any other content type), with the same request
@@ -87,12 +86,39 @@ class SolveRequest:
 
 
 def _scenario_problem(sc: dict) -> LPProblem:
-    """A ``scenarios`` payload (a two-stage stochastic problem) — the
-    scenario-decomposed engine is not ported to the torch package yet."""
-    raise NotImplementedError(
-        "two-stage 'scenarios' requests are not ported to the torch package yet "
-        "(ROADMAP Queue 1 item 11)"
-    )
+    """Build the lowered two-stage problem from a ``scenarios`` payload:
+    either a generated instance (``n_scenarios``/``seed`` + optional
+    block-shape fields — the load-test surface, same seeded generator
+    the tests use) or an explicit base + per-scenario blocks
+    (``ScenarioLP.to_dict`` form). The lowered LPProblem carries the
+    ``two_stage`` hint, so the service routes it to the
+    scenario-decomposed engine and charges fair-share units by K."""
+    from distributedlpsolver_tpu_torch.models.scenario import ScenarioLP, two_stage_storm
+
+    if not isinstance(sc, dict):
+        raise ProtocolError("'scenarios' must be an object")
+    try:
+        if "n_scenarios" in sc and "A0" not in sc:
+            slp = two_stage_storm(
+                int(sc["n_scenarios"]),
+                block_m=int(sc.get("block_m", 8)),
+                block_n=int(sc.get("block_n", 12)),
+                first_stage_n=int(sc.get("first_stage_n", 8)),
+                first_stage_m=int(sc.get("first_stage_m", 2)),
+                seed=int(sc.get("seed", 0)),
+            )
+        elif "A0" in sc:
+            slp = ScenarioLP.from_dict(sc)
+        else:
+            raise ProtocolError(
+                "'scenarios' needs generated 'n_scenarios'/'seed' or an "
+                "explicit base ('A0'/'b0'/'c0' + 'T'/'W'/'b'/'c')"
+            )
+    except ProtocolError:
+        raise
+    except (KeyError, TypeError, ValueError) as e:
+        raise ProtocolError(f"bad scenarios payload: {e}")
+    return slp.to_block_angular()
 
 
 def _problem_from_spec(spec: dict) -> LPProblem:

@@ -559,12 +559,6 @@ class _Handler(BaseHTTPRequestHandler):
                 code = 400
                 self._send_json(code, {"error": str(e)})
                 return
-            except NotImplementedError as e:
-                # A request kind this package does not serve yet (the
-                # two-stage scenario tier): 501, naming the ROADMAP item.
-                code = 501
-                self._send_json(code, {"error": str(e)})
-                return
             tenant = req.tenant
             # Trace join: the router stamped this leg's span in the
             # trace header; the backend's pipeline becomes its child so

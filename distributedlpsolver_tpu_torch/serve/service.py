@@ -47,10 +47,13 @@ backend that served it.
 SLO-aware admission (``ServiceConfig.admission``: per-tenant token-bucket
 quotas, weighted-fair shares, priority flush shading) and the overload
 brownout ladder (``ServiceConfig.brownout``) sit on the submit path, as
-in the JAX package (``net/admission.py``). Not ported, and refused with
-``NotImplementedError`` naming the ROADMAP item: scenario-tier requests
-(item 11) and mesh or multi-host dispatch (``mesh_devices`` other than 0 or 1,
-``reshard``, ``slice_runner=``; item 13).
+in the JAX package (``net/admission.py``). A two-stage request (the
+``two_stage`` hint of a lowered ``ScenarioLP``) takes the solo route pinned
+to the ``scenario`` backend and charges ``ceil(K / scenario_k_unit)``
+admission units, as in the JAX package. Not ported, and refused with
+``NotImplementedError`` naming the ROADMAP item: mesh or multi-host
+dispatch (``mesh_devices`` other than 0 or 1, ``reshard``,
+``slice_runner=``; item 13).
 
 Telemetry: one JSONL record per request, one per dispatched batch, and a
 service summary at shutdown, through utils/logging.IterLogger. The bucket
@@ -177,6 +180,12 @@ class ServiceConfig:
     journal_fsync: str = "flush"
     journal_compact_every: int = 4096
     journal_results_cap: int = 4096
+    # Stochastic scenario tier: scenarios per admission fair-share unit. A
+    # K-scenario request charges ceil(K / scenario_k_unit) units against
+    # its tenant's token bucket and fair share — more than one plain
+    # request, far fewer than K (the batched decomposition amortizes the
+    # per-scenario work).
+    scenario_k_unit: int = 16
     # Overload brownout ladder (net/admission.BrownoutConfig): staged
     # degradation under sustained saturation — stage 1 sheds batch
     # priority with a structured verdict and Retry-After, stage 2 widens
@@ -318,6 +327,20 @@ class SolveService:
         )
         self._m_phase_iters: dict = {}  # engine -> counter (created lazily)
         self._m_engine_dispatches: dict = {}  # engine -> counter (lazy)
+        # Stochastic scenario tier: solves by terminal engine (the ladder
+        # may finish one on sparse-iterative), the K distribution, and the
+        # decomposition's stage split.
+        self._m_scenario_solves: dict = {}  # engine -> counter (lazy)
+        self._m_scenario_k = m.histogram(
+            "scenario_k", buckets=obs_metrics.SCENARIO_K_BUCKETS,
+            help="scenario count per scenario-tier request",
+        )
+        self._m_scenario_schur_ms = m.histogram(
+            "scenario_schur_ms", help="batched per-scenario Schur program wall per solve",
+        )
+        self._m_scenario_link_ms = m.histogram(
+            "scenario_link_ms", help="first-stage linking factor/solve wall per solve",
+        )
         self._m_phase_switches = m.counter(
             "serve_phase_switches_total",
             help="precision-phase transitions across bucket dispatches",
@@ -685,17 +708,31 @@ class SolveService:
 
         Tolerance-tiered routing: a standard-form request at ``tol ≥
         pdhg_tol`` with ``pdhg_routing`` on takes the PDHG engine, any
-        other the IPM engine. Raises ``NotImplementedError`` for a
-        two-stage scenario request (the scenario engine is not ported)."""
+        other the IPM engine. A two-stage request (``two_stage`` hint) takes
+        the scenario engine on the solo route and charges ``ceil(K /
+        scenario_k_unit)`` admission units."""
         sf = standard_form(problem)
-        if (problem.block_structure or {}).get("kind") == "two_stage":
-            raise _unported("the scenario tier (two-stage requests)", 11)
         req_tol = tol if tol is not None else self.solver_config.tol
-        engine = (
-            "pdhg"
-            if self.config.pdhg_routing and sf is not None and req_tol >= self.config.pdhg_tol
-            else "ipm"
-        )
+        hint = problem.block_structure or {}
+        n_scen = scen_bucket = None
+        units = 1
+        if hint.get("kind") == "two_stage":
+            from distributedlpsolver_tpu_torch.models.scenario import scenario_k_bucket
+
+            n_scen = int(hint.get("num_blocks", 1))
+            scen_bucket = scenario_k_bucket(n_scen)
+            units = max(1, -(-n_scen // max(1, self.config.scenario_k_unit)))
+            engine = "scenario"
+            # Always the solo route: a dense-stored lowered form would
+            # otherwise pass the standard-form gate and ride a bucket
+            # program labelled scenario.
+            sf = None
+        else:
+            engine = (
+                "pdhg"
+                if self.config.pdhg_routing and sf is not None and req_tol >= self.config.pdhg_tol
+                else "ipm"
+            )
         fp = None
         if self._warm_cache is not None:
             from distributedlpsolver_tpu_torch.utils.fingerprint import structural_fingerprint
@@ -734,6 +771,9 @@ class SolveService:
             engine=engine,
             jid=_replay_job.jid if _replay_job is not None else None,
             jfp=_replay_job.fp if _replay_job is not None else jfp,
+            units=units,
+            n_scenarios=n_scen,
+            scenario_bucket=scen_bucket,
             trace=(
                 _replay_job.trace_context()
                 if _replay_job is not None and trace is None
@@ -1479,7 +1519,10 @@ class SolveService:
                 lb=np.zeros(n), ub=np.full(n, _INF), name=p.name,
             )
         cfg = self.solver_config.replace(tol=p.tol)
-        backend_name = self.config.solo_backend
+        # Scenario-tier requests pin the scenario-decomposed engine (the
+        # supervisor's ladder degrades it onto sparse-iterative on the same
+        # lowered form); everything else takes the configured solo backend.
+        backend_name = "scenario" if p.engine == "scenario" else self.config.solo_backend
         self._m_solo.inc()
         solo_args = {"retried": retried}
         if p.trace is not None:
@@ -1514,6 +1557,31 @@ class SolveService:
             ]
         done = time.perf_counter()
         self.tracer.async_end("solo", p.request_id)
+        schur_ms = link_ms = 0.0
+        if p.engine == "scenario":
+            # Per-solve decomposition telemetry: the solo path runs solves
+            # one at a time on this thread, so the module's last-solve
+            # report is this request's (a degraded solve that never entered
+            # the scenario backend reports zeros).
+            from distributedlpsolver_tpu_torch.backends.scenario import last_solve_report
+
+            rep = last_solve_report()
+            if rep.get("n_scenarios") == p.n_scenarios:
+                schur_ms = float(rep.get("schur_ms", 0.0))
+                link_ms = float(rep.get("link_ms", 0.0))
+            term_engine = (r.backend if r is not None else backend_name) or "?"
+            ctr = self._m_scenario_solves.get(term_engine)
+            if ctr is None:
+                ctr = self.metrics.counter(
+                    "scenario_solves_total", labels={"engine": term_engine},
+                    help="scenario-tier solves by terminal engine "
+                    "(degradations land on their actual rung)",
+                )
+                self._m_scenario_solves[term_engine] = ctr
+            ctr.inc()
+            self._m_scenario_k.observe(p.n_scenarios or 0)
+            self._m_scenario_schur_ms.observe(schur_ms)
+            self._m_scenario_link_ms.observe(link_ms)
         self._finish(
             p,
             RequestResult(
@@ -1541,6 +1609,10 @@ class SolveService:
                 warm=r.warm if r is not None else "cold",
                 engine=p.engine,
                 backend=r.backend if r is not None else None,
+                n_scenarios=p.n_scenarios,
+                scenario_bucket=p.scenario_bucket,
+                schur_ms=schur_ms,
+                link_ms=link_ms,
             ),
         )
 
@@ -1804,6 +1876,29 @@ class SolveService:
                     else round(self._last_idle_timeout * 1e3, 3)
                 ),
             }
+        # Scenario-tier aggregate: per-K-bucket latency percentiles — the
+        # table ``cli report`` reconciles against (same source records,
+        # same percentile implementation).
+        from distributedlpsolver_tpu_torch.obs.stats import percentile as _pct
+
+        scen_rs = [r for r in results if r.n_scenarios]
+        by_bucket: dict = {}
+        for r in scen_rs:
+            by_bucket.setdefault(r.scenario_bucket or 0, []).append(r)
+        scenario = {
+            "solves": len(scen_rs),
+            "by_bucket": {
+                str(b): {
+                    "count": len(rs),
+                    "k_max": max(r.n_scenarios for r in rs),
+                    "total_ms_p50": round(_pct([r.total_ms for r in rs], 50), 3),
+                    "total_ms_p99": round(_pct([r.total_ms for r in rs], 99), 3),
+                    "schur_ms_p50": round(_pct([r.schur_ms for r in rs], 50), 3),
+                    "link_ms_p50": round(_pct([r.link_ms for r in rs], 50), 3),
+                }
+                for b, rs in sorted(by_bucket.items())
+            },
+        }
         return {
             **latency_summary(results),
             "queue_depth": depth,
@@ -1822,6 +1917,7 @@ class SolveService:
             # Every dispatch's device-loop counts summed (launches: K1 by
             # the bucket programs; warmup_*: their cold-bucket warm-ups).
             "dispatch_totals": dispatch_totals,
+            "scenario": scenario,
             "idle": idle,
             "buckets": buckets,
             # Per-tenant admission accounting and the brownout ladder's

@@ -3,8 +3,8 @@
 sides, and the port's ``"cuda"`` against the reference's ``"tpu"`` (whose
 dense accelerator backend is the port's ``cuda``; where the reference
 sends a problem from the accelerator to the host, the port keeps it on
-the card, ``cuda``) — with and without the structure detection pass; the route the port has not ported
-(``scenario``) raises and names its ROADMAP item, the card's block routes set up ``block`` with the JAX
+the card, ``cuda``) — with and without the structure detection pass; the ``scenario`` route builds the
+scenario backend, the card's block routes set up ``block`` with the JAX
 package's hint, the sparse routes set up ``sparse-iterative``; ``AutoBackend(device="cpu")`` solves as the JAX
 package's auto does on the CPU; without a card the default device raises.
 """
@@ -138,13 +138,26 @@ def test_the_routes_cover_every_tier(forms):
     ("two_stage_hint", "cpu", "item 11"),
 ])
 def test_unported_routes_raise_and_name_their_item(forms, name, platform, item):
-    inf, _ = forms(name)
+    """The route this test once found unported (``scenario``, item 11) is
+    ported: a ``two_stage`` hint builds the scenario backend on the device,
+    and this hint (two blocks, no layout) fails its setup as the JAX
+    package's backend fails it."""
+    from distributedlpsolver_tpu.backends.scenario import ScenarioBackend as JaxScenario
+    from distributedlpsolver_tpu.ipm.config import SolverConfig as JaxConfig
+    from distributedlpsolver_tpu_torch.backends.scenario import ScenarioBackend
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+
+    inf, ij = forms(name)
     be = AutoBackend(device="cpu")
     be.device = torch.device(platform)  # the route only reads the device type
     hint = inf.block_structure
-    with pytest.raises(NotImplementedError, match=item):
-        be.setup(inf, None)
-    assert inf.block_structure is hint  # refused before touching the problem
+    with pytest.raises(KeyError) as ej:
+        JaxScenario().setup(ij, JaxConfig())
+    with pytest.raises(KeyError) as et:
+        be.setup(inf, SolverConfig())
+    assert str(et.value) == str(ej.value)
+    assert be.name == "auto(scenario)" and isinstance(be.inner, ScenarioBackend)
+    assert inf.block_structure is hint
 
 
 @pytest.mark.parametrize("name", ["block_angular_dense", "block_angular_nohint"])

@@ -3,7 +3,8 @@ lanes), the fused loop (a captured CUDA graph of the Mehrotra step)
 against the host loop, the batched solver against its CPU path, and the
 bucket engine and solve service (one captured graph per bucket, reused),
 the sparse tier's hybrid-ELL kernel against its plain version and a
-``sparse-iterative`` solve, and the block tier's solves, on the card.
+``sparse-iterative`` solve, and the block and scenario tiers' solves, on
+the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -628,3 +629,36 @@ def test_auto_routes_a_block_problem_to_the_block_tier(cuda):
     r_block = solve(p, backend="block", tol=1e-8)
     assert r.backend == "auto(block)" and r.status == Status.OPTIMAL
     assert np.array_equal(r.x, r_block.x)
+
+
+@pytest.mark.parametrize("K", [1, 5, 32])
+def test_scenario_solve_on_the_card_matches_its_cpu_path(cuda, K):
+    """The scenario tier on the card: its CPU path's status and iterations,
+    the objective within 1e-9, one batched K1 launch over every padded lane
+    a factorization (the unit-diagonal one of setup included), x the same
+    bits on a repeat."""
+    from distributedlpsolver_tpu_torch.backends import scenario as tsc
+    from distributedlpsolver_tpu_torch.models import two_stage_storm
+
+    p = two_stage_storm(K, 6, 10, 6, 2, seed=K + 10).to_block_angular()
+    ref = solve(p, backend=get_backend("scenario", device="cpu"), tol=1e-8)
+    normal_eq.launches = normal_eq.launches_batched = 0
+    r = solve(p, backend="scenario", tol=1e-8)
+    rep = tsc.last_solve_report()
+    assert normal_eq.launches == normal_eq.launches_batched == 1 + rep["factorizations"]
+    assert rep["scenario_bucket"] == 1 << (K - 1).bit_length() and rep["chunks"] == 1
+    assert r.status == ref.status == Status.OPTIMAL and r.iterations == ref.iterations
+    assert abs(r.objective - ref.objective) <= 1e-9 * (1 + abs(ref.objective))
+    assert np.array_equal(solve(p, backend="scenario", tol=1e-8).x, r.x)
+
+
+def test_auto_routes_a_two_stage_problem_to_the_scenario_tier(cuda):
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+
+    p = storm_sparse_lp(8, 16, 24, 16, seed=9)
+    p.block_structure = dict(p.block_structure, kind="two_stage", first_stage_m=0)
+    r = solve(p, backend="auto", tol=1e-8)
+    ref = solve(p, backend=get_backend("scenario", device="cpu"), tol=1e-8)
+    assert r.backend == "auto(scenario)" and r.status == Status.OPTIMAL
+    assert r.iterations == ref.iterations
+    assert abs(r.objective - ref.objective) <= 1e-9 * (1 + abs(ref.objective))

@@ -126,5 +126,5 @@ def test_cli_lists_the_ports_backends(capsys):
     assert cli.main(["backends"]) == 0
     assert capsys.readouterr().out.split() == [
         "auto", "block", "block-angular", "cpu", "cpu-native", "cpu-sparse", "cuda", "dense",
-        "first-order", "inexact-ipm", "native", "numpy", "pdhg", "pdlp", "schur", "scipy", "sparse",
-        "sparse-iterative", "sparse-pcg", "torch"]
+        "first-order", "inexact-ipm", "native", "numpy", "pdhg", "pdlp", "scenario", "schur", "scipy",
+        "sparse", "sparse-iterative", "sparse-pcg", "torch"]

@@ -143,10 +143,20 @@ def test_malformed_bodies_raise_protocol_error_in_both(body, ctype):
 
 
 def test_two_stage_bodies_name_the_unported_item():
+    """The body kind this test once found unported (item 11, now ported):
+    a ``scenarios`` body lowers to the JAX package's problem and hint, in
+    the generated form and the explicit (``ScenarioLP.to_dict``) form."""
     body = json.dumps({"scenarios": {"n_scenarios": 2, "seed": 0}}).encode()
-    assert jproto.parse_solve_request(body, JSON).problem.block_structure["kind"] == "two_stage"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tproto.parse_solve_request(body, JSON)
+    jp = jproto.parse_solve_request(body, JSON).problem
+    tp = tproto.parse_solve_request(body, JSON).problem
+    assert tp.block_structure == jp.block_structure
+    assert tp.block_structure["kind"] == "two_stage"
+    assert (tp.A != jp.A).nnz == 0 and np.array_equal(tp.rub, jp.rub) and np.array_equal(tp.c, jp.c)
+    from distributedlpsolver_tpu_torch.models.scenario import two_stage_storm
+
+    slp = two_stage_storm(3, 4, 7, 4, 1, seed=4)
+    tp2 = tproto.parse_solve_request(json.dumps({"scenarios": slp.to_dict()}).encode(), JSON).problem
+    assert (tp2.A != slp.to_block_angular().A).nnz == 0 and tp2.block_structure["num_blocks"] == 3
 
 
 @pytest.mark.parametrize("query, body", [
@@ -319,8 +329,7 @@ def test_metrics_carry_the_reference_names():
         finally:
             front.shutdown()
             svc.shutdown()
-    scenario = {n for n in names["jax"] if n.startswith("scenario_")}  # item 11
-    assert names["jax"] - scenario <= names["torch"], names["jax"] - scenario - names["torch"]
+    assert names["jax"] <= names["torch"], names["jax"] - names["torch"]
 
 
 def test_healthz_probes_the_services_device_and_statusz_sums_dispatches():

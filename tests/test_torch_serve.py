@@ -34,6 +34,7 @@ from distributedlpsolver_tpu_torch.models.generators import (
     sparse_request_stream,
 )
 from distributedlpsolver_tpu_torch.models.problem import LPProblem
+from distributedlpsolver_tpu_torch.models.scenario import two_stage_storm
 from distributedlpsolver_tpu_torch.serve import (
     BucketSpec,
     BucketTable,
@@ -410,10 +411,12 @@ def test_unported_requests_and_calls_raise():
         p = random_dense_lp(8, 24, seed=0)
         # PDHG is ported: the loose request rides it, as in the JAX service.
         assert svc.submit(p, tol=1e-4).result(timeout=WAIT).engine == "pdhg"
-        scen = random_dense_lp(8, 24, seed=1)
-        scen.block_structure = {"kind": "two_stage", "num_blocks": 2}
-        with pytest.raises(NotImplementedError, match="item 11"):
-            svc.submit(scen)
+        # The scenario tier is ported: a two-stage request takes the solo
+        # route pinned to the scenario engine, charged by K.
+        scen = two_stage_storm(2, 4, 7, 4, 1, seed=1).to_block_angular()
+        r = svc.submit(scen).result(timeout=WAIT)
+        assert r.status is Status.OPTIMAL and r.engine == "scenario"
+        assert (r.n_scenarios, r.scenario_bucket, r.backend) == (2, 2, "scenario")
         with pytest.raises(NotImplementedError, match="item 13"):
             svc.reshard()
     finally:
