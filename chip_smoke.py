@@ -247,7 +247,29 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    units ``ceil(K/16)`` off the tenant's tokens), a 64-scenario HTTP body
    (200 OPTIMAL), and ``stats()["scenario"]``, the metrics and ``cli
    report``'s table over the log reconciled;
-20. prints the ``kernels`` JSON line, the card line, and last the result
+20. the column-sharded dense backend (``sharded_phase``;
+   ``--sharded-only`` runs the build and this phase alone): the card
+   count; K1 at the shard shapes of the gloo worlds below (f64 2048 ×
+   5,120 and 2048 × 2,560) and at 10000 × 50000 against its plain
+   version (lower triangles ≤ 1e-12, M = Mᵀ and two launches bit for
+   bit), timed beside ``torch.einsum`` and its bound; ``BASELINE.json``
+   config 3, ``random_dense_lp(10000, 50000, seed=2)`` at tol 1e-8,
+   generated once and solved through ``sharded`` on an NCCL world of one
+   formed in this process and through ``cuda`` — both OPTIMAL, the same
+   iterations and K1 launches (each reset before, read after), x bit for
+   bit — with each solve's host setup by part (generation, presolve,
+   scaling, the transfer, the starting point), wall and ms an iteration,
+   then three clocked iterations of the sharded step (K1 on the shard,
+   the all-reduces, the Cholesky, the rest); then gloo worlds of 2 and 4
+   ranks sharing the card (``run_world("sharded_solve", ...)``,
+   subprocesses waited on with a deadline; any rank's failure fails the
+   run) on ``random_dense_lp(2048, 10240, seed=0)`` with the stage clock:
+   every rank OPTIMAL with the same x bits, K1 at its shard's shape, the
+   objective within 1e-8 of ``cuda``'s; every answer of the phase held
+   to its problem (row violation ≤ 1e-7 × (1 + max |row bound|), rel_gap
+   ≤ 1e-8, host |cᵀx − bᵀy| ≤ 1e-7 relative); with two cards or more, an NCCL
+   world over the cards on the same problem;
+21. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -3066,9 +3088,263 @@ def scenario_phase(torch, ne, card):
     print(f"scenario phase {since()}")
     return rows
 
+# The column-sharded dense backend (step 20): BASELINE.json config 3 at
+# full width, and the main path's problem over gloo worlds on the card.
+SHARDED_FULL = dict(m=10000, n=50000, seed=2)
+SHARDED_MAIN = dict(m=2048, n=10240, seed=0)
+SHARDED_WORLDS = (2, 4)
+SHARDED_OBJ_TOL = 1e-8
+SHARDED_WORLD_TIMEOUT_S = 300.0
+
+
+def sharded_solve_counted(ne, p, be, **kw):
+    """``solve(p, backend=be, tol=1e-8, **kw)`` with K1's launch count
+    reset just before and read just after; returns the result, a row and
+    the launch accounting against the fused loop's bodies."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.ipm import Status, solve
+
+    ne.normal_eq.launches = 0
+    t0 = time.perf_counter()
+    r = solve(p, backend=be, tol=1e-8, **kw)
+    wall = time.perf_counter() - t0
+    launches = ne.normal_eq.launches
+    acc = launch_accounting(r, launches, be.phase_report, 0, fused=True)
+    row = {"backend": r.backend, "status": r.status.value, "iterations": r.iterations,
+           "objective": r.objective, "wall_s": wall, "setup_s": r.setup_time,
+           "solve_s": r.solve_time, "ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1),
+           "setup_parts": be.setup_report, "pinf": r.pinf, "dinf": r.dinf,
+           "rel_gap": r.rel_gap, **acc,
+           "captured": be.phase_report[0].get("captured"),
+           "capture_off_reason": be.phase_report[0].get("capture_off_reason")}
+    if r.status != Status.OPTIMAL:
+        fail(f"{p.name} through {r.backend}: status {r.status.value}")
+    row.update(sharded_answer_check(f"{p.name} through {r.backend}", p, r.x, r.y, r.rel_gap))
+    return r, row
+
+
+def sharded_answer_check(name, p, x, y, rel_gap, tol=1e-8) -> dict:
+    """Holds a sharded phase's answer to the problem itself: the row
+    violation of x within 1e-7 of the rows' scale (1 + max |row bound|:
+    the solver's pinf is relative to 1 + ‖b‖ too, and at 10000x50000 |b|
+    runs past 1,000), the solver's rel_gap within ``tol``, and the host
+    gap |cᵀx - bᵀy| / (1 + |cᵀx|) within 1e-7, as on the main path."""
+    import numpy as np
+
+    x, y = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
+    viol = p.max_violation(x)
+    bounds = np.concatenate([p.rlb, p.rub])
+    scale = 1.0 + float(np.max(np.abs(bounds[np.isfinite(bounds)]), initial=0.0))
+    pobj, dobj = float(p.c @ x), float(p.rlb @ y)
+    gap = abs(pobj - dobj) / (1.0 + abs(pobj))
+    if not viol <= 1e-7 * scale:
+        fail(f"{name}: max_violation {viol:.3e} > 1e-7 x {scale:.3e}")
+    if not rel_gap <= tol:
+        fail(f"{name}: rel_gap {rel_gap:.3e} > {tol:.0e}")
+    if not gap <= 1e-7:
+        fail(f"{name}: host |cᵀx - bᵀy| relative {gap:.3e} > 1e-7")
+    return {"max_violation": viol, "row_scale": scale, "host_rel_gap": gap}
+
+
+def clocked_steps(torch, be, steps=3) -> dict:
+    """Milliseconds an iteration of the sharded step's parts: ``steps``
+    host-loop iterations from the starting point with the stage clock on
+    (each part synchronized on its own)."""
+    from distributedlpsolver_tpu_torch.backends.sharded import StageClock
+
+    st = be.starting_point()
+    be.clock = clock = StageClock(be.device)
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, stats = be.iterate(st)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if stats.bad:
+            fail("clocked sharded step: a bad step from the starting point")
+    be.clock = None
+    return stage_parts(clock.report(), sum(walls), steps)
+
+
+def stage_parts(rep, wall_ms, iterations) -> dict:
+    """Per-iteration ms of K1 on the shard, the all-reduce of M, the
+    vector all-reduces, the rest of each factorization (the Cholesky)
+    and everything else of the step, from a stage clock's totals."""
+    ms = rep["ms"]
+    k1, red_m, red_v = ms.get("k1", 0.0), ms.get("allreduce_M", 0.0), ms.get("allreduce_vec", 0.0)
+    chol = ms.get("factorize", 0.0) - k1 - red_m
+    rest = wall_ms - ms.get("factorize", 0.0) - red_v
+    per = lambda v: v / max(iterations, 1)
+    return {"iterations": iterations, "k1_ms": per(k1), "allreduce_M_ms": per(red_m),
+            "allreduce_vec_ms": per(red_v), "cholesky_ms": per(chol), "rest_ms": per(rest),
+            "wall_ms": per(wall_ms), "calls": rep["calls"]}
+
+
+def sharded_world(torch, n_ranks, pg_backend, p, ref, card) -> dict:
+    """``run_world("sharded_solve", ...)`` on the main path's problem ``p``
+    with ``n_ranks`` ranks on the cards; fails unless every rank is
+    OPTIMAL with the same x bits and an answer that passes
+    :func:`sharded_answer_check`, K1 ran at its shard's shape, and the
+    objective is within ``SHARDED_OBJ_TOL`` of ``ref``'s."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+
+    work = os.path.join(ROOT, "build", "dlps_torch", f"sharded_{pg_backend}{n_ranks}")
+    spec = {**SHARDED_MAIN, "tol": 1e-8, "stage_clock": True, "return_xy": True}
+    t0 = time.perf_counter()
+    try:
+        res = run_world("sharded_solve", spec, world_size=n_ranks, workdir=work, retries=0,
+                        timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"{pg_backend} world of {n_ranks}: {e}")
+    wall = time.perf_counter() - t0
+    name = f"{pg_backend} world of {n_ranks}"
+    if sorted(res) != list(range(n_ranks)):
+        fail(f"{name}: results from ranks {sorted(res)}")
+    shas = {o["x_sha256"] for o in res.values()}
+    iters = {o["iterations"] for o in res.values()}
+    width = SHARDED_MAIN["n"] // n_ranks  # the slack-free dense LP: n columns, no pad
+    for rank, o in res.items():
+        rel = abs(o["objective"] - ref.objective) / (1.0 + abs(ref.objective))
+        if o["status"] != "optimal" or not rel <= SHARDED_OBJ_TOL:
+            fail(f"{name}: rank {rank} {o['status']} objective {o['objective']!r} vs cuda "
+                 f"{ref.objective!r} ({rel:.3e})")
+        if o["shard_shape"] != [SHARDED_MAIN["m"], width] or o["k1_launches"] <= 0:
+            fail(f"{name}: rank {rank} shard {o['shard_shape']}, {o['k1_launches']} K1 launches")
+        if o["world_size"] != n_ranks or o["pg_backend"] != pg_backend:
+            fail(f"{name}: rank {rank} in {o['pg_backend']} world of {o['world_size']}")
+        o["answer"] = sharded_answer_check(f"{name}: rank {rank}", p, o.pop("x"), o.pop("y"),
+                                           o["rel_gap"])
+    if len(shas) != 1 or len(iters) != 1:
+        fail(f"{name}: ranks disagree: x digests {shas}, iterations {iters}")
+    o = res[0]
+    row = {
+        "world": name, "ranks": n_ranks, "status": o["status"], "iterations": o["iterations"],
+        "cuda_iterations": ref.iterations, "objective": o["objective"],
+        "objective_rel_cuda": abs(o["objective"] - ref.objective) / (1.0 + abs(ref.objective)),
+        "x_bits_equal_across_ranks": True, "shard_shape": o["shard_shape"],
+        "k1_launches_per_rank": [res[r]["k1_launches"] for r in sorted(res)],
+        "answer_by_rank": [res[r]["answer"] for r in sorted(res)],
+        "rel_gap": o["rel_gap"], "pinf": o["pinf"],
+        "rank0_wall_s": o["wall_s"], "world_wall_s": wall, "setup_parts_rank0": o["setup"],
+        "captured": o["phase_report"][0].get("captured"),
+        "capture_off_reason": o["phase_report"][0].get("capture_off_reason"),
+        # The clock covers the starting point and the loop.
+        "per_iteration_rank0": stage_parts(
+            o["stage_clock"], 1e3 * (o["setup"]["start_s"] + o["solve_s"]), o["iterations"]),
+    }
+    if o["iterations"] != ref.iterations:
+        print(f"sharded_note {name}: {o['iterations']} iterations against cuda's {ref.iterations} "
+              "(M summed in shard order rounds differently from one K1 over all columns)")
+    print(f"sharded_world {since()} " + json.dumps(row) + f" [{card}]")
+    return row
+
+
+def sharded_phase(torch, ne, card):
+    """The column-sharded dense backend on the card (module note, step
+    20). Returns the kernels-line rows of K1 at the path's shapes."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.backends.sharded import ShardedTorchBackend
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+    from distributedlpsolver_tpu_torch.distributed.launcher import free_port
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    _T0[0] = time.perf_counter()
+    cards = torch.cuda.device_count()
+    print(f"sharded_devices torch.cuda.device_count() = {cards}")
+
+    # 1. K1 at the path's shapes: parity and timing.
+    kshapes = [(SHARDED_MAIN["m"], SHARDED_MAIN["n"] // k) for k in SHARDED_WORLDS]
+    kshapes.append((SHARDED_FULL["m"], SHARDED_FULL["n"]))
+    k1 = {}
+    for (m, n) in kshapes:
+        rel_err, mx = kernel_parity(torch, ne, m, n, "float64")
+        big = m * n > 10**8
+        t = kernel_timing(torch, ne, m, n, "float64", iters=3 if big else 20, warm=1 if big else 3)
+        k1[(m, n)] = (mx, t)
+        print(f"sharded_k1 {since()} {m}x{n}: rel_err {rel_err:.3e} max_abs_err {mx:.3e} (tol "
+              f"{TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise equal; kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_share']:.3f} [{card}]")
+
+    # 2. BASELINE.json config 3 at full width: generated once, solved
+    # through sharded on an NCCL world of one and through cuda.
+    t0 = time.perf_counter()
+    p = random_dense_lp(SHARDED_FULL["m"], SHARDED_FULL["n"], seed=SHARDED_FULL["seed"])
+    gen_s = time.perf_counter() - t0
+    print(f"sharded_full_generate {since()} {p.name}: {gen_s:.3f} s")
+    world = world_lib.init_world(world_lib.WorldConfig(
+        coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
+    try:
+        if world.pg_backend != "nccl":
+            fail(f"the world of one runs {world.pg_backend}, not nccl")
+        be = ShardedTorchBackend()
+        r_sh, row_sh = sharded_solve_counted(ne, p, be)
+        row_sh["generate_s"] = gen_s
+        row_sh["world"] = world.describe()
+        print(f"sharded_full_sharded {since()} " + json.dumps(row_sh) + f" [{card}]")
+        parts = clocked_steps(torch, be)
+        print(f"sharded_full_parts {since()} " + json.dumps(parts) + f" [{card}]")
+        del be
+        torch.cuda.empty_cache()
+    finally:
+        world.close()
+    be = get_backend("cuda")
+    r_cu, row_cu = sharded_solve_counted(ne, p, be)
+    row_cu["generate_s"] = gen_s
+    print(f"sharded_full_cuda {since()} " + json.dumps(row_cu) + f" [{card}]")
+    del be
+    torch.cuda.empty_cache()
+    if not np.array_equal(r_sh.x, r_cu.x):
+        fail("10000x50000: x of sharded (world of one) differs from cuda's")
+    if (r_sh.iterations, row_sh["normal_eq_launches"]) != (r_cu.iterations, row_cu["normal_eq_launches"]):
+        fail(f"10000x50000: sharded {r_sh.iterations} it / {row_sh['normal_eq_launches']} K1 launches, "
+             f"cuda {r_cu.iterations} / {row_cu['normal_eq_launches']}")
+    print(f"sharded_full {since()} sharded (nccl world of one) and cuda: x bit for bit, "
+          f"{r_cu.iterations} iterations and {row_cu['normal_eq_launches']} K1 launches each")
+    del p, r_sh, r_cu
+    torch.cuda.empty_cache()
+
+    # 3. The main path's problem over gloo worlds sharing the card (and an
+    # NCCL world over the cards where there are two or more).
+    p_main = random_dense_lp(SHARDED_MAIN["m"], SHARDED_MAIN["n"], seed=SHARDED_MAIN["seed"])
+    ref = solve(p_main, backend="cuda", tol=1e-8)
+    print(f"sharded_main_cuda {since()} {p_main.name}: {ref.status.value} {ref.iterations} it "
+          f"objective {ref.objective!r}")
+    worlds = {k: sharded_world(torch, k, "gloo", p_main, ref, card) for k in SHARDED_WORLDS}
+    if cards >= 2:
+        sharded_world(torch, min(cards, 4), "nccl", p_main, ref, card)
+    else:
+        print("sharded_nccl_multi: one card, no NCCL world over several cards")
+
+    rows = []
+    for (m, n), (mx, t) in k1.items():
+        if (m, n) == (SHARDED_FULL["m"], SHARDED_FULL["n"]):
+            launches, path = row_sh["normal_eq_launches"], "sharded, nccl world of one, 10000x50000"
+        else:
+            k = SHARDED_MAIN["n"] // n
+            launches = sum(worlds[k]["k1_launches_per_rank"])
+            path = f"sharded, gloo world of {k} on one card (all ranks), 2048x10240"
+        rows.append({
+            "name": f"normal_eq (sharded {m}x{n})", "route": "cuda",
+            "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+            "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+            "launches": launches, "launches_path": path,
+            "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+            "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
+        })
+    print(f"sharded phase {since()}")
+    return rows
+
+
 def main(only: str = "") -> int:
-    """The whole run, or with ``only`` ("sparse", "plane", "block" or
-    "scenario") the build and that phase alone."""
+    """The whole run, or with ``only`` ("sparse", "plane", "block",
+    "scenario" or "sharded") the build and that phase alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3120,6 +3396,9 @@ def main(only: str = "") -> int:
     # 19. The stochastic scenario tier.
     if only in ("", "scenario"):
         rows += scenario_phase(torch, ne, card)
+    # 20. The column-sharded dense backend.
+    if only in ("", "sharded"):
+        rows += sharded_phase(torch, ne, card)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3287,7 +3566,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--highs-storm20k"]:
         sys.exit(highs_storm20k())
     only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block",
-            "--scenario-only": "scenario"}
+            "--scenario-only": "scenario", "--sharded-only": "sharded"}
     if sys.argv[1:] and sys.argv[1] not in only:
         raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
     sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

@@ -16,4 +16,5 @@ import distributedlpsolver_tpu_torch.backends.first_order  # noqa: F401,E402  (r
 import distributedlpsolver_tpu_torch.backends.sparse_iterative  # noqa: F401,E402  (registers sparse-iterative/inexact-ipm/sparse-pcg)
 import distributedlpsolver_tpu_torch.backends.block_angular  # noqa: F401,E402  (registers block/schur/block-angular)
 import distributedlpsolver_tpu_torch.backends.scenario  # noqa: F401,E402  (registers scenario)
+import distributedlpsolver_tpu_torch.backends.sharded  # noqa: F401,E402  (registers sharded/tpu-sharded/mesh)
 import distributedlpsolver_tpu_torch.backends.auto  # noqa: F401,E402  (registers auto)

@@ -90,12 +90,6 @@ class SolverBackend(abc.ABC):
 
 _REGISTRY: Dict[str, Type[SolverBackend]] = {}
 
-# Backend names of the JAX package this package does not register yet,
-# with the ROADMAP Queue 1 item that ports each: ``get_backend`` refuses
-# them by name.
-UNPORTED_BACKENDS = {"sharded": 13, "tpu-sharded": 13, "mesh": 13}
-
-
 def register_backend(*names: str) -> Callable[[Type[SolverBackend]], Type[SolverBackend]]:
     def deco(cls: Type[SolverBackend]) -> Type[SolverBackend]:
         for n in names:
@@ -110,17 +104,9 @@ def register_backend(*names: str) -> Callable[[Type[SolverBackend]], Type[Solver
 
 
 def check_backend_name(name: str) -> None:
-    """Raise unless ``name`` is registered: ``NotImplementedError`` naming
-    the ROADMAP item for a JAX-package backend not ported yet, else
-    ``KeyError``."""
-    key = name.lower()
-    if key in _REGISTRY:
+    """Raise ``KeyError`` unless ``name`` is registered."""
+    if name.lower() in _REGISTRY:
         return
-    if key in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported to the torch package yet "
-            f"(ROADMAP Queue 1 item {UNPORTED_BACKENDS[key]})"
-        )
     raise KeyError(f"unknown backend {name!r}; available: {', '.join(available_backends())}")
 
 

@@ -900,7 +900,7 @@ def place_bucket(batch: BatchedLP, active, config: Optional[SolverConfig] = None
     if mesh is not None:
         raise NotImplementedError(
             "bucket placement over a mesh is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 13)")
+            "(ROADMAP Queue 1 item 13b)")
     cfg = config or SolverConfig()
     dev = resolve_device(device)
     dtype = dense._torch_dtype(cfg.dtype)
@@ -923,7 +923,7 @@ def place_warm(warm: Optional[IPMState], warm_mask, shape, config: Optional[Solv
     if mesh is not None:
         raise NotImplementedError(
             "bucket placement over a mesh is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 13)")
+            "(ROADMAP Queue 1 item 13b)")
     cfg = config or SolverConfig()
     dev = resolve_device(device)
     dtype = dense._torch_dtype(cfg.dtype)
@@ -975,7 +975,7 @@ def solve_bucket(
     if mesh is not None:
         raise NotImplementedError(
             "solve_bucket over a mesh is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 13)")
+            "(ROADMAP Queue 1 item 13b)")
     cfg = config or SolverConfig()
     if config_overrides:
         cfg = cfg.replace(**config_overrides)

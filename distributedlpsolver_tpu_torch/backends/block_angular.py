@@ -45,7 +45,7 @@ of the masked step on the card), host-segmented with ``segment_iters >
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
 item: the TPU schedules (``mixed``, ``f64c``, ``pcg`` and the two-phase
 plan; item 5b) and the mesh (``mesh=``, ``link_shard``, ``reshard``;
-item 13).
+item 13c).
 """
 
 from __future__ import annotations

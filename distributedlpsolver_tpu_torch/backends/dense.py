@@ -30,8 +30,14 @@ the host, with the regularization a device scalar of the loop's carry.
 loop over :meth:`DenseTorchBackend.iterate`, whose regularization is a
 host float escalated by :meth:`~DenseTorchBackend.bump_regularization`.
 
-Not ported yet: sharded placement, the two-phase and PCG schedules, the
-primal-row closure and the dense endgame.
+Placement seams (``pad_multiple``, ``shardings``): the variable axis is
+padded to a multiple of :meth:`DenseTorchBackend.pad_multiple` with zero
+columns (cost 1, unbounded) and A is placed by :meth:`shardings`, both
+as in the JAX package; ``backends/sharded.py`` overrides them (and the
+step's ``LinOps``) to split A's columns over a process-group mesh.
+
+Not ported yet: the two-phase and PCG schedules, the primal-row closure
+and the dense endgame.
 
 Failure semantics: ``torch.linalg.cholesky`` raises on a matrix that is
 not positive definite, where the JAX package's Cholesky returns NaN. The
@@ -89,7 +95,7 @@ def _torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _cholesky_ops(A, factor_dtype, refine_steps, Af=None, tri_solves=False):
+def _cholesky_ops(A, factor_dtype, refine_steps, Af=None, tri_solves=False, assemble=None):
     """Build factorize/solve closures over the matrix ``A``.
 
     ``factorize(d, reg)`` returns ``(L, M)`` with ``M = A·diag(d)·Aᵀ``
@@ -105,11 +111,16 @@ def _cholesky_ops(A, factor_dtype, refine_steps, Af=None, tri_solves=False):
     ``dpotrs_batched``, which allocates device memory on every call and so
     cannot be captured into a CUDA graph; the batched triangular solves
     (cuBLAS ``trsmBatched``) can (``scripts/port_probe_batched_linalg.py``).
+
+    ``assemble(src, d)`` computes ``M`` from the assembly matrix and d in
+    its dtype (default: K1 on all of it; the sharded backend sums each
+    rank's column block over the mesh).
     """
+    assemble = assemble or normal_eq
 
     def factorize(d, reg):
         src = A if Af is None else Af
-        M = normal_eq(src, d.to(src.dtype))
+        M = assemble(src, d.to(src.dtype))
         # Per-row *relative* diagonal perturbation (in place: at the
         # reference shape M is 0.8 GB, and M + diag(·) would copy it).
         diag = M.diagonal()
@@ -154,39 +165,28 @@ def _make_ops(A, reg, factor_dtype, refine_steps, Af=None, tri_solves=False) -> 
     )
 
 
-def _step_fn(A, data, params, factor_dtype, refine_steps, Af=None):
-    """``(state, reg) -> (state', stats)``: one Mehrotra step, the fused
-    loop's ``step_fn``."""
-    def step(state, reg):
-        ops = _make_ops(A, reg, factor_dtype, refine_steps, Af)
-        return core.mehrotra_step(ops, data, params, state)
-
-    return step
-
-
 def _dense_solve_full(
-    A, data, state0, reg0, params, factor_dtype, refine_steps, max_iter,
-    max_refactor, reg_grow, buf_cap, Af=None, stall_window=0, report=None,
+    step, state0, reg0, params, max_iter, max_refactor, reg_grow, buf_cap,
+    stall_window=0, report=None, capture=True,
 ):
     """The whole solve as one fused loop (the JAX package's
-    ``_dense_solve_full``). Returns ``(state, it, status, buf)`` on the
-    device; ``report`` gets the loop's body counts."""
+    ``_dense_solve_full``) over ``step`` (:meth:`DenseTorchBackend._step`). Returns
+    ``(state, it, status, buf)`` on the device; ``report`` gets the
+    loop's body counts."""
     return core.fused_solve(
-        _step_fn(A, data, params, factor_dtype, refine_steps, Af),
-        state0, reg0, params, max_iter, max_refactor, reg_grow, buf_cap,
+        step, state0, reg0, params, max_iter, max_refactor, reg_grow, buf_cap,
         stall_window=stall_window, stall_patience_floor=1e3 * params.tol,
-        report=report,
+        report=report, capture=capture,
     )
 
 
-def _dense_loop(A, data, params, factor_dtype, refine_steps, buf_cap, Af=None,
-                stall_window=0, patience=0.0):
+def _dense_loop(step, params, buf_cap, device, dtype, stall_window=0, patience=0.0,
+                capture=True):
     """One phase's fused loop, captured once and replayed by every
     segment of the phase (see :func:`_dense_segment`)."""
     return core.fused_loop(
-        _step_fn(A, data, params, factor_dtype, refine_steps, Af), params,
-        buf_cap, A.device, A.dtype, stall_window=stall_window,
-        stall_patience_floor=patience,
+        step, params, buf_cap, device, dtype, stall_window=stall_window,
+        stall_patience_floor=patience, capture=capture,
     )
 
 
@@ -202,12 +202,36 @@ def _dense_segment(loop, carry, it_stop, max_iter, max_refactor, reg_grow):
 @register_backend("cuda", "dense", "torch")
 class DenseTorchBackend(SolverBackend):
     """Single-device dense path on one CUDA card (or the CPU when asked
-    for with ``device="cpu"``)."""
+    for with ``device="cpu"``). Subclasses override :meth:`shardings`,
+    :meth:`pad_multiple` and :meth:`_make_linops` to distribute the same
+    step over a mesh."""
+
+    # Whether the fused loop may capture its body into a CUDA graph (see
+    # ``ipm/device_loop.py``), and why not when it may not.
+    capture: bool = True
+    capture_off_reason: Optional[str] = None
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._reg: float = 0.0
         self._cfg: Optional[SolverConfig] = None
+        self._n_orig: Optional[int] = None  # the unpadded column count (setup)
+
+    # -- placement hooks (overridden by the sharded backend) ---------------
+    def shardings(self, m: int, n: int):
+        """``(matrix_sharding, col_vec_sharding, row_vec_sharding)``
+        (``parallel.mesh.Sharding``), or Nones for single-device
+        placement."""
+        return None, None, None
+
+    def pad_multiple(self) -> int:
+        """The column count is padded to a multiple of this (sharded
+        backends need the variable axis divisible by the mesh)."""
+        return 1
+
+    def _make_linops(self, reg, factor_dtype, refine, Af) -> core.LinOps:
+        """The step's linear algebra at regularization ``reg``."""
+        return _make_ops(self._A, reg, factor_dtype, refine, Af)
 
     # -- SolverBackend ------------------------------------------------------
     def setup(self, inf: InteriorForm, config: SolverConfig) -> None:
@@ -225,19 +249,45 @@ class DenseTorchBackend(SolverBackend):
             torch.backends.cuda.matmul.allow_tf32 = False
 
         A_host = inf.A.toarray() if sp.issparse(inf.A) else np.asarray(inf.A)
+        m, n = A_host.shape
+        c_host = np.asarray(inf.c, dtype=np.float64)
+        u_host = np.asarray(inf.u, dtype=np.float64)
+        self._n_orig = n
+        # Pad the variable axis to the mesh multiple with zero columns
+        # (cost 1, unbounded): they stay centered at x≈target, never bind,
+        # and are sliced off in to_host.
+        n_extra = (-n) % self.pad_multiple()
+        if n_extra:
+            A_host = np.hstack([A_host, np.zeros((m, n_extra))])
+            c_host = np.concatenate([c_host, np.ones(n_extra)])
+            u_host = np.concatenate([u_host, np.full(n_extra, np.inf)])
+            n += n_extra
+        self._shape = (m, n)
+        mat_s, col_s, _ = self.shardings(m, n)
+        if mat_s is not None:
+            A_host = mat_s.local(A_host)
+        if col_s is not None and col_s.axis is not None:
+            raise NotImplementedError("column-sharded vectors: the port keeps them replicated")
         dev = self.device
         self._A = torch.as_tensor(A_host, dtype=dtype, device=dev).contiguous()
         self._Af = (
             self._A.to(self._factor_dtype) if self._factor_dtype != dtype else None
         )
-        self._data = core.make_problem_data(
-            np.asarray(inf.c, dtype=np.float64), np.asarray(inf.b, dtype=np.float64),
-            np.asarray(inf.u, dtype=np.float64), dtype, dev,
-        )
+        self._data = core.make_problem_data(c_host, np.asarray(inf.b, dtype=np.float64),
+                                            u_host, dtype, dev)
         self._params = config.step_params()
 
     def _ops(self) -> core.LinOps:
-        return _make_ops(self._A, self._reg, self._factor_dtype, self._refine, self._Af)
+        return self._make_linops(self._reg, self._factor_dtype, self._refine, self._Af)
+
+    def _step(self, params, factor_dtype, refine, Af):
+        """``(state, reg) -> (state', stats)``: one Mehrotra step over this
+        backend's ``LinOps``, the fused loop's ``step_fn``."""
+        def step(state, reg):
+            ops = self._make_linops(reg, factor_dtype, refine, Af)
+            return core.mehrotra_step(ops, self._data, params, state)
+
+        return step
 
     def starting_point(self) -> IPMState:
         return core.starting_point(self._ops(), self._data, self._params)
@@ -264,7 +314,7 @@ class DenseTorchBackend(SolverBackend):
         loop once; every segment of the phase replays it."""
         cfg = self._cfg
         buf_cap = core.buffer_cap(cfg.max_iter)
-        m, n = self._A.shape
+        m, n = self._shape
         flops = 2.0 * m * m * n + m**3 / 3.0  # per-iteration FLOP estimate
         loops = []
 
@@ -273,8 +323,9 @@ class DenseTorchBackend(SolverBackend):
             rate = core.SEG_RATE_F32 if fdt == torch.float32 else core.SEG_RATE_F64
 
             def make_run_seg(bound):
-                loop = _dense_loop(self._A, self._data, params, fdt, refine,
-                                   buf_cap, Af, window, patience)
+                loop = _dense_loop(self._step(params, fdt, refine, Af), params, buf_cap,
+                                   self._A.device, self._A.dtype, window, patience,
+                                   capture=self.capture)
                 loops.append(loop)
 
                 def run_seg(c, stop):
@@ -315,15 +366,18 @@ class DenseTorchBackend(SolverBackend):
             loop = {}
             t0 = time.perf_counter()
             st, it, status, buf = _dense_solve_full(
-                self._A, self._data, state, self._reg0(), params, fdt, refine,
+                self._step(params, fdt, refine, Af), state, self._reg0(), params,
                 cfg.max_iter, cfg.max_refactor, cfg.reg_grow,
-                core.buffer_cap(cfg.max_iter), Af, window, report=loop,
+                core.buffer_cap(cfg.max_iter), window, report=loop, capture=self.capture,
             )
             it = int(it)
             self.phase_report = [{
                 "phase": 0, "iters": it, "wall_s": round(time.perf_counter() - t0, 3),
                 "mode": _mode(fdt), **loop,
             }]
+        if self.device.type == "cuda":
+            for row in self.phase_report:
+                row.update(captured=self.capture, capture_off_reason=self.capture_off_reason)
         return st, torch.tensor(int(it)), status.cpu(), buf.cpu()
 
     def iterate(self, state: IPMState) -> Tuple[IPMState, StepStats]:
@@ -340,12 +394,21 @@ class DenseTorchBackend(SolverBackend):
         return True
 
     def to_host(self, state: IPMState) -> IPMState:
-        return IPMState(*(v.detach().cpu().numpy() for v in state))
+        n = self._n_orig
+        x, y, s, w, z = (v.detach().cpu().numpy() for v in state)
+        return IPMState(x=x[:n], y=y, s=s[:n], w=w[:n], z=z[:n])
 
     def from_host(self, state: IPMState) -> IPMState:
+        n_extra = self._shape[1] - self._n_orig
+        x, y, s, w, z = (np.asarray(v, dtype=np.float64) for v in state)
+        if n_extra:
+            # Padded columns (cost 1, zero A column): re-enter centered.
+            x = np.concatenate([x, np.full(n_extra, 1e-8)])
+            s = np.concatenate([s, np.ones(n_extra)])
+            w = np.concatenate([w, np.ones(n_extra)])
+            z = np.concatenate([z, np.zeros(n_extra)])
         return IPMState(
-            *(torch.tensor(np.asarray(v, dtype=np.float64), dtype=self._dtype,
-                           device=self.device) for v in state)
+            *(torch.tensor(v, dtype=self._dtype, device=self.device) for v in (x, y, s, w, z))
         )
 
     def block_until_ready(self, obj) -> None:

@@ -36,7 +36,7 @@ a caller that passes no seeds gets each slot's own index.
 
 Working precision: off TPU the reference keeps ``config.dtype`` (f64);
 ``factor_dtype="float32"`` gives f32. ``mesh=`` is not ported (ROADMAP
-Queue 1 item 13).
+Queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def pdhg_seed(name: str, batch: int) -> int:
 
 def _mesh_unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP Queue 1 item 13)")
+        f"{what} is not ported to the torch package yet (ROADMAP Queue 1 item 13c)")
 
 
 class PDHGState(NamedTuple):

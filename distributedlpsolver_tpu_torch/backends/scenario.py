@@ -55,7 +55,7 @@ reference also adds every application's stages to ``schur_ms``/
 card (``scripts/port_time_stage_clock.py``), so the port does not.
 
 Not ported: the lane axis sharded over a mesh (``mesh=``; ROADMAP Queue 1
-item 13).
+item 13c).
 """
 
 from __future__ import annotations
@@ -329,7 +329,7 @@ class ScenarioBackend(SolverBackend):
         if mesh is not None:
             raise NotImplementedError(
                 "the scenario tier on a mesh (mesh=) is not ported to the torch package yet "
-                "(ROADMAP Queue 1 item 13)"
+                "(ROADMAP Queue 1 item 13c)"
             )
         self.device = resolve_device(device)
         self._reg = 0.0

@@ -30,7 +30,7 @@ to go on once per chunk of masked iterations (``ops/pcg.py``). The
 driver's host loop runs it (there is no fused loop, as in the reference).
 
 Not ported: the row-sharded tier (``mesh=``, ``reshard()``; ROADMAP
-Queue 1 item 13).
+Queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ _ILDL_CG_FRAC = 0.5
 _ILDL_STREAK = 3
 
 _MESH_UNPORTED = ("the row-sharded sparse tier (mesh=, reshard) is not ported to the torch "
-                  "package yet (ROADMAP Queue 1 item 13)")
+                  "package yet (ROADMAP Queue 1 item 13c)")
 
 
 def _bordered_usable(hint: dict) -> bool:

@@ -16,7 +16,7 @@ honours plus ``--device``. Subcommands:
     generate     write a generated problem to MPS
     backends     list registered SolverBackend names
 
-``serve-slice`` (ROADMAP Queue 1 item 13) and ``check`` (item 15) are
+``serve-slice`` (ROADMAP Queue 1 item 13b) and ``check`` (item 15) are
 parsed and raise ``NotImplementedError``.
 
 Every command that touches a device takes ``--device``: ``cuda`` (the
@@ -25,7 +25,7 @@ back to the host) or ``cpu``. ``--backend auto`` (the default, as in the
 JAX CLI) picks a backend by problem structure for ``--device``: on the
 card every problem the port can solve goes to ``cuda``; with ``--device
 cpu`` to ``cpu-native``. The chosen backend is named in the result
-(``auto(<name>)``). ``--mesh-devices`` above 1 is refused (item 13).
+(``auto(<name>)``). ``--mesh-devices`` above 1 is refused (item 13b).
 
 Run as ``python -m distributedlpsolver_tpu_torch.cli ...``.
 """
@@ -33,7 +33,9 @@ Run as ``python -m distributedlpsolver_tpu_torch.cli ...``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -208,10 +210,30 @@ def cmd_solve(args) -> int:
 
 
 def _cmd_solve_inner(args, problem) -> int:
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+
+    world = None
+    if args.backend.lower() in _MESH_BACKENDS and os.environ.get(world_lib.ENV_COORDINATOR):
+        # A rank of a launched world: join it from the DLPS_* environment.
+        world = world_lib.init_world(
+            dataclasses.replace(world_lib.WorldConfig.from_env(), device=args.device))
+    try:
+        return _solve_and_report(args, problem, world)
+    finally:
+        if world is not None:
+            world.close()
+
+
+# Backend names that run over a mesh: ``cli solve`` joins the DLPS_*
+# world with them, or runs a world of one in-process.
+_MESH_BACKENDS = ("sharded", "tpu-sharded", "mesh")
+
+
+def _solve_and_report(args, problem, world) -> int:
     from distributedlpsolver_tpu_torch.backends import get_backend
 
     cfg = _config_from(args)
-    backend = get_backend(args.backend, device=args.device)
+    backend = get_backend(args.backend, device=args.device if world is None else world.device)
     if args.supervise or args.step_timeout > 0 or args.adaptive_timeout:
         from distributedlpsolver_tpu_torch.supervisor import (
             SolveFailure,
@@ -703,7 +725,7 @@ def cmd_generate(args) -> int:
     return 0
 
 
-def _unported_cmd(name: str, item: int):
+def _unported_cmd(name: str, item):
     def fn(_args) -> int:
         raise NotImplementedError(
             f"cli {name} is not ported to the torch package yet (ROADMAP Queue 1 item {item})"
@@ -816,9 +838,9 @@ def _add_plane_parsers(sub) -> None:
     ap_http.set_defaults(fn=cmd_serve_http, quiet=True)
 
     ap_slice = sub.add_parser(
-        "serve-slice", help="multi-host slice serving (not ported: ROADMAP item 13)",
+        "serve-slice", help="multi-host slice serving (not ported: ROADMAP item 13b)",
     )
-    ap_slice.set_defaults(fn=_unported_cmd("serve-slice", 13))
+    ap_slice.set_defaults(fn=_unported_cmd("serve-slice", "13b"))
 
     ap_rt = sub.add_parser(
         "route",

@@ -493,12 +493,13 @@ def fused_body(carry, step_fn, params, max_iter, max_refactor, reg_grow,
 
 
 def fused_loop(step_fn, params, buf_cap, device, dtype, *, stall_window=0,
-               stall_patience_floor=0.0):
+               stall_patience_floor=0.0, capture=True):
     """The fused loop's masked body in a :class:`device_loop.DeviceLoop`.
 
     Its inputs ``max_iter``, ``it_stop``, ``max_refactor`` and
     ``reg_grow`` are device scalars that each ``run`` sets in place, so a
-    new segment bound needs no new capture."""
+    new segment bound needs no new capture. ``capture=False`` runs every
+    body eagerly on a card too (a body holding gloo collectives)."""
     def i32():
         return torch.zeros((), dtype=torch.int32, device=device)
 
@@ -518,7 +519,7 @@ def fused_loop(step_fn, params, buf_cap, device, dtype, *, stall_window=0,
             stall_window=stall_window, stall_patience_floor=stall_patience_floor,
         )
 
-    return device_loop.DeviceLoop(body, cond, pack_segment_meta, inputs)
+    return device_loop.DeviceLoop(body, cond, pack_segment_meta, inputs, capture=capture)
 
 
 def fused_solve(
@@ -539,6 +540,7 @@ def fused_solve(
     resume=None,
     return_carry=False,
     report=None,
+    capture=True,
 ):
     """The whole IPM solve as one device loop: :func:`fused_body` run by
     ``ipm/device_loop.py`` until :func:`fused_cond` is false. Returns
@@ -556,6 +558,7 @@ def fused_solve(
     scalars of the loop; ``buf_cap`` defaults to :func:`buffer_cap`.
 
     ``report`` (a dict), when given, receives the loop's body counts and the bad-step count.
+    ``capture=False`` runs the loop uncaptured on a card (see :func:`fused_loop`).
     """
     if buf_cap is None:
         buf_cap = buffer_cap(int(max_iter))
@@ -585,7 +588,7 @@ def fused_solve(
     x = carry0[0].x
     loop = fused_loop(
         step_fn, params, buf_cap, x.device, x.dtype, stall_window=stall_window,
-        stall_patience_floor=stall_patience_floor,
+        stall_patience_floor=stall_patience_floor, capture=capture,
     )
     try:
         carry, _ = loop.run(

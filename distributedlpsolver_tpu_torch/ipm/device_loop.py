@@ -17,6 +17,11 @@ program. :class:`DeviceLoop` runs ``body(carry, inputs) -> carry`` until
   replay reports that the loop has exited, the host stops queuing: at most
   ``DEPTH - 1`` bodies run past the exit.
 
+With ``capture=False`` a card runs every body eagerly too, testing
+``cond`` on the host after each (a body whose collectives cannot be
+captured, as gloo's cannot). That is a choice of the caller, reported by
+:meth:`DeviceLoop.report`, never a fallback from a failed capture.
+
 The body must mask every update with ``cond`` of its input carry, so a
 body run after the exit leaves the carry bit for bit unchanged
 (``core.fused_body`` does). ``inputs`` are device scalars the body and
@@ -90,11 +95,13 @@ class DeviceLoop:
     pack thread does.
     """
 
-    def __init__(self, body, cond, meta, inputs: dict, capture_on_exit: bool = False):
+    def __init__(self, body, cond, meta, inputs: dict, capture_on_exit: bool = False,
+                 capture: bool = True):
         self._body, self._cond, self._meta = body, cond, meta
         self.inputs = inputs
         self.device = next(iter(inputs.values())).device
         self._capture_on_exit = capture_on_exit
+        self.capture = capture
         self.runs = self.eager = self.replays = self.masked = self.captures = 0
         # Device memory the capture reserved for the graph's private pool,
         # and the bytes of the static carry each replay updates in place.
@@ -132,13 +139,13 @@ class DeviceLoop:
         self.runs += 1
         for name, v in values.items():
             self.inputs[name].fill_(v)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             t0 = time.perf_counter()
             while bool(self._cond(carry, self.inputs)):
                 carry = self._body(carry, self.inputs)
                 self.eager += 1
             self.eager_s += time.perf_counter() - t0
-            return carry, self._meta(carry).numpy()
+            return carry, self._meta(carry).cpu().numpy()
         caller = torch.cuda.current_stream(self.device)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)

@@ -50,6 +50,7 @@ from distributedlpsolver_tpu_torch.models.problem import (
 from distributedlpsolver_tpu_torch.obs import context as obs_context
 from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
 from distributedlpsolver_tpu_torch.obs import trace as obs_trace
+from distributedlpsolver_tpu_torch.parallel import runtime
 from distributedlpsolver_tpu_torch.utils import checkpoint as ckpt
 from distributedlpsolver_tpu_torch.utils.logging import IterLogger
 
@@ -127,6 +128,7 @@ def solve(
             original.A, original.m, original.n, original.lb, original.ub
         )
     presolve_info = None
+    t_pre0 = time.perf_counter()
     if (
         cfg.presolve
         and original is not None
@@ -152,8 +154,10 @@ def solve(
         # again (the reference's rule).
         inf.block_structure = cache_entry.structure
 
+    t_pre = time.perf_counter() - t_pre0
     scaling = None
     inf_solve = inf
+    t_scale0 = time.perf_counter()
     if cfg.scale:
         if (
             cache_entry is not None
@@ -180,7 +184,9 @@ def solve(
         )
 
     t_setup0 = time.perf_counter()
+    t_scale = t_setup0 - t_scale0
     be.setup(inf_solve, cfg)
+    t_place = time.perf_counter() - t_setup0
     # Warm-cache-supplied preconditioner: a backend with the offer/export
     # seam (sparse-iterative) seeds its PCG preconditioner from the cached
     # final scaling of the last OPTIMAL same-structure solve. Only valid
@@ -199,6 +205,11 @@ def solve(
         if warm_start is None
         else None
     )
+    if cfg.checkpoint_path:
+        # Every rank of a world runs this driver and rank 0 alone writes
+        # the checkpoint: no rank may start (and rank 0 overwrite the
+        # file) before every rank has read it.
+        runtime.barrier()
     warm_label = "cold"
     if isinstance(warm_start, warm_mod.WarmStart):
         state, warm_label = _init_warm_start(
@@ -220,6 +231,9 @@ def solve(
     else:
         state, start_iter = be.starting_point(), 0
     setup_time = time.perf_counter() - t_setup0
+    # The host setup by part, on the backend the solve ran on.
+    be.setup_report = {"presolve_s": t_pre, "scale_s": t_scale, "place_s": t_place,
+                       "start_s": setup_time - t_place}
 
     on_host_state = None
     if cache_fp is not None:
@@ -317,7 +331,8 @@ def solve(
             logger.log(rec)
             if hooks is not None:
                 hooks.on_iterate(it, last)
-            if cfg.checkpoint_every and it % cfg.checkpoint_every == 0 and cfg.checkpoint_path:
+            if (cfg.checkpoint_every and it % cfg.checkpoint_every == 0 and cfg.checkpoint_path
+                    and runtime.is_primary()):  # once per world
                 host_state = be.to_host(state)
                 if scaling is not None:
                     host_state = scaling.unscale_state(host_state)

@@ -25,7 +25,7 @@ CPU. The dense fallback stores A itself and its products are library
 GEMVs, as they are XLA's in the JAX package.
 
 Not here: ``RowShardedOperator``/``shard_rows``, the row-distributed tier
-(ROADMAP Queue 1 item 13).
+(ROADMAP Queue 1 item 13c).
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ to the ``scenario`` backend and charges ``ceil(K / scenario_k_unit)``
 admission units, as in the JAX package. Not ported, and refused with
 ``NotImplementedError`` naming the ROADMAP item: mesh or multi-host
 dispatch (``mesh_devices`` other than 0 or 1, ``reshard``,
-``slice_runner=``; item 13).
+``slice_runner=``; item 13b).
 
 Telemetry: one JSONL record per request, one per dispatched batch, and a
 service summary at shutdown, through utils/logging.IterLogger. The bucket
@@ -112,7 +112,7 @@ from distributedlpsolver_tpu_torch.utils.logging import IterLogger
 _INF = np.inf
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
+def _unported(what: str, item) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the torch package yet (ROADMAP Queue 1 item {item})"
     )
@@ -151,7 +151,7 @@ class ServiceConfig:
     # Deterministic fault injection (tests): called with (dispatch_index,
     # bucket_key) before each batch launch; raising faults that attempt.
     fault_injector: Optional[Callable[[int, tuple], None]] = None
-    # Batch-axis data parallelism: 0/1 only (the mesh is item 13).
+    # Batch-axis data parallelism: 0/1 only (the mesh is item 13b).
     mesh_devices: int = 0
     # Dispatch pipeline depth: bound on popped batches between the
     # scheduler and solve stages.
@@ -274,9 +274,9 @@ class SolveService:
     ):
         self.config = config or ServiceConfig()
         if mesh is not None or self.config.mesh_devices not in (0, 1):
-            raise _unported("mesh dispatch (mesh=, mesh_devices > 1)", 13)
+            raise _unported("mesh dispatch (mesh=, mesh_devices > 1)", "13b")
         if slice_runner is not None:
-            raise _unported("multi-host slice serving (slice_runner=)", 13)
+            raise _unported("multi-host slice serving (slice_runner=)", "13b")
         from distributedlpsolver_tpu_torch.backends.base import check_backend_name
 
         check_backend_name(self.config.solo_backend)
@@ -1686,7 +1686,7 @@ class SolveService:
 
     def reshard(self, exclude: Sequence = ()) -> int:
         """Elastic mesh recovery — not ported (there is no mesh)."""
-        raise _unported("reshard() (elastic mesh recovery)", 13)
+        raise _unported("reshard() (elastic mesh recovery)", "13b")
 
     def apply_ladder(
         self,

@@ -31,7 +31,7 @@ backend:
   loss surfaces as a runtime error out of the dispatch.
 
 The torch package has no mesh and no runtime registry yet (ROADMAP
-Queue 1 item 13): a plan holding a shard-loss injection (DEVICE_LOST, or
+Queue 1 item 13b): a plan holding a shard-loss injection (DEVICE_LOST, or
 a HANG blamed on a ``shard``) raises ``NotImplementedError`` when the
 injector is built.
 
@@ -100,7 +100,7 @@ class FaultInjector:
             if f.kind is FaultKind.DEVICE_LOST or f.shard is not None:
                 raise NotImplementedError(
                     "shard-loss fault injection needs the device runtime registry, which is "
-                    "not ported to the torch package yet (ROADMAP Queue 1 item 13)"
+                    "not ported to the torch package yet (ROADMAP Queue 1 item 13b)"
                 )
         self._plan = list(plan)
         self._fired: List[int] = [0] * len(self._plan)

@@ -62,9 +62,12 @@ load or launch (``ops.kernel_build.KernelError``, re-raised as it is —
 another backend would only hide it), and a lost card (no rung runs on a
 lost device; :class:`SolveFailure` at once). A degradation is recorded in
 the fault history (``action="degrade:<rung>"``) and in the result's
-backend name. The health-probe and mesh-shrink branches serve mesh
-backends only and raise ``NotImplementedError`` if reached (ROADMAP Queue
-1 item 13).
+backend name. A mesh backend (``sharded``) is attributed by its mesh's
+ranks, and its health probe pings the device of this rank (another
+rank's device gives no evidence here, as in the reference's
+multi-process guard): a healthy probe goes on up the ladder as the
+reference does, and an unhealthy one, which would SHRINK the mesh,
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 13b).
 
 Telemetry: with ``config.log_jsonl`` set, fault classifications and
 resume completions are appended to the same JSONL stream as the
@@ -208,9 +211,19 @@ _DEVICE_LOSS_PATTERNS = (
 
 def _mesh_unported(where: str):
     return NotImplementedError(
-        f"{where} serves mesh backends, which are not ported to the torch package yet "
-        "(ROADMAP Queue 1 item 13)"
+        f"{where} of a mesh backend is not ported to the torch package yet "
+        "(ROADMAP Queue 1 item 13b)"
     )
+
+
+def _mesh_unhealthy(be, deadline: float) -> set:
+    """The mesh participants of ``be`` whose probe fails: this rank's
+    device is the only one probed (a peer rank's device gives no
+    evidence from here)."""
+    from distributedlpsolver_tpu_torch.utils.accel import probe_device
+
+    mesh = be.mesh
+    return set() if probe_device(be.device, deadline) else {mesh.rank}
 
 
 def _looks_like_device_loss(e: BaseException) -> bool:
@@ -341,6 +354,15 @@ def supervised_solve(
     base_cfg = config or SolverConfig()
     if config_overrides:
         base_cfg = base_cfg.replace(**config_overrides)
+    from distributedlpsolver_tpu_torch.parallel import runtime
+
+    if runtime.world()["num_processes"] > 1:
+        # Rank 0 alone writes a world's checkpoint, and each rank's
+        # rollback would read its own: the ladder over a world of
+        # processes is the elastic world's.
+        raise NotImplementedError(
+            "supervised solves over a world of several processes are not ported to the "
+            "torch package yet (ROADMAP Queue 1 item 13b)")
 
     tmpdir = None
     ckpt_path = sup.checkpoint_path or base_cfg.checkpoint_path
@@ -477,8 +499,8 @@ def supervised_solve(
             if mesh is not None and fault.kind in (
                 FaultKind.DEVICE_LOST,
                 FaultKind.HANG,
-            ):
-                raise _mesh_unported("the device health probe")
+            ) and _mesh_unhealthy(be, sup.probe_deadline):
+                raise _mesh_unported("the shrink after a failed health probe")
 
             # ---- recovery ladder ---------------------------------------
             if fault.kind is FaultKind.DEVICE_LOST or lost_ids:
@@ -500,9 +522,11 @@ def supervised_solve(
                 fault.action = "recenter"
                 _remove_quiet(ckpt_path)  # fresh, well-centered start
             else:
-                # Rung overflow. SHRINK sits above degradation for a
-                # mesh backend (not ported); otherwise degrade.
-                if getattr(be, "mesh", None) is not None:
+                # Rung overflow. SHRINK sits above degradation: a mesh
+                # backend gets one health probe first (an unhealthy
+                # participant would be shrunk out: not ported).
+                if getattr(be, "mesh", None) is not None and _mesh_unhealthy(
+                        be, sup.probe_deadline):
                     raise _mesh_unported("the mesh-shrink rung")
                 # A lost card takes every rung on it along.
                 lost_card = fault.kind is FaultKind.DEVICE_LOST and not _on_host(be)
@@ -583,18 +607,17 @@ def _emit_fault(events: Optional[IterLogger], fault: FaultRecord) -> None:
 
 
 def _mesh_ids(be) -> Optional[tuple]:
-    if getattr(be, "mesh", None) is not None:
-        raise _mesh_unported("mesh attribution")
-    return None
+    mesh = getattr(be, "mesh", None)
+    return None if mesh is None else mesh.device_ids
 
 
 def _shrunk_backend(be, exclude_ids, min_devices: int):
     """(new_backend, old_count, new_count) for the SHRINK rung, or
-    (None, 0, 0) when the backend has no mesh (the only case in this
-    package); a mesh backend raises."""
-    if getattr(be, "mesh", None) is not None:
-        raise _mesh_unported("the mesh-shrink rung")
-    return None, 0, 0
+    (None, 0, 0) when there is nothing to shrink (no mesh, nothing to
+    exclude); a shrink itself raises (not ported)."""
+    if getattr(be, "mesh", None) is None or not exclude_ids:
+        return None, 0, 0
+    raise _mesh_unported("the mesh-shrink rung")
 
 
 def _device_kw(be) -> dict:

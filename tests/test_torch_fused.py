@@ -29,7 +29,6 @@ from distributedlpsolver_tpu.ipm import solve as jax_solve
 from distributedlpsolver_tpu.ipm.state import IPMState as JaxState
 from distributedlpsolver_tpu.models import generators as jgen
 from distributedlpsolver_tpu.models.problem import LPProblem as JaxLP
-from distributedlpsolver_tpu_torch.backends import dense as tdense
 from distributedlpsolver_tpu_torch.backends import get_backend
 from distributedlpsolver_tpu_torch.io import read_mps
 from distributedlpsolver_tpu_torch.ipm import Status, solve
@@ -183,7 +182,7 @@ def _loop_parts(case="random_general_lp:2", **cfg_kw):
     be = _cpu()
     be.setup(inf, cfg)
     state = be.starting_point()
-    step = tdense._step_fn(be._A, be._data, be._params, be._factor_dtype, be._refine)
+    step = be._step(be._params, be._factor_dtype, be._refine, be._Af)
     carry = tcore.fresh_segment_carry(state, be._reg0(), tcore.buffer_cap(cfg.max_iter),
                                       torch.float64)
     return cfg, be, step, carry

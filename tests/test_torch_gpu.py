@@ -3,8 +3,10 @@ lanes), the fused loop (a captured CUDA graph of the Mehrotra step)
 against the host loop, the batched solver against its CPU path, and the
 bucket engine and solve service (one captured graph per bucket, reused),
 the sparse tier's hybrid-ELL kernel against its plain version and a
-``sparse-iterative`` solve, and the block and scenario tiers' solves, on
-the card.
+``sparse-iterative`` solve, the block and scenario tiers' solves, and
+the sharded backend (an NCCL world of one against ``cuda`` bit for bit,
+a gloo world of two ranks sharing the card, NCCL refused beyond the card
+count), on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -662,3 +664,85 @@ def test_auto_routes_a_two_stage_problem_to_the_scenario_tier(cuda):
     assert r.backend == "auto(scenario)" and r.status == Status.OPTIMAL
     assert r.iterations == ref.iterations
     assert abs(r.objective - ref.objective) <= 1e-9 * (1 + abs(ref.objective))
+
+
+def _nccl_world_of_one():
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+    from distributedlpsolver_tpu_torch.distributed.launcher import free_port
+
+    return world_lib.init_world(world_lib.WorldConfig(
+        coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sharded_nccl_world_of_one_matches_cuda_bit_for_bit(cuda, fused):
+    """A world of one reduces over one rank: the sharded solve is the
+    cuda solve, bit for bit, with the same iterations and K1 launches;
+    under NCCL the fused loop stays captured."""
+    p = random_dense_lp(96, 320, seed=4)
+    world = _nccl_world_of_one()
+    try:
+        assert world.pg_backend == "nccl"
+        be = get_backend("sharded")
+        normal_eq.launches = 0
+        rs = solve(p, backend=be, tol=1e-8, fused_loop=fused)
+        ls = normal_eq.launches
+        if fused:
+            assert be.phase_report[0]["captured"] is True and be.phase_report[0]["captures"] == 1
+    finally:
+        world.close()
+    normal_eq.launches = 0
+    rc = solve(p, backend="cuda", tol=1e-8, fused_loop=fused)
+    assert rs.status == rc.status == Status.OPTIMAL
+    assert rs.iterations == rc.iterations and ls == normal_eq.launches > 0
+    assert np.array_equal(rs.x, rc.x)
+
+
+def test_sharded_stage_clock_turns_capture_off_and_back_on(cuda):
+    """Under NCCL a clocked solve runs its fused loop uncaptured and says
+    why; once the clock is taken away the next solve captures again. The
+    two answers agree bit for bit."""
+    p = random_dense_lp(96, 320, seed=4)
+    world = _nccl_world_of_one()
+    try:
+        from distributedlpsolver_tpu_torch.backends.sharded import StageClock
+
+        be = get_backend("sharded")
+        be.clock = StageClock(be.device)
+        r1 = solve(p, backend=be, tol=1e-8)
+        row = be.phase_report[0]
+        assert row["captured"] is False and "stage clock" in row["capture_off_reason"]
+        assert be.clock.report()["calls"]["allreduce_M"] > 0
+        be.clock = None
+        r2 = solve(p, backend=be, tol=1e-8)
+        assert be.phase_report[0]["captured"] is True
+    finally:
+        world.close()
+    assert r1.iterations == r2.iterations and np.array_equal(r1.x, r2.x)
+
+
+def test_sharded_gloo_world_of_two_on_one_card(cuda, tmp_path):
+    """Two ranks share the card over gloo: both OPTIMAL with the same x
+    bits, K1 at the shard's shape, the loop uncaptured and saying why."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+
+    ref = solve(random_dense_lp(64, 256, seed=1), backend="cuda", tol=1e-8)
+    res = run_world("sharded_solve", {"m": 64, "n": 256, "seed": 1, "tol": 1e-8}, world_size=2,
+                    workdir=str(tmp_path), retries=0, timeout=240, device="cuda",
+                    pg_backend="gloo")
+    assert len({o["x_sha256"] for o in res.values()}) == 1
+    for o in res.values():
+        assert o["status"] == "optimal" and o["pg_backend"] == "gloo"
+        assert abs(o["objective"] - ref.objective) <= 1e-8 * (1 + abs(ref.objective))
+        assert o["shard_shape"] == [64, 128] and o["k1_launches"] > 0
+        row = o["phase_report"][0]
+        assert row["captured"] is False and "gloo" in row["capture_off_reason"]
+
+
+def test_nccl_beyond_the_card_count_raises(cuda):
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="nccl world of"):
+        world_lib.init_world(world_lib.WorldConfig(
+            coordinator="127.0.0.1:1", rank=0, world_size=n, device="cuda"))

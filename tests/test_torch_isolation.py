@@ -64,6 +64,9 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
         "import distributedlpsolver_tpu_torch.net, distributedlpsolver_tpu_torch.net.chaos\n"
         "import distributedlpsolver_tpu_torch.serve.elastic, distributedlpsolver_tpu_torch.obs\n"
         "import distributedlpsolver_tpu_torch.utils.utilization\n"
+        "import distributedlpsolver_tpu_torch.parallel, distributedlpsolver_tpu_torch.backends.sharded\n"
+        "import distributedlpsolver_tpu_torch.distributed.launcher\n"
+        "import distributedlpsolver_tpu_torch.distributed.worker\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -86,7 +89,9 @@ def test_the_serving_modules_are_scanned():
                 "ops/sparse.py", "ops/pcg.py", "ops/ildl.py", "ops/ell_spmv.py",
                 "ops/kernel_build.py", "net/__init__.py", "net/protocol.py", "net/admission.py",
                 "net/registry.py", "net/server.py", "net/router.py", "net/chaos.py",
-                "serve/elastic.py", "obs/report.py", "obs/agg.py", "utils/utilization.py"):
+                "serve/elastic.py", "obs/report.py", "obs/agg.py", "utils/utilization.py",
+                "parallel/mesh.py", "parallel/runtime.py", "distributed/world.py",
+                "distributed/launcher.py", "distributed/worker.py", "backends/sharded.py"):
         assert mod in rel
 
 
@@ -101,7 +106,7 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     assert get_backend("cuda", device="cpu").device.type == "cpu"
     # The default backend, auto, and the PDHG backend raise too: auto never
     # takes its CPU route because the card is missing.
-    for name in ("auto", "pdlp", "sparse-iterative"):
+    for name in ("auto", "pdlp", "sparse-iterative", "sharded"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_backend(name)
         assert get_backend(name, device="cpu").device.type == "cpu"
@@ -126,5 +131,5 @@ def test_cli_lists_the_ports_backends(capsys):
     assert cli.main(["backends"]) == 0
     assert capsys.readouterr().out.split() == [
         "auto", "block", "block-angular", "cpu", "cpu-native", "cpu-sparse", "cuda", "dense",
-        "first-order", "inexact-ipm", "native", "numpy", "pdhg", "pdlp", "scenario", "schur", "scipy",
-        "sparse", "sparse-iterative", "sparse-pcg", "torch"]
+        "first-order", "inexact-ipm", "mesh", "native", "numpy", "pdhg", "pdlp", "scenario", "schur",
+        "scipy", "sharded", "sparse", "sparse-iterative", "sparse-pcg", "torch", "tpu-sharded"]
