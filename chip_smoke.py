@@ -164,10 +164,12 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    flush_s=0.02)``): (a) in process, two ``SolveService``s on the card,
    each after ``warm_buckets`` (IPM at 1e-8, PDHG at 1e-4), each behind a
    ``SolveHTTPServer``, and a ``Router`` + ``RouterHTTPServer`` over both;
-   64 client threads POST to the router the serve phase's cold stream as
-   1024 generated specs, 64 inline ``c/A/b`` bodies and 16 ``mps_text``
-   bodies (``random_request_stream(80, seed=26)``), and the PDHG wave's
-   first 128 loose requests at tol 1e-4, interleaved; every answer OPTIMAL
+   64 client threads POST to the router the first 256 of the serve
+   phase's cold stream as generated specs, 16 inline ``c/A/b`` bodies and
+   4 ``mps_text`` bodies (``random_request_stream(20, seed=26)``), and the
+   PDHG wave's first 32 loose requests at tol 1e-4, interleaved (308
+   requests: the wave's depth is cut from 1,232 to keep the whole script
+   inside its limit; the widths are the serve cell's); every answer OPTIMAL
    or the JAX package's verdict, every 32nd IPM answer against HiGHS
    (1e-8), every OPTIMAL PDHG answer within the tol on its padded problem
    and ``PDHG_REQUEST_KKT_BOUND`` on its own data, K1's launches (reset
@@ -175,7 +177,7 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    selection + bodies, no program built and no graph captured, and
    ``/healthz`` ``devices_healthy: 1`` from the torch probe on each
    backend; printed: requests/s, p50/p99 through HTTP, the routed counts,
-   and the same 1024 IPM requests through ``svc.submit`` on a fresh
+   and the same 256 generated requests through ``svc.submit`` on a fresh
    service. (b) As processes: two ``cli serve-http`` backends (``--device``
    defaulting to the card, ``--buckets`` + ``--warm-buckets``,
    ``--registry``, journals) and ``cli route --registry``; 32 async
@@ -269,7 +271,33 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    to its problem (row violation ≤ 1e-7 × (1 + max |row bound|), rel_gap
    ≤ 1e-8, host |cᵀx − bᵀy| ≤ 1e-7 relative); with two cards or more, an NCCL
    world over the cards on the same problem;
-21. prints the ``kernels`` JSON line, the card line, and last the result
+21. the serving slice and the elastic shrink (``slice_phase``;
+   ``--slice-only`` runs the build and this phase alone): K1 at a rank's
+   lane block of the serve bucket over a world of 2 (f64 128 × 128 × 512)
+   against its plain version and timed beside ``torch.einsum`` and its
+   bound; ``bucket_probe`` (``random_batched_lp(256, 128, 512, seed=0)``
+   then ``seed=1``, f64, tol 1e-8, every lane active) on an NCCL world of
+   one and a gloo world of 2 ranks sharing the card, each rank solving
+   its lane block through its own captured program and one all-reduce
+   gathering the bucket: no build or capture on the second dispatch, the
+   cache sizes equal on every rank, K1 = start + warm selection + the
+   rank's bodies, lane by lane the one-process dispatch's status and
+   iterations with objectives within 1e-8 (the world of one x bit for
+   bit), the gathered x equal on both gloo ranks (the lanes bit for bit
+   with the one-process dispatch counted); ``cli serve-slice --world-size
+   2 --pg-backend gloo`` behind its HTTP front-end with a registry: the
+   first 96 of the serve phase's cold stream through 64 clients (every
+   answer OPTIMAL, every 32nd against HiGHS), then 32 async requests and
+   a SIGKILL of rank 1 — the world dies as a unit, the supervisor
+   relaunches a world of one on the same port and journal
+   (``world_reinit`` with ``recovery_overhead_s``), every acknowledged
+   id resolves, no duplicate solve; the SHRINK rung on ``sharded`` over a
+   gloo world of 4 (``random_dense_lp(2048, 10240, seed=0)``, DEVICE_LOST
+   of rank 3 at iteration 3: ``shrink:4->3``, OPTIMAL within 1e-8 of
+   ``cuda``'s objective, the survivors' x bits equal, each survivor's
+   answer held to the problem; with ``min_devices=4``: ``degrade:cuda``);
+   ``ServiceConfig(mesh_devices=cards + 1)`` raises naming the card count;
+22. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -1244,13 +1272,15 @@ def pdhg_wave(torch, ne, svc, card):
 # -- the network plane (cli serve-http / route / elastic over the bucket engine) ------
 
 PLANE_CLIENTS = 64
-# Generated-spec requests: random_request_stream(1024, seed=21) (the serve
-# phase's cold wave) as specs. The JAX package's verdict that is not
-# OPTIMAL there: request 1007 stops at the iteration limit in its bucket and
+# Generated-spec requests: the first PLANE_GEN of random_request_stream(1024,
+# seed=21) (the serve phase's cold wave) as specs (the stream's prefix: its
+# draws run in order). The JAX package's verdict that is not OPTIMAL in the
+# whole stream: request 1007 stops at the iteration limit in its bucket and
 # its solo solve (scripts/port_serve_jax_verdicts.py).
+PLANE_GEN = 256
 PLANE_GEN_JAX_NOT_OPTIMAL = {1007: ["iteration_limit"]}
-PLANE_LOOSE = 128  # the first loose requests of the PDHG wave's stream
-PLANE_INLINE, PLANE_MPS = 64, 16  # requests 0-63 / 64-79 of the tight stream
+PLANE_LOOSE = 32  # the first loose requests of the PDHG wave's stream
+PLANE_INLINE, PLANE_MPS = 16, 4  # requests 0-15 / 16-19 of the tight stream
 
 
 def _http_json(url, body=None, timeout=600.0, raw=None, ctype="application/json"):
@@ -1276,8 +1306,10 @@ def _http_json(url, body=None, timeout=600.0, raw=None, ctype="application/json"
 
 def plane_wave_requests():
     """The HTTP wave: (kind, index, body, content type, problem, tol) of the
-    1024 generated specs, 64 inline ``c/A/b`` bodies, 16 MPS text bodies and
-    128 loose requests at tol 1e-4, interleaved."""
+    PLANE_GEN generated specs, PLANE_INLINE inline ``c/A/b`` bodies,
+    PLANE_MPS MPS text bodies and PLANE_LOOSE loose requests at tol 1e-4,
+    interleaved (one inline body every 16 specs, one MPS body every 64,
+    one loose request every 8)."""
     import tempfile
 
     import numpy as np
@@ -1292,7 +1324,7 @@ def plane_wave_requests():
     shapes = ((96, 384), (BM, BN))
     rng = np.random.default_rng(21)  # random_request_stream's draws, as specs
     gen = []
-    for k in range(1024):
+    for k in range(PLANE_GEN):
         m, n = shapes[int(rng.integers(len(shapes)))]
         gen.append({"m": m, "n": n, "seed": int(rng.integers(2**31 - 1))})
     cold = list(random_request_stream(len(gen), shapes=shapes, seed=21))
@@ -1340,7 +1372,7 @@ def _results_by_name(svcs):
 def plane_inprocess(torch, ne, card):
     """Step 17(a) of the module note: two services behind HTTP front-ends
     and a router, the HTTP wave through the router, its checks; then the
-    same 1024 IPM requests through ``svc.submit`` in process."""
+    same generated IPM requests through ``svc.submit`` in process."""
     import threading
     from queue import Empty, Queue
 
@@ -3342,9 +3374,404 @@ def sharded_phase(torch, ne, card):
     return rows
 
 
+# -- the serving slice and the elastic shrink (item 13b) ------------------------------
+
+# The serve bucket, split over a world's batch mesh.
+SLICE_BUCKET = dict(m=BM, n=BN, batch=SERVE_BATCH, seed=0, tol=1e-8)
+SLICE_WORLD_TIMEOUT_S = 300.0
+SLICE_STREAM, SLICE_ASYNC = 96, 32  # the serve phase's cold stream: sync, then async
+SHRINK_FAULT_ITERATION = 3
+SLICE_OBJ_TOL = 1e-8
+
+
+def lane_digests(x) -> list:
+    import hashlib
+
+    import numpy as np
+
+    return [hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest() for v in x]
+
+
+def slice_probe(n_ranks, pg_backend, refs, card, block_refs=None) -> dict:
+    """``run_world("bucket_probe", SLICE_BUCKET)``: two dispatches of the
+    serve bucket over a world's batch mesh, each rank solving its block.
+    Fails unless the second dispatch builds and captures nothing, the
+    cache sizes agree, every rank's loop was captured (no collective in
+    it), the K1 launches are start + warm selection + the rank's bodies,
+    and lane by lane status and iterations equal the one-process
+    dispatch's (``refs``) with objectives within ``SLICE_OBJ_TOL``; a
+    world of one must give its x bit for bit, and rank 0's lanes must be
+    bit for bit those of ``block_refs`` (its block solved alone in this
+    process) where given."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+
+    name = f"{pg_backend} world of {n_ranks}"
+    work = os.path.join(ROOT, "build", "dlps_torch", f"slice_probe_{pg_backend}{n_ranks}")
+    t0 = time.perf_counter()
+    try:
+        res = run_world("bucket_probe", SLICE_BUCKET, world_size=n_ranks, workdir=work,
+                        retries=0, timeout=SLICE_WORLD_TIMEOUT_S, device="cuda",
+                        pg_backend=pg_backend)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"slice {name}: {e}")
+    wall = time.perf_counter() - t0
+    if sorted(res) != list(range(n_ranks)):
+        fail(f"slice {name}: results from ranks {sorted(res)}")
+    launches, bit_equal = 0, []
+    for rank, out in res.items():
+        if out["world_size"] != n_ranks or out["pg_backend"] != pg_backend:
+            fail(f"slice {name}: rank {rank} in a {out['pg_backend']} world of {out['world_size']}")
+        if out["warm_recompiles"] != 0 or len(set(out["bucket_cache_sizes"])) != 1:
+            fail(f"slice {name}: rank {rank} warm recompiles {out['warm_recompiles']}, cache "
+                 f"sizes {out['bucket_cache_sizes']}")
+        for k, (d, ref) in enumerate(zip(out["dispatches"], refs)):
+            row = d["phase_report"]
+            tag = f"slice {name}: rank {rank} dispatch {k}"
+            if k == 1 and (d["programs_built"] or d["graphs_captured"]):
+                fail(f"{tag}: built {d['programs_built']}, captured {d['graphs_captured']}")
+            if not row["captured"] or row["executors"] != n_ranks:
+                fail(f"{tag}: captured {row['captured']} over {row['executors']} executors")
+            if row["launches"] != 2 + row["executor_bodies"][rank] or row["launches"] <= 2:
+                fail(f"{tag}: {row['launches']} K1 launches for "
+                     f"{row['executor_bodies'][rank]} bodies")
+            launches += row["launches"]
+            if d["status"] != [st.value for st in ref.status] or d["iterations"] != ref.iterations.tolist():
+                fail(f"{tag}: statuses or iterations differ from the one-process dispatch")
+            rel = max(abs(a - b) / (1.0 + abs(b)) for a, b in zip(d["objectives"], ref.objective))
+            if not rel <= SLICE_OBJ_TOL:
+                fail(f"{tag}: objectives {rel:.3e} from the one-process dispatch")
+            same = sum(a == b for a, b in zip(d["x_lane_sha256"], lane_digests(ref.x)))
+            if n_ranks == 1 and same != len(ref.x):
+                fail(f"{tag}: x of {len(ref.x) - same} lanes differs from the one-process dispatch")
+            bit_equal.append(same)
+    if len({out["dispatches"][1]["x_sha256"] for out in res.values()}) != 1:
+        fail(f"slice {name}: the ranks' gathered x differ")
+    block_equal = None
+    if block_refs is not None:
+        lo, hi = res[0]["lane_block"]
+        block_equal = [sum(a == b for a, b in zip(d["x_lane_sha256"][lo:hi], lane_digests(r.x)))
+                       for d, r in zip(res[0]["dispatches"], block_refs)]
+        if block_equal != [hi - lo] * len(block_refs):
+            fail(f"slice {name}: rank 0's lanes differ from its block solved alone: "
+                 f"{block_equal} of {hi - lo} bit for bit")
+    o = res[0]["dispatches"][1]
+    row = {"world": name, "ranks": n_ranks, "world_wall_s": wall,
+           "lane_block": res[0]["lane_block"], "bucket_cache_sizes": res[0]["bucket_cache_sizes"],
+           "warm_recompiles": 0, "captured": True,
+           "lanes_bit_equal_to_one_process": bit_equal, "lanes": len(refs[0].x),
+           "rank0_lanes_bit_equal_to_its_block_alone": block_equal,
+           "dispatch_ms_rank0": [1e3 * d["solve_s"] for d in res[0]["dispatches"]],
+           "one_process_dispatch_ms": [1e3 * r.solve_time for r in refs],
+           "gather_ms_rank0": [d["phase_report"]["gather_ms"] for d in res[0]["dispatches"]],
+           "bodies": o["phase_report"]["bodies"],
+           "executor_bodies": o["phase_report"]["executor_bodies"],
+           "normal_eq_launches": launches}
+    print(f"slice_probe {since()} " + json.dumps(row) + f" [{card}]")
+    return row
+
+
+def slice_cli(card) -> dict:
+    """``cli serve-slice --world-size 2 --pg-backend gloo`` on the card
+    behind its HTTP front-end with a registry: the first SLICE_STREAM of
+    the serve phase's cold stream through 64 clients (every answer
+    OPTIMAL, the JAX package's verdict there, every 32nd against HiGHS),
+    then SLICE_ASYNC async requests and a SIGKILL of rank 1: the world
+    dies as a unit, the supervisor relaunches a world of one on the same
+    port and journal with a ``world_reinit`` record; every acknowledged
+    id resolves optimal/timeout, never 404, with no duplicate solve."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+    from distributedlpsolver_tpu_torch.net.chaos import free_port, journal_duplicate_solves
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="dlps-slice-", dir=os.path.join(ROOT, "build"))
+    world_dir, journal = os.path.join(work, "world"), os.path.join(work, "journal")
+    ladder, reg = os.path.join(work, "ladder.json"), os.path.join(work, "registry.json")
+    with open(ladder, "w") as fh:
+        json.dump([{"m": BM, "n": BN, "batch": SERVE_BATCH}], fh)
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "distributedlpsolver_tpu_torch.cli", "serve-slice",
+           "--world-size", "2", "--pg-backend", "gloo", "--port", str(port),
+           "--slice-workdir", world_dir, "--journal-dir", journal, "--registry", reg,
+           "--buckets", ladder, "--warm-buckets", "--batch", str(SERVE_BATCH), "--flush-ms", "20",
+           "--slice-id", "slice0"]
+    shapes = ((96, 384), (BM, BN))
+    rng = np.random.default_rng(21)  # the cold stream's draws, as specs
+    specs = []
+    for _ in range(SLICE_STREAM + SLICE_ASYNC):
+        m, n = shapes[int(rng.integers(len(shapes)))]
+        specs.append({"m": m, "n": n, "seed": int(rng.integers(2**31 - 1))})
+    out = {}
+    t0 = time.perf_counter()
+    log = open(os.path.join(work, "supervisor.log"), "w")
+    sup = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def tail():
+        log.flush()
+        parts = []
+        for fn in sorted(os.listdir(world_dir)) if os.path.isdir(world_dir) else []:
+            if fn.endswith(".log"):
+                parts.append(f"--- {fn} ---\n" + open(os.path.join(world_dir, fn)).read()[-2500:])
+        return "\n".join(parts + [open(os.path.join(work, "supervisor.log")).read()[-2000:]])
+
+    def wait(pred, timeout, what):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline or sup.poll() is not None:
+                fail(f"slice cli: {what}\n{tail()}")
+            time.sleep(0.2)
+
+    try:
+        wait(lambda: _http_json(url + "/healthz", timeout=5)[0] == 200, 300, "never came up")
+        out["up_s"] = time.perf_counter() - t0
+        st = _http_json(url + "/statusz")[1]["stats"]
+        if st.get("mesh_devices") != 2 or not str(st.get("device", "")).startswith("cuda"):
+            fail(f"slice cli: /statusz mesh_devices {st.get('mesh_devices')} on {st.get('device')}")
+        def client(spec):
+            # As the plane's clients: back off on a refused or shed request.
+            t_req = time.perf_counter()
+            while True:
+                code, resp, _ = _http_json(url + "/v1/solve", spec)
+                if code in (429, 503, 599) and time.perf_counter() - t_req < 300:
+                    time.sleep(min(float(resp.get("retry_after_s", 0.05) or 0.05), 1.0))
+                    continue
+                return code, resp, time.perf_counter() - t_req
+
+        t_wave = time.perf_counter()
+        with ThreadPoolExecutor(64) as ex:
+            answers = list(ex.map(client, specs[:SLICE_STREAM]))
+        wave_s = time.perf_counter() - t_wave
+        worst = 0.0
+        for k, (code, resp, _) in enumerate(answers):
+            if code != 200 or resp.get("status") != "optimal":
+                fail(f"slice cli: request {k}: {code} {str(resp)[:300]}")
+            if k % SERVE_SAMPLE == 0:
+                h = highs_tight_objective(random_dense_lp(**specs[k]))
+                e = abs(resp["objective"] - h) / (1.0 + abs(h))
+                worst = max(worst, e)
+                if not e <= 1e-8:
+                    fail(f"slice cli: request {k} objective {resp['objective']!r} vs HiGHS {h!r}")
+        lat = sorted(a[2] for a in answers)
+        out.update(requests=SLICE_STREAM, wave_s=wave_s, rps_before_kill=SLICE_STREAM / wave_s,
+                   latency_ms_p50=1e3 * lat[len(lat) // 2],
+                   latency_ms_p99=1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                   highs_max_rel=worst, published=len([f for f in os.listdir(
+                       os.path.join(world_dir, "ctrl-gen0")) if f.endswith(".npz")]))
+        st = _http_json(url + "/statusz")[1]["stats"]
+        out["rank0_k1_launches_before_kill"] = st["dispatch_totals"].get("launches", 0)
+        ids = []
+        for sp in specs[SLICE_STREAM:]:
+            code, resp, _ = _http_json(url + "/v1/solve", {**sp, "async": True})
+            if code != 202:
+                fail(f"slice cli: async request: {code} {resp}")
+            ids.append(resp["id"])
+        with open(os.path.join(world_dir, "hb-gen0", "rank1.hb")) as fh:
+            os.kill(json.load(fh)["pid"], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        reinit = os.path.join(world_dir, "world.jsonl")
+        wait(lambda: os.path.exists(reinit), 300, "no world_reinit after the kill")
+        wait(lambda: _http_json(url + "/healthz", timeout=5)[0] == 200, 300, "no relaunch")
+        out["relaunch_s"] = time.perf_counter() - t_kill
+        with open(reinit) as fh:
+            ev = [json.loads(ln) for ln in fh if ln.strip()]
+        if (ev[0]["event"] != "world_reinit" or ev[0]["world_size"] != 1
+                or not ev[0]["recovery_overhead_s"] > 0):
+            fail(f"slice cli: {ev}")
+        out["world_reinit"] = ev[0]
+        verdicts = {}
+        deadline = time.monotonic() + 300
+        while len(verdicts) < len(ids):
+            if time.monotonic() > deadline:
+                fail(f"slice cli: unresolved ids {sorted(set(ids) - set(verdicts))}")
+            for rid in ids:
+                if rid in verdicts:
+                    continue
+                code, resp, _ = _http_json(f"{url}/v1/solve/{rid}", timeout=30)
+                if code == 404:
+                    fail(f"slice cli: id {rid} answered 404 after the relaunch")
+                if code in (200, 504) and "status" in resp:
+                    verdicts[rid] = resp["status"]
+            time.sleep(0.1)
+        if not set(verdicts.values()) <= {"optimal", "timeout"}:
+            fail(f"slice cli: verdicts {verdicts}")
+        dups = journal_duplicate_solves(journal)
+        if dups:
+            fail(f"slice cli: {dups} duplicate solves")
+        out["verdicts"] = {v: sum(x == v for x in verdicts.values()) for v in set(verdicts.values())}
+        out["duplicate_solves"] = dups
+        st = _http_json(url + "/statusz")[1]["stats"]
+        with open(reg) as fh:
+            entry = json.load(fh)["backends"].get(url, {})
+        if st.get("mesh_devices") != 1 or entry.get("world_size") != 1 or entry.get(
+                "slice_id") != "slice0":
+            fail(f"slice cli: after the relaunch mesh_devices {st.get('mesh_devices')}, "
+                 f"registry {entry}")
+        if _http_json(url + "/quitquitquit", {}, timeout=60)[0] != 200:
+            fail("slice cli: the drain was refused")
+        try:
+            rc = sup.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            fail(f"slice cli: the supervisor did not exit after the drain\n{tail()}")
+        if rc != 0:
+            fail(f"slice cli: the supervisor exited {rc}\n{tail()}")
+    finally:
+        if sup.poll() is None:
+            sup.kill()
+            sup.wait(timeout=60)
+        for gen in os.listdir(world_dir) if os.path.isdir(world_dir) else []:
+            hb_dir = os.path.join(world_dir, gen)
+            if not (gen.startswith("hb-gen") and os.path.isdir(hb_dir)):
+                continue
+            for fn in os.listdir(hb_dir):  # no rank outlives the phase
+                try:
+                    with open(os.path.join(hb_dir, fn)) as fh:
+                        os.kill(json.load(fh)["pid"], signal.SIGKILL)
+                except (OSError, ValueError, KeyError):
+                    pass
+        log.close()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"slice_cli {since()} " + json.dumps(out) + f" [{card}]")
+    shutil.rmtree(work, ignore_errors=True)  # journals and logs: kept only on a failure
+    return out
+
+
+def slice_shrink(ref, p_main, card) -> dict:
+    """The SHRINK rung on ``sharded`` over a gloo world of 4 ranks sharing
+    the card: ``random_dense_lp(2048, 10240, seed=0)`` supervised with
+    DEVICE_LOST of rank 3 at iteration SHRINK_FAULT_ITERATION; then the
+    same plan with ``min_devices=4`` (``degrade:cuda``)."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+
+    fault = [{"kind": "device_lost", "iteration": SHRINK_FAULT_ITERATION, "device_ids": [3]}]
+    case = {**SHARDED_MAIN, "tol": 1e-8, "faults": fault, "supervisor": {"backoff_base": 0.001}}
+    cases = [{**case, "return_xy": True},
+             {**case, "supervisor": {"backoff_base": 0.001, "min_devices": 4}}]
+    work = os.path.join(ROOT, "build", "dlps_torch", "slice_shrink_gloo4")
+    t0 = time.perf_counter()
+    try:
+        res = run_world("supervised_solve", {"cases": cases}, world_size=4, workdir=work,
+                        retries=0, timeout=SLICE_WORLD_TIMEOUT_S, device="cuda", pg_backend="gloo")
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"shrink: {e}")
+    wall = time.perf_counter() - t0
+    rel = lambda o: abs(o["objective"] - ref.objective) / (1.0 + abs(ref.objective))
+    left = res[3]["cases"][0]
+    if not left["left"] or left["faults"][0]["action"] != "shrink:4->3":
+        fail(f"shrink: rank 3 {left}")
+    shas, answers, overhead = set(), [], []
+    for rank in (0, 1, 2):
+        o = res[rank]["cases"][0]
+        f = o["faults"]
+        if (o["left"] or o["status"] != "optimal" or o["backend"] != "sharded"
+                or [x["action"] for x in f] != ["shrink:4->3"] or f[0]["devices"] != [3]
+                or not f[0]["recovery_overhead_s"] > 0 or not rel(o) <= SHARDED_OBJ_TOL):
+            fail(f"shrink: rank {rank} {o['status']} on {o['backend']}, faults {f}, objective "
+                 f"{o['objective']!r} against cuda's {ref.objective!r}")
+        shas.add(o["x_sha256"])
+        answers.append(sharded_answer_check(f"shrink rank {rank}", p_main, o.pop("x"),
+                                            o.pop("y"), o["rel_gap"]))
+        overhead.append(f[0]["recovery_overhead_s"])
+    if len(shas) != 1:
+        fail(f"shrink: the survivors' x differ: {shas}")
+    for rank in range(4):
+        o = res[rank]["cases"][1]
+        if (o["status"] != "optimal" or o["backend"] != "cuda"
+                or o["faults"][0]["action"] != "degrade:cuda" or not rel(o) <= SHARDED_OBJ_TOL):
+            fail(f"shrink min_devices=4: rank {rank} {o}")
+    o = res[0]["cases"][0]
+    row = {"world": "gloo world of 4", "action": "shrink:4->3", "status": o["status"],
+           "backend": o["backend"], "iterations": o["iterations"], "cuda_iterations": ref.iterations,
+           "objective_rel_cuda": rel(o), "x_bits_equal_across_survivors": True,
+           "recovery_overhead_s": overhead, "answers": answers, "wall_s_rank0": o["wall_s"],
+           "min_devices_4": {"action": "degrade:cuda", "backend": "cuda",
+                             "iterations": res[0]["cases"][1]["iterations"],
+                             "recovery_overhead_s": res[0]["cases"][1]["faults"][0][
+                                 "recovery_overhead_s"]},
+           "world_wall_s": wall}
+    print(f"slice_shrink {since()} " + json.dumps(row) + f" [{card}]")
+    return row
+
+
+def slice_phase(torch, ne, card):
+    """The serving slice and the elastic shrink (module note, step 21).
+    Returns the kernels-line row of K1 at a rank's lane block."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import batched as tb
+    from distributedlpsolver_tpu_torch.ipm import SolverConfig, solve
+    from distributedlpsolver_tpu_torch.models import random_batched_lp, random_dense_lp
+    from distributedlpsolver_tpu_torch.models.generators import BatchedLP
+    from distributedlpsolver_tpu_torch.serve import ServiceConfig, SolveService
+
+    _T0[0] = time.perf_counter()
+    # 1. K1 at a rank's lane block of the serve bucket over a world of 2.
+    half = SERVE_BATCH // 2
+    parity = kernel_parity(torch, ne, BM, BN, "float64", batch=half)
+    timing = kernel_timing(torch, ne, BM, BN, "float64", iters=20, warm=3, batch=half)
+    print(f"slice_k1 {since()} {half}x{BM}x{BN}: max_abs_err {parity[1]:.3e} (tol "
+          f"{TOL['float64']:.0e}), each lane the unbatched kernel's bits; kernel "
+          f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, einsum "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bound_by']}), share {timing['bound_share']:.3f} [{card}]")
+
+    # 2. bucket_probe: the one-process dispatches first (warm), then an
+    # NCCL world of one and a gloo world of 2 sharing the card.
+    cfg = SolverConfig(tol=SLICE_BUCKET["tol"], verbose=False)
+    B, seed = SLICE_BUCKET["batch"], SLICE_BUCKET["seed"]
+    batches = [random_batched_lp(B, BM, BN, seed=s) for s in (seed, seed + 1)]
+    tb.solve_bucket(batches[0], np.ones(B, bool), cfg, max_iter=1)  # build and capture
+    refs = [tb.solve_bucket(b, np.ones(B, bool), cfg) for b in batches]
+    # The first rank's block alone in this process: the same program on
+    # the same lanes as that rank's.
+    block = [tb.solve_bucket(BatchedLP(c=b.c[:B // 2], A=b.A[:B // 2], b=b.b[:B // 2],
+                                       name=b.name), np.ones(B // 2, bool), cfg)
+             for b in batches]
+    probes = {k: slice_probe(k, pb, refs, card, block if k == 2 else None)
+              for k, pb in ((1, "nccl"), (2, "gloo"))}
+
+    # 3. cli serve-slice over gloo on the card, through a rank kill.
+    cli_row = slice_cli(card)
+
+    # 4. The SHRINK rung on sharded over a gloo world of 4.
+    p_main = random_dense_lp(SHARDED_MAIN["m"], SHARDED_MAIN["n"], seed=SHARDED_MAIN["seed"])
+    ref = solve(p_main, backend="cuda", tol=1e-8)
+    slice_shrink(ref, p_main, card)
+
+    # 5. A local batch mesh names distinct cards: beyond the card count it
+    # raises, naming the count; nothing falls back.
+    cards = torch.cuda.device_count()
+    try:
+        svc = SolveService(ServiceConfig(mesh_devices=cards + 1), auto_start=False)
+    except ValueError as e:
+        if f"only {cards} local devices" not in str(e):
+            fail(f"mesh_devices={cards + 1} on {cards} card(s): {e}")
+        print(f"slice_mesh_devices mesh_devices={cards + 1} on {cards} card(s) raises: {e}")
+    else:
+        svc.shutdown()
+        fail(f"mesh_devices={cards + 1} on {cards} card(s) built a service")
+    print(f"slice phase {since()} (serve-slice {cli_row['wall_s']:.1f} s)")
+    return [{
+        "name": f"normal_eq (slice lane block {half}x{BM}x{BN})", "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        "launches": probes[2]["normal_eq_launches"],
+        "launches_path": "bucket_probe over a gloo world of 2 on one card (both ranks, two dispatches)",
+        "max_abs_err": parity[1], "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "bound_share": timing["bound_share"], "library_ms": timing["library_ms"],
+        "dtypes": ["float64"], "shape": timing["shape"],
+    }]
+
+
 def main(only: str = "") -> int:
     """The whole run, or with ``only`` ("sparse", "plane", "block",
-    "scenario" or "sharded") the build and that phase alone."""
+    "scenario", "sharded" or "slice") the build and that phase alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3399,6 +3826,9 @@ def main(only: str = "") -> int:
     # 20. The column-sharded dense backend.
     if only in ("", "sharded"):
         rows += sharded_phase(torch, ne, card)
+    # 21. The serving slice and the elastic shrink.
+    if only in ("", "slice"):
+        rows += slice_phase(torch, ne, card)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3566,7 +3996,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--highs-storm20k"]:
         sys.exit(highs_storm20k())
     only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block",
-            "--scenario-only": "scenario", "--sharded-only": "sharded"}
+            "--scenario-only": "scenario", "--sharded-only": "sharded", "--slice-only": "slice"}
     if sys.argv[1:] and sys.argv[1] not in only:
         raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
     sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

@@ -198,3 +198,13 @@ class AutoBackend(SolverBackend):
 
     def block_until_ready(self, obj) -> None:
         self._inner.block_until_ready(obj)
+
+    @property
+    def mesh(self):
+        return getattr(self._inner, "mesh", None) if self._inner else None
+
+    def reshard(self, mesh):
+        # The auto decision already happened at setup; a shrink re-places
+        # the CHOSEN backend — the inner reshard, not a fresh AutoBackend,
+        # so the new mesh is not second-guessed.
+        return self._inner.reshard(mesh) if self._inner else None

@@ -40,10 +40,23 @@ with a padding mask and per-slot warm lanes through ONE cached program per
 bucket key (:class:`_BucketProgram`: static device buffers and one
 captured graph of the same masked loop, replayed by every later dispatch).
 
+``mesh=`` splits the batch axis over a mesh (``parallel/mesh.py``): each
+executor — a rank of a process-group mesh, or a device of a local mesh —
+places and solves only its contiguous block of lanes, through its own
+cached program of B/K lanes keyed by (bucket, mesh). The loop holds no
+collective: each lane is masked on its own, so a lane's iterate does not
+depend on the other blocks (the JAX package's global ``any(active)``
+guard exists only because one XLA program runs every lane), and the
+captured graph stays captured even over gloo. After the loop the results
+are gathered: a local mesh concatenates its blocks on the host; a world
+runs ONE ``all_reduce`` of a zero-filled buffer in which each rank wrote
+its own rows (a sum with zeros keeps every bit). A batch that does not
+divide the mesh raises ``ValueError``. A local mesh runs its blocks one
+after another in this process.
+
 Not ported here: the two-phase and PCG batched schedules (reachable only
 on a TPU or by ``solve_mode="pcg"``, which raises), the bucket df32
-precision ladder and fused iterations (they raise), and the mesh
-(``mesh=`` raises).
+precision ladder and fused iterations (they raise).
 """
 
 from __future__ import annotations
@@ -896,18 +909,27 @@ def place_bucket(batch: BatchedLP, active, config: Optional[SolverConfig] = None
     serving pipeline. Casts to the solve dtype and copies to the device
     asynchronously from pinned memory on the current stream (the service
     runs it on its pack stream). ``solve_bucket`` accepts the returned
-    (batch, active) verbatim. ``mesh`` is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "bucket placement over a mesh is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 13b)")
+    (batch, active) verbatim.
+
+    With ``mesh`` (the batch axis split over it) each field is a tuple of
+    this process's lane blocks, one per executor, each on its executor's
+    device (a rank of a world places only its own block); ``device`` is
+    then the mesh's."""
     cfg = config or SolverConfig()
-    dev = resolve_device(device)
     dtype = dense._torch_dtype(cfg.dtype)
     act = np.asarray(active, dtype=bool) if not isinstance(active, torch.Tensor) else active
     Bsz = np.asarray(batch.A).shape[0] if not isinstance(batch.A, torch.Tensor) else batch.A.shape[0]
     if tuple(act.shape) != (Bsz,):
         raise ValueError(f"active mask shape {tuple(act.shape)} != ({Bsz},)")
+    if mesh is not None:
+        blocks = mesh.lane_blocks(Bsz)
+        put = lambda v, dt, d, lo, hi: _host_tensor(v[lo:hi], d).to(
+            device=d, dtype=dt, non_blocking=True)
+        fields = {f: tuple(put(getattr(batch, f), dtype, d, lo, hi) for d, lo, hi in blocks)
+                  for f in ("c", "A", "b")}
+        return (BatchedLP(name=batch.name, **fields),
+                tuple(put(act, torch.bool, d, lo, hi) for d, lo, hi in blocks))
+    dev = resolve_device(device)
     put = lambda v, dt: _host_tensor(v, dev).to(device=dev, dtype=dt, non_blocking=True)
     placed = BatchedLP(c=put(batch.c, dtype), A=put(batch.A, dtype), b=put(batch.b, dtype),
                        name=batch.name)
@@ -919,13 +941,10 @@ def place_warm(warm: Optional[IPMState], warm_mask, shape, config: Optional[Solv
     """Host→device transfer of a bucket's warm-start lanes — the warm half
     of :func:`place_bucket`. ``warm`` is an IPMState of (B, n)/(B, m) host
     arrays (None = cold dispatch: zeros), ``warm_mask`` the (B,)
-    offered-slots mask; ``shape`` is the bucket's (B, m, n)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "bucket placement over a mesh is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 13b)")
+    offered-slots mask; ``shape`` is the bucket's (B, m, n). With ``mesh``
+    each lane field is a tuple of this process's blocks, as
+    :func:`place_bucket` places them."""
     cfg = config or SolverConfig()
-    dev = resolve_device(device)
     dtype = dense._torch_dtype(cfg.dtype)
     B, m, n = shape
     if warm is None:
@@ -936,8 +955,151 @@ def place_warm(warm: Optional[IPMState], warm_mask, shape, config: Optional[Solv
         wm = np.asarray(warm_mask, dtype=bool)
     if wm.shape != (B,):
         raise ValueError(f"warm mask shape {wm.shape} != ({B},)")
+    if mesh is not None:
+        blocks = mesh.lane_blocks(B)
+        put = lambda v, dt: tuple(_host_tensor(v[lo:hi], d).to(device=d, dtype=dt, non_blocking=True)
+                                  for d, lo, hi in blocks)
+        return IPMState(*(put(v, dtype) for v in lanes)), put(wm, torch.bool)
+    dev = resolve_device(device)
     put = lambda v, dt: _host_tensor(v, dev).to(device=dev, dtype=dt, non_blocking=True)
     return IPMState(*(put(v, dtype) for v in lanes)), put(wm, torch.bool)
+
+
+_CODE_MAP = {
+    _OPTIMAL: Status.OPTIMAL,
+    _MAXITER: Status.ITERATION_LIMIT,
+    _NUMERR: Status.NUMERICAL_ERROR,
+    _STALL: Status.STALLED,
+}
+_STATUS_CODE = {v: k for k, v in _CODE_MAP.items()}
+
+
+def _bucket_block(A, b, c, act, warm_states, wm, cfg, dev, mesh_key=None):
+    """One executor's dispatch of a bucket (or of its lane block over a
+    mesh) through the cached program of its key: (host fields, loop
+    iterations, accounting, built)."""
+    dtype = dense._torch_dtype(cfg.dtype)
+    fdt = dense._torch_dtype(cfg.factor_dtype_resolved())
+    tiers, fuse = _bucket_schedule(cfg, dev.type)
+    params = cfg.bucket_phase_params(*tiers[-1])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False  # f64/f32 library matmuls exact
+    Bsz, m, n = A.shape
+    key = (Bsz, m, n, dtype, fdt, params, cfg.stall_window, fuse, dev, mesh_key)
+    prog, built = _program(key, lambda: _BucketProgram(
+        Bsz, m, n, dtype, fdt, params, cfg.stall_window, fuse, dev))
+    seg = (cfg.segment_iters or 8) if core.use_segments(cfg.segment_iters, dev.type) else 0
+    with prog.lock, _no_vmap_fallback():
+        prog.fill(A, b, c, act, warm_states, wm)
+        host, it, acc = prog.run(cfg, seg)
+    acc["captured"] = prog.loop.captures > 0
+    if built:
+        obs_metrics.get_registry().counter(
+            "bucket_programs_compiled_total",
+            help="batched bucket programs built in this process",
+        ).inc()
+    return host, it, acc, built
+
+
+def _gather_lanes(mesh, B: int, blocks, parts: list, stats: list) -> tuple:
+    """Whole-bucket host fields from this process's lane blocks, and the
+    per-executor ``stats`` rows of every executor. A local mesh holds
+    every block; a world gathers with ONE all-reduce of a zero-filled
+    buffer (every rank writes its own lanes and its stats row; a sum
+    with zeros keeps the bits)."""
+    names = list(parts[0])
+    if mesh.is_local:
+        return ({f: np.concatenate([p[f] for p in parts]) for f in names},
+                np.asarray(stats, dtype=np.float64))
+    (_, lo, hi), part = blocks[0], parts[0]
+    widths = [int(np.prod(part[f].shape[1:], dtype=np.int64)) for f in names]
+    W, S = sum(widths), len(stats[0])
+    buf = np.zeros(B * W + mesh.size * S)
+    lanes = buf[:B * W].reshape(B, W)
+    off = 0
+    for f, w in zip(names, widths):
+        lanes[lo:hi, off:off + w] = part[f].reshape(hi - lo, w)
+        off += w
+    buf[B * W + mesh.rank * S:B * W + (mesh.rank + 1) * S] = stats[0]
+    t = mesh.all_reduce(torch.from_numpy(buf).to(mesh.collective_device))
+    out = t.cpu().numpy()
+    lanes = out[:B * W].reshape(B, W)
+    host, off = {}, 0
+    for f, w in zip(names, widths):
+        host[f] = lanes[:, off:off + w].reshape((B,) + part[f].shape[1:]).astype(part[f].dtype)
+        off += w
+    return host, out[B * W:].reshape(mesh.size, S)
+
+
+def _solve_bucket_mesh(batch, active, cfg, mesh, warm, warm_mask) -> BatchedResult:
+    """:func:`solve_bucket` over ``mesh`` (see the module note)."""
+    t0 = time.perf_counter()
+    if isinstance(batch.A, tuple):  # placed by place_bucket(mesh=): this process's blocks
+        Bsz = batch.A[0].shape[0] * mesh.size
+        blocks = mesh.lane_blocks(Bsz)
+        A, b, c = batch.A, batch.b, batch.c
+        act = active if isinstance(active, tuple) else tuple(
+            torch.as_tensor(np.asarray(active, dtype=bool)[lo:hi], device=d) for d, lo, hi in blocks)
+    else:
+        Bsz = np.asarray(batch.A).shape[0]
+        placed, act = place_bucket(batch, active, cfg, mesh=mesh)
+        blocks = mesh.lane_blocks(Bsz)
+        A, b, c = placed.A, placed.b, placed.c
+    m, n = A[0].shape[1:]
+    if warm is not None and isinstance(warm.x, tuple):
+        warm_states = warm
+        wm = warm_mask if isinstance(warm_mask, tuple) else tuple(
+            torch.as_tensor(np.asarray(warm_mask, dtype=bool)[lo:hi], device=d)
+            for d, lo, hi in blocks)
+    else:
+        warm_states, wm = place_warm(warm, warm_mask, (Bsz, m, n), cfg, mesh=mesh)
+    setup_time = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    parts, stats, built = [], [], False
+    tiers = _bucket_schedule(cfg, blocks[0][0].type)[0]
+    for i, (dev, lo, hi) in enumerate(blocks):
+        host, it, acc, blt = _bucket_block(
+            A[i], b[i], c[i], act[i], IPMState(*(w[i] for w in warm_states)), wm[i], cfg, dev,
+            mesh.key)
+        built |= blt
+        parts.append(host)
+        stats.append([it, acc["bodies"], acc["launches"], acc["captures"], float(acc["captured"])])
+    t_g = time.perf_counter()
+    host, per_exec = _gather_lanes(mesh, Bsz, blocks, parts, stats)
+    gather_ms = 1e3 * (time.perf_counter() - t_g)
+    solve_time = time.perf_counter() - t1
+    # ``bodies`` is the slowest executor's (the dispatch's wall);
+    # launches and captures are this process's executors'.
+    row = {"phase": 0, "engine": tiers[0][0], "tol": tiers[0][1],
+           "iters": int(per_exec[:, 0].max()), "built": built,
+           "bodies": int(per_exec[:, 1].max()), "launches": int(sum(s[2] for s in stats)),
+           "captures": int(sum(s[3] for s in stats)), "captured": all(s[4] for s in stats),
+           "executors": int(per_exec.shape[0]), "mesh_devices": mesh.size,
+           "executor_bodies": [int(v) for v in per_exec[:, 1]],
+           "executor_launches": [int(v) for v in per_exec[:, 2]], "gather_ms": gather_ms}
+    return _bucket_result(host, solve_time, setup_time, row, 1)
+
+
+def _bucket_result(host, solve_time, setup_time, row, fuse) -> BatchedResult:
+    return BatchedResult(
+        status=np.array([_CODE_MAP[int(sc)] for sc in host["status"]], dtype=object),
+        objective=host["objective"],
+        x=host["x"],
+        iterations=host["iterations"],
+        rel_gap=host["rel_gap"],
+        pinf=host["pinf"],
+        dinf=host["dinf"],
+        solve_time=solve_time,
+        setup_time=setup_time,
+        phase_report=[row],
+        fused_iters=fuse,
+        y=host["y"],
+        s=host["s"],
+        w=host["w"],
+        z=host["z"],
+        warm_used=host["warm_used"],
+    )
 
 
 def solve_bucket(
@@ -958,32 +1120,35 @@ def solve_bucket(
     CUDA card unless ``device`` names another (``"cpu"``).
 
     No chunking and no solo cleanup: the service owns the retry budget of
-    unfinished members. Each (B, m, n, dtype, tol, schedule, device) key
-    has ONE cached program (:class:`_BucketProgram`) reused by every
-    dispatch: on a card its loop is captured once and only replayed after
-    (:func:`bucket_cache_size`, :func:`bucket_capture_count`). The drive
-    is host-segmented when ``segment_iters > 0`` (``core.use_segments``),
-    with the same results.
+    unfinished members. Each (B, m, n, dtype, tol, schedule, device,
+    mesh) key has ONE cached program (:class:`_BucketProgram`) reused by
+    every dispatch: on a card its loop is captured once and only replayed
+    after (:func:`bucket_cache_size`, :func:`bucket_capture_count`). The
+    drive is host-segmented when ``segment_iters > 0``
+    (``core.use_segments``), with the same results.
 
     ``warm``/``warm_mask`` offer per-slot warm-start iterates (see
     :func:`place_warm`): offered slots start from the refreshed prior
     iterate when the safeguard accepts it; ``BatchedResult.warm_used``
     reports the per-slot outcome. Inputs already placed by
     :func:`place_bucket`/:func:`place_warm` are used as they are.
-    ``mesh`` is not ported and raises.
+
+    ``mesh`` splits the batch axis over its executors (B must divide by
+    the mesh size; see the module note): each runs its block through its
+    own program, and the result is the whole bucket's on every rank.
+    ``phase_report[0]`` then adds ``executors``, ``executor_bodies``,
+    ``executor_launches`` and ``gather_ms`` (the host clock around the
+    gather); its ``bodies`` is the slowest executor's and its
+    ``launches`` this process's.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_bucket over a mesh is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 13b)")
     cfg = config or SolverConfig()
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
+    if mesh is not None:
+        return _solve_bucket_mesh(batch, active, cfg, mesh, warm, warm_mask)
     dev = resolve_device(device)
     dtype = dense._torch_dtype(cfg.dtype)
-    fdt = dense._torch_dtype(cfg.factor_dtype_resolved())
     tiers, fuse = _bucket_schedule(cfg, dev.type)
-    params = cfg.bucket_phase_params(*tiers[-1])
 
     t0 = time.perf_counter()
     placed_in = lambda v: isinstance(v, torch.Tensor) and v.device == dev and v.dtype == dtype
@@ -1004,46 +1169,10 @@ def solve_bucket(
     setup_time = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False  # f64/f32 library matmuls exact
-    key = (Bsz, m, n, dtype, fdt, params, cfg.stall_window, fuse, dev)
-    prog, built = _program(key, lambda: _BucketProgram(
-        Bsz, m, n, dtype, fdt, params, cfg.stall_window, fuse, dev))
-    seg = (cfg.segment_iters or 8) if core.use_segments(cfg.segment_iters, dev.type) else 0
-    with prog.lock, _no_vmap_fallback():
-        prog.fill(A, b, c, act, warm_states, wm)
-        host, it, acc = prog.run(cfg, seg)
+    host, it, acc, built = _bucket_block(A, b, c, act, warm_states, wm, cfg, dev)
     solve_time = time.perf_counter() - t1
-    if built:
-        obs_metrics.get_registry().counter(
-            "bucket_programs_compiled_total",
-            help="batched bucket programs built in this process",
-        ).inc()
-    code_map = {
-        _OPTIMAL: Status.OPTIMAL,
-        _MAXITER: Status.ITERATION_LIMIT,
-        _NUMERR: Status.NUMERICAL_ERROR,
-        _STALL: Status.STALLED,
-    }
-    return BatchedResult(
-        status=np.array([code_map[int(sc)] for sc in host["status"]], dtype=object),
-        objective=host["objective"],
-        x=host["x"],
-        iterations=host["iterations"],
-        rel_gap=host["rel_gap"],
-        pinf=host["pinf"],
-        dinf=host["dinf"],
-        solve_time=solve_time,
-        setup_time=setup_time,
-        phase_report=[{"phase": 0, "engine": tiers[0][0], "tol": tiers[0][1], "iters": it,
-                       "built": built, **acc}],
-        fused_iters=fuse,
-        y=host["y"],
-        s=host["s"],
-        w=host["w"],
-        z=host["z"],
-        warm_used=host["warm_used"],
-    )
+    row = {"phase": 0, "engine": tiers[0][0], "tol": tiers[0][1], "iters": it, "built": built, **acc}
+    return _bucket_result(host, solve_time, setup_time, row, fuse)
 
 
 def member_interior_form(batch: BatchedLP, i: int):
@@ -1082,6 +1211,39 @@ def _concat_results(parts, solve_time, setup_time) -> BatchedResult:
     )
 
 
+def _solve_batched_mesh(batch, cfg, mesh, chunk) -> BatchedResult:
+    """:func:`solve_batched` over ``mesh``: each executor's block through
+    :func:`solve_batched` on its device, then one gather."""
+    k = mesh.size
+    if chunk and chunk % k:
+        raise ValueError(f"chunk {chunk} not divisible by mesh axis {k}")
+    B = np.asarray(batch.A).shape[0]
+    blocks = mesh.lane_blocks(B)
+    t0 = time.perf_counter()
+    parts = [
+        solve_batched(BatchedLP(c=batch.c[lo:hi], A=batch.A[lo:hi], b=batch.b[lo:hi],
+                                name=f"{batch.name}[{lo}:{hi}]"),
+                      cfg, device=d, chunk=chunk // k if chunk else chunk)
+        for d, lo, hi in blocks
+    ]
+    fields = ("objective", "x", "iterations", "rel_gap", "pinf", "dinf")
+    hosts = [{"status": np.array([_STATUS_CODE[st] for st in p.status], dtype=np.int32),
+              **{f: getattr(p, f) for f in fields}} for p in parts]
+    host, per_exec = _gather_lanes(mesh, B, blocks, hosts, [[p.solve_time] for p in parts])
+    first = [lo for _, lo, _ in blocks]
+    executor = (lambda i: i) if mesh.is_local else (lambda i: mesh.rank)
+    return BatchedResult(
+        status=np.array([_CODE_MAP[int(c)] for c in host["status"]], dtype=object),
+        **{f: host[f] for f in fields},
+        solve_time=float(per_exec[:, 0].max()),
+        setup_time=max(time.perf_counter() - t0 - float(per_exec[:, 0].max()), 0.0),
+        phase_report=[{**ph, "executor": executor(i),
+                       **({"member": first[i] + ph["member"]} if "member" in ph else {})}
+                      for i, p in enumerate(parts) for ph in (p.phase_report or [])],
+        fused_iters=parts[0].fused_iters,
+    )
+
+
 def solve_batched(
     batch: BatchedLP,
     config: Optional[SolverConfig] = None,
@@ -1096,13 +1258,17 @@ def solve_batched(
 
     ``chunk`` bounds how many problems one device loop holds; chunks run
     one after another (default: no chunking — the JAX package chunks only
-    on a TPU). ``mesh`` is not ported and raises.
+    on a TPU). ``mesh`` splits the batch axis over the mesh's executors
+    (the batch, and ``chunk``, must divide by its size; each executor
+    solves its block, in chunks of ``chunk`` / size, and the results are
+    gathered as :func:`solve_bucket`'s; ``phase_report`` rows carry their
+    ``executor``, a world's rank its own).
     """
-    if mesh is not None:
-        raise NotImplementedError("solve_batched over a mesh is not ported to the torch package yet")
     cfg = config or SolverConfig()
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
+    if mesh is not None:
+        return _solve_batched_mesh(batch, cfg, mesh, chunk)
     dev = resolve_device(device)
     dtype = dense._torch_dtype(cfg.dtype)
     fdt = dense._torch_dtype(cfg.factor_dtype_resolved())
@@ -1163,14 +1329,8 @@ def solve_batched(
     states, status, iters, pinf, dinf, rel_gap, pobj, phase_report = run
     phase_report = [{**ph, "chunk": 0} for ph in phase_report]
 
-    code_map = {
-        _OPTIMAL: Status.OPTIMAL,
-        _MAXITER: Status.ITERATION_LIMIT,
-        _NUMERR: Status.NUMERICAL_ERROR,
-        _STALL: Status.STALLED,
-    }
     status_arr = np.array(
-        [code_map[int(sc)] for sc in status.cpu().numpy()], dtype=object
+        [_CODE_MAP[int(sc)] for sc in status.cpu().numpy()], dtype=object
     )
     to_np = lambda v: v.detach().to(torch.float64).cpu().numpy()
     objective = to_np(pobj)

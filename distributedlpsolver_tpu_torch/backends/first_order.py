@@ -560,14 +560,17 @@ class _PDHGBucketProgram:
     captured at the program's first dispatch and only replayed after;
     ``tol`` and ``max_iter`` are fills) and the final report."""
 
-    def __init__(self, B, m, n, dtype, device):
+    def __init__(self, B, m, n, dtype, device, table_rows=None):
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
         self.B = B
         self.A, self.b, self.c = zeros(B, m, n), zeros(B, m), zeros(B, n)
         self.eta = zeros(B)
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        # One row a slot of the WHOLE bucket: a lane block of a mesh
+        # indexes it with global seeds, so a lane's start does not depend
+        # on the mesh width.
         self.v0 = torch.from_numpy(np.stack([threefry.normal(k, n, np_dtype)
-                                             for k in range(B)])).to(device)
+                                             for k in range(table_rows or B)])).to(device)
         inputs = {
             "max_iter": torch.zeros((), dtype=torch.int32, device=device),
             "tol": torch.zeros((), dtype=dtype, device=device),
@@ -639,7 +642,8 @@ class _PDHGBucketProgram:
         return host, acc
 
 
-# PDHG bucket programs of this process, by key (B, m, n, dtype, device).
+# PDHG bucket programs of this process, by key (B, m, n, dtype, device),
+# and over a mesh (block lanes, m, n, dtype, device, mesh key, B).
 _PROGRAMS: dict = {}
 _PROGRAMS_LOCK = threading.Lock()
 
@@ -693,52 +697,93 @@ def solve_pdhg_bucket(
     owns it); padding slots report the placeholder OPTIMAL. ``y``/``s``/
     ``w``/``z`` are left None: a tol-loose PDHG iterate must not seed the
     warm cache the IPM engine draws from. Runs on the first CUDA card
-    unless ``device`` names another; ``mesh`` is not ported and raises.
-    The lanes' duals are in ``BatchedResult.dual``, for KKT checks.
+    unless ``device`` names another. The lanes' duals are in
+    ``BatchedResult.dual``, for KKT checks.
 
     ``seeds`` (B ints in [0, B)) picks each lane's power-iteration start
     vector; the serve layer passes :func:`pdhg_seed` of each request's
     name and each padding slot's own index. None = every slot its own
     index. Two lanes may share a seed.
-    """
-    from distributedlpsolver_tpu_torch.backends.batched import BatchedResult, place_bucket
 
-    if mesh is not None:
-        raise _mesh_unported("solve_pdhg_bucket over a mesh")
+    ``mesh`` splits the lane axis over its executors, as ``solve_bucket``
+    does (B must divide by its size): each runs its block through its own
+    program, whose start-vector table is the whole bucket's, indexed by the
+    global seeds, so a lane's answer does not depend on the mesh width.
+    """
+    from distributedlpsolver_tpu_torch.backends.batched import (
+        BatchedResult,
+        _gather_lanes,
+        place_bucket,
+    )
+
     cfg = config or SolverConfig()
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
-    dev = resolve_device(device)
     dtype = dense._torch_dtype(cfg.dtype)
 
     t0 = time.perf_counter()
-    if isinstance(batch.A, torch.Tensor) and batch.A.device == dev and batch.A.dtype == dtype:
-        A, b, c = batch.A, batch.b, batch.c
-        act = active if isinstance(active, torch.Tensor) else torch.as_tensor(
-            np.asarray(active, dtype=bool), device=dev)
+    if mesh is not None:
+        if isinstance(batch.A, tuple):  # placed by place_bucket(mesh=)
+            Bsz = batch.A[0].shape[0] * mesh.size
+            blocks = mesh.lane_blocks(Bsz)
+            A, b, c = batch.A, batch.b, batch.c
+            act = active if isinstance(active, tuple) else tuple(
+                torch.as_tensor(np.asarray(active, dtype=bool)[lo:hi], device=d)
+                for d, lo, hi in blocks)
+        else:
+            Bsz = np.asarray(batch.A).shape[0]
+            blocks = mesh.lane_blocks(Bsz)
+            placed, act = place_bucket(batch, active, cfg, mesh=mesh)
+            A, b, c = placed.A, placed.b, placed.c
     else:
-        placed, act = place_bucket(batch, active, cfg, device=dev)
-        A, b, c = placed.A, placed.b, placed.c
+        dev = resolve_device(device)
+        if isinstance(batch.A, torch.Tensor) and batch.A.device == dev and batch.A.dtype == dtype:
+            A, b, c = (batch.A,), (batch.b,), (batch.c,)
+            act = (active if isinstance(active, torch.Tensor) else torch.as_tensor(
+                np.asarray(active, dtype=bool), device=dev),)
+        else:
+            placed, act = place_bucket(batch, active, cfg, device=dev)
+            A, b, c, act = (placed.A,), (placed.b,), (placed.c,), (act,)
+        Bsz = A[0].shape[0]
+        blocks = [(dev, 0, Bsz)]
     setup_time = time.perf_counter() - t0
 
-    Bsz, m, n = A.shape
+    m, n = A[0].shape[1:]
     inner_cap = int(max_iter if max_iter is not None else cfg.max_iter) * BURST
     t1 = time.perf_counter()
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-    key = (Bsz, m, n, dtype, dev)
-    with _PROGRAMS_LOCK:
-        prog = _PROGRAMS.get(key)
-        built = prog is None
-        if built:
-            prog = _PROGRAMS[key] = _PDHGBucketProgram(Bsz, m, n, dtype, dev)
     seed_idx = np.arange(Bsz) if seeds is None else np.asarray(seeds, dtype=np.int64)
     if seed_idx.shape != (Bsz,) or seed_idx.min() < 0 or seed_idx.max() >= Bsz:
         raise ValueError(f"seeds must be {Bsz} indices in [0, {Bsz}), got {seeds!r}")
-    seed_t = torch.as_tensor(seed_idx, dtype=torch.int64).to(dev, non_blocking=True)
-    with prog.lock:
-        prog.fill(A, b, c)
-        host, acc = prog.run(act, float(cfg.tol), inner_cap, seed_t)
+    parts, stats, built = [], [], False
+    for i, (dev, lo, hi) in enumerate(blocks):
+        if dev.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        # A block of a mesh is its own program, whatever its lane count.
+        key = (hi - lo, m, n, dtype, dev) + (() if mesh is None else (mesh.key, Bsz))
+        with _PROGRAMS_LOCK:
+            prog = _PROGRAMS.get(key)
+            blt = prog is None
+            if blt:
+                prog = _PROGRAMS[key] = _PDHGBucketProgram(hi - lo, m, n, dtype, dev, Bsz)
+        built |= blt
+        seed_t = torch.as_tensor(seed_idx[lo:hi], dtype=torch.int64).to(dev, non_blocking=True)
+        with prog.lock:
+            prog.fill(A[i], b[i], c[i])
+            host, acc = prog.run(act[i], float(cfg.tol), inner_cap, seed_t)
+        acc["captured"] = prog.loop.captures > 0
+        parts.append(host)
+        stats.append(acc)
+    if mesh is None:
+        host, row_extra = parts[0], stats[0]
+    else:
+        host, per_exec = _gather_lanes(
+            mesh, Bsz, blocks, parts,
+            [[a["bodies"], a["captures"], float(a["captured"])] for a in stats])
+        row_extra = {"bodies": int(per_exec[:, 0].max()),
+                     "captures": int(sum(a["captures"] for a in stats)),
+                     "captured": all(a["captured"] for a in stats),
+                     "executors": int(per_exec.shape[0]), "mesh_devices": mesh.size,
+                     "executor_bodies": [int(v) for v in per_exec[:, 0]]}
     solve_time = time.perf_counter() - t1
 
     pinf, dinf, gap = host["pinf"], host["dinf"], host["gap"]
@@ -759,7 +804,7 @@ def solve_pdhg_bucket(
         solve_time=solve_time,
         setup_time=setup_time,
         phase_report=[{"phase": 0, "engine": "pdhg", "tol": float(cfg.tol),
-                       "iters": int(it_host.max(initial=0)), "built": built, **acc}],
+                       "iters": int(it_host.max(initial=0)), "built": built, **row_extra}],
         fused_iters=CHECK_EVERY,  # inner steps per loop body
         dual=host["y"],
     )

@@ -39,8 +39,14 @@ the Cholesky) and the matvecs' all-reduces on the host clock,
 synchronizing the device around each: for measurement runs only (it
 turns capture off while it is set).
 
+:meth:`ShardedTorchBackend.reshard` is the elastic shrink's seam: a fresh
+instance on the re-formed mesh (``parallel.mesh.reform_mesh``), whose
+``setup`` pads the columns to the new mesh's multiple and whose
+``from_host`` re-pads the host-canonical checkpoint onto the new column
+blocks; the supervisor resumes from it.
+
 Not ported yet: ``prec_sharding`` (the PCG schedule, ROADMAP Queue 1
-item 5b) and ``reshard`` (the elastic shrink, item 13b).
+item 5b).
 """
 
 from __future__ import annotations
@@ -200,8 +206,11 @@ class ShardedTorchBackend(DenseTorchBackend):
     def mesh(self) -> Optional[mesh_lib.Mesh]:
         return self._mesh
 
-    def reshard(self, mesh) -> "ShardedTorchBackend":
-        raise NotImplementedError(
-            "reshard (the elastic shrink onto a smaller mesh) is not ported to the torch "
-            "package yet (ROADMAP Queue 1 item 13b)"
-        )
+    def reshard(self, mesh: mesh_lib.Mesh) -> "ShardedTorchBackend":
+        """A fresh instance of this backend on ``mesh`` — the elastic
+        recovery seam. Everything layout-dependent (the column padding,
+        the block, the capture decision) is derived in ``setup`` and
+        ``from_host`` from the mesh alone, so re-placement is
+        re-construction; the supervisor resumes the IPM from the last
+        host-canonical checkpoint, which ``from_host`` re-pads."""
+        return type(self)(mesh=mesh, device=self.device)

@@ -8,6 +8,9 @@ honours plus ``--device``. Subcommands:
     serve        async batching solve service: JSONL/MPS requests in,
                  result records out
     serve-http   HTTP front-end over the solve service
+    serve-slice  one HTTP front-end over a world of rank processes: a
+                 supervisor that launches and relaunches the world, and
+                 the ranks (``--rank``) that serve the slice's buckets
     route        router tier over serve-http backends
     elastic      closed-loop autoscaler of serve-http backends
     autotune     refine a bucket ladder from serve telemetry
@@ -16,8 +19,8 @@ honours plus ``--device``. Subcommands:
     generate     write a generated problem to MPS
     backends     list registered SolverBackend names
 
-``serve-slice`` (ROADMAP Queue 1 item 13b) and ``check`` (item 15) are
-parsed and raise ``NotImplementedError``.
+``check`` (ROADMAP Queue 1 item 15) is parsed and raises
+``NotImplementedError``.
 
 Every command that touches a device takes ``--device``: ``cuda`` (the
 default: the first card; it fails where there is none, never falling
@@ -25,7 +28,9 @@ back to the host) or ``cpu``. ``--backend auto`` (the default, as in the
 JAX CLI) picks a backend by problem structure for ``--device``: on the
 card every problem the port can solve goes to ``cuda``; with ``--device
 cpu`` to ``cpu-native``. The chosen backend is named in the result
-(``auto(<name>)``). ``--mesh-devices`` above 1 is refused (item 13b).
+(``auto(<name>)``). ``--mesh-devices K`` splits each bucket over a local
+batch mesh of K devices (K distinct cards; on the CPU the CPU device K
+times); more than the process has raises.
 
 Run as ``python -m distributedlpsolver_tpu_torch.cli ...``.
 """
@@ -97,7 +102,7 @@ def _add_solver_flags(ap: argparse.ArgumentParser) -> None:
     )
     ap.add_argument(
         "--min-devices", type=int, default=1,
-        help="smallest mesh the shrink recovery may re-form (one device here)",
+        help="smallest mesh the shrink recovery may re-form (below it the ladder degrades)",
     )
     ap.add_argument(
         "--metrics-path", default=None,
@@ -725,6 +730,139 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def cmd_serve_slice(args) -> int:
+    """One-service-per-slice serving over a world of rank processes.
+
+    Without ``--rank``: SUPERVISOR mode — spawn ``--world-size`` rank
+    processes of this same command line, watch them, and on the world's
+    death relaunch a smaller world on the same HTTP port and job journal
+    (``distributed/launcher.WorldSupervisor``; ``world_reinit`` records
+    with ``recovery_overhead_s`` in ``<slice workdir>/world.jsonl``).
+
+    With ``--rank`` (set by the supervisor; the env contract comes from
+    the launcher): rank 0 runs the HTTP front-end whose SolveService
+    dispatches onto the world's batch mesh through the slice's dispatch
+    journal and registers into ``--registry``; the other ranks run the
+    follower loop off that journal (``distributed/slice.py``)."""
+    import threading
+
+    if args.local_devices not in (0, 1):
+        raise ValueError(
+            f"--local-devices {args.local_devices}: a torch world runs one process per "
+            "device; launch one rank per device (--world-size) instead")
+    pg_backend = args.pg_backend or os.environ.get("DLPS_PG_BACKEND") or None
+    if args.rank is None:
+        # ---------------- supervisor mode ----------------------------
+        from distributedlpsolver_tpu_torch.distributed.launcher import (
+            SupervisorConfig,
+            WorldSupervisor,
+        )
+
+        workdir = args.slice_workdir or os.path.join(
+            args.journal_dir or ".", f"slice-{args.slice_id}-world")
+        base_argv = list(args.argv)
+
+        def argv_for_gen(generation, world_size, port):
+            # Every generation runs the same command line: the same HTTP
+            # port and job journal, so the relaunched rank 0 rebinds the
+            # poll URLs and replays the journal.
+            return lambda rank: ([sys.executable, "-m", "distributedlpsolver_tpu_torch.cli"]
+                                 + base_argv + ["--rank", str(rank)])
+
+        sup = WorldSupervisor(
+            argv_for_gen, world_size=args.world_size, workdir=workdir,
+            config=SupervisorConfig(
+                min_world=1, max_reforms=args.max_reforms,
+                # Its own stream: a relaunched rank re-opens its logs.
+                log_jsonl=os.path.join(workdir, "world.jsonl")),
+            slice_id=args.slice_id, device=args.device, pg_backend=pg_backend,
+        )
+        try:
+            sup.run(timeout=args.supervise_timeout_s)
+        except KeyboardInterrupt:
+            if sup.handle is not None:
+                sup.handle.kill_all()
+            print("slice supervisor: interrupted", file=sys.stderr)
+        return 0
+
+    # -------------------- rank mode ----------------------------------
+    from distributedlpsolver_tpu_torch.distributed.slice import (
+        FileControlPlane,
+        SliceRunner,
+        canonical_bucket_config,
+        follower_loop,
+    )
+    from distributedlpsolver_tpu_torch.distributed.world import WorldConfig, init_world
+
+    cfg = WorldConfig.from_env()
+    world = init_world(cfg)
+    world.start_heartbeat()
+    ctrl_dir = os.path.join(
+        args.control_dir or os.path.join(os.environ.get("DLPS_HEARTBEAT_DIR", "."), ".."),
+        f"ctrl-gen{cfg.generation}")
+    solver_cfg = canonical_bucket_config(_config_from(args))
+    try:
+        if world.rank != 0:
+            n = follower_loop(world, FileControlPlane(ctrl_dir), solver_cfg)
+            print(f"slice follower rank {world.rank}: executed {n} dispatches; exiting",
+                  file=sys.stderr)
+            return 0
+
+        # ---- rank 0: front-end + scheduler + demux -------------------
+        from distributedlpsolver_tpu_torch.net import NetConfig, SolveHTTPServer
+        from distributedlpsolver_tpu_torch.serve import SolveService
+
+        finalize_obs = _obs_setup(args)
+        runner = SliceRunner(world, FileControlPlane(ctrl_dir), solver_cfg)
+        net_cfg = NetConfig(
+            host=args.host, port=args.port, max_wait_s=args.max_wait_s, wedge_s=args.wedge_s,
+            log_jsonl=args.net_log_jsonl, deadline_propagation=args.deadline_propagation,
+        )
+        reg = _live_registry()
+        try:
+            svc = SolveService(_service_config_from(args), solver_config=solver_cfg, metrics=reg,
+                               auto_start=not args.warm_buckets, slice_runner=runner,
+                               device=world.device)
+            if args.warm_buckets:
+                n = svc.warm_buckets(svc.scheduler.table.specs())
+                print(f"warmed {n} bucket programs across {world.world_size} ranks",
+                      file=sys.stderr)
+            with svc:
+                server = SolveHTTPServer(svc, net_cfg).start()
+                stopped = threading.Event()
+                server.on_drained = lambda drained: stopped.set()
+                hb_stop = threading.Event()
+                if args.registry:
+                    from distributedlpsolver_tpu_torch.net.registry import BackendRegistry
+
+                    breg = BackendRegistry(args.registry, logger=svc._logger, metrics=reg)
+                    breg.register(server.url, slice_id=args.slice_id,
+                                  world_size=world.world_size)
+
+                    def _beat():
+                        while not hb_stop.wait(args.heartbeat_s):
+                            breg.heartbeat(server.url)
+
+                    threading.Thread(target=_beat, daemon=True, name="dlps-slice-hb").start()
+                print(f"slice {args.slice_id} gen {cfg.generation} serving on {server.url} "
+                      f"(world {world.world_size}, {world.pg_backend or 'no'} process group, "
+                      f"{world.device})", file=sys.stderr)
+                try:
+                    stopped.wait()
+                    print("slice drained; exiting", file=sys.stderr)
+                except KeyboardInterrupt:
+                    print("slice shutting down", file=sys.stderr)
+                finally:
+                    hb_stop.set()
+                    server.shutdown()
+                    runner.stop()  # followers leave their loop cleanly
+        finally:
+            finalize_obs()
+        return 0
+    finally:
+        world.close()
+
+
 def _unported_cmd(name: str, item):
     def fn(_args) -> int:
         raise NotImplementedError(
@@ -749,7 +887,8 @@ def _add_serving_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--mesh-devices", type=int, default=0,
-        help="0/1 = unsharded (more is not ported and is refused)",
+        help="batch-axis data parallelism over this many local devices (0/1 = unsharded; "
+        "-1 = every local card; bucket batches must divide by it)",
     )
     p.add_argument(
         "--buckets", default=None,
@@ -838,9 +977,59 @@ def _add_plane_parsers(sub) -> None:
     ap_http.set_defaults(fn=cmd_serve_http, quiet=True)
 
     ap_slice = sub.add_parser(
-        "serve-slice", help="multi-host slice serving (not ported: ROADMAP item 13b)",
+        "serve-slice",
+        help="multi-host slice: a world of rank processes serving one HTTP front-end over "
+        "the world's batch mesh, with coordinator-level recovery",
     )
-    ap_slice.set_defaults(fn=_unported_cmd("serve-slice", "13b"))
+    ap_slice.add_argument("--world-size", type=int, default=2, help="rank processes in the slice")
+    ap_slice.add_argument(
+        "--rank", type=int, default=None,
+        help="run ONE rank (set by the supervisor; env contract from the launcher); omit it "
+        "to run the slice supervisor",
+    )
+    ap_slice.add_argument(
+        "--local-devices", type=int, default=1,
+        help="devices per rank process: 1 (a torch world runs one process per device)",
+    )
+    ap_slice.add_argument(
+        "--pg-backend", choices=("nccl", "gloo"), default=None,
+        help="process-group backend (default: DLPS_PG_BACKEND, else nccl on cards and gloo "
+        "on the CPU); gloo lets several ranks share one card",
+    )
+    ap_slice.add_argument("--slice-id", default="slice0",
+                          help="slice name stamped into registry entries and world_reinit events")
+    ap_slice.add_argument("--registry", default=None,
+                          help="shared backend-registry file to self-register into")
+    ap_slice.add_argument("--heartbeat-s", type=float, default=1.0,
+                          help="registry heartbeat cadence")
+    ap_slice.add_argument("--control-dir", default=None,
+                          help="slice dispatch-journal directory (default: next to the "
+                          "launcher's heartbeat dir)")
+    ap_slice.add_argument("--slice-workdir", default=None,
+                          help="supervisor workdir (heartbeats, rank logs, world.jsonl)")
+    ap_slice.add_argument("--max-reforms", type=int, default=3,
+                          help="world re-initializations before the supervisor gives up")
+    ap_slice.add_argument("--supervise-timeout-s", type=float, default=86400.0,
+                          help="supervisor wall-clock budget")
+    ap_slice.add_argument("--host", default="127.0.0.1")
+    ap_slice.add_argument(
+        "--port", type=int, default=8080,
+        help="rank-0 HTTP port — explicit, so a re-initialized world rebinds the same poll URLs",
+    )
+    ap_slice.add_argument("--max-wait-s", type=float, default=300.0)
+    ap_slice.add_argument("--wedge-s", type=float, default=30.0)
+    ap_slice.add_argument("--net-log-jsonl", default=None,
+                          help="http_request JSONL event stream")
+    ap_slice.add_argument("--warm-buckets", action="store_true",
+                          help="build the bucket ladder's programs on EVERY rank before the "
+                          "listener binds")
+    ap_slice.add_argument(
+        "--deadline-propagation", action=argparse.BooleanOptionalAction, default=True,
+        help="honor the X-DLPS-Deadline-Ms remaining-budget header",
+    )
+    _add_serving_flags(ap_slice)
+    _add_solver_flags(ap_slice)
+    ap_slice.set_defaults(fn=cmd_serve_slice, quiet=True)
 
     ap_rt = sub.add_parser(
         "route",
@@ -1020,10 +1209,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     ap_g.set_defaults(fn=cmd_generate)
 
-    # The unported commands take any flags of the reference's and raise.
+    # The unported command takes any flags of the reference's and raises.
     args, extra = ap.parse_known_args(argv)
-    if extra and args.cmd not in ("serve-slice", "check"):
+    if extra and args.cmd != "check":
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     return args.fn(args)
 
 

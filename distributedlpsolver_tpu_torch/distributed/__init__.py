@@ -11,9 +11,12 @@ first-class citizens of the solver (the JAX package's ``distributed/``).
   relaunches a SMALLER world that resumes from the checkpoint).
 - :mod:`distributed.worker` — ``python -m …distributed.worker`` rank
   entry with a small registry of world tasks.
+- :mod:`distributed.slice` — one SolveService per world: rank 0's HTTP
+  front-end publishes each bucket dispatch to a file journal, every rank
+  solves its lane block (``cli serve-slice``).
 
-Not ported yet: ``distributed/slice.py`` (one service per slice,
-ROADMAP Queue 1 item 13b).
+Not ported yet: the world tasks of the row-sharded tiers
+(``sparse_rows``, ``scenario_lanes``; ROADMAP Queue 1 item 13c).
 """
 
 from distributedlpsolver_tpu_torch.distributed.world import (  # noqa: F401

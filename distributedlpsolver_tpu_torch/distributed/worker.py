@@ -32,9 +32,25 @@ Tasks:
     ``"check": "linops"`` returns the sharded ``LinOps`` at seeded
     vectors instead.
 
-Not ported yet: ``bucket_probe`` (the batch-axis mesh, ROADMAP Queue 1
-item 13b), ``sparse_rows`` and ``scenario_lanes`` (the row-sharded
-tiers, item 13c).
+``bucket_probe``
+    A serving bucket (``random_batched_lp(batch, m, n, seed)``) placed over
+    the world's batch mesh and dispatched twice with different payloads
+    (seeds ``seed`` and ``seed + 1``), each rank solving its lane block:
+    the warm recompiles (0), ``bucket_cache_size()`` on every rank (they
+    must agree world-wide), and per dispatch the lanes' statuses,
+    iterations, objectives and SHA-256 of each lane's x, the programs
+    built and graphs captured, the loop's accounting and the wall.
+
+``supervised_solve``
+    ``sharded_solve``'s problem through ``supervisor.supervised_solve``
+    on every rank with the same fault plan (``faults``: ``kind``,
+    ``iteration``, ``device_ids``, ``shard``, ``times``,
+    ``hang_seconds``) and supervisor knobs; a rank the SHRINK rung
+    excluded reports ``"left": true`` and its fault history. ``cases``
+    runs several in one world.
+
+Not ported yet: ``sparse_rows`` and ``scenario_lanes`` (the row-sharded
+tiers, ROADMAP Queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -47,9 +63,10 @@ import sys
 import time
 from typing import Callable, Dict
 
-from distributedlpsolver_tpu_torch.distributed.world import (
+from distributedlpsolver_tpu_torch.distributed.world import (  # noqa: F401
     WORLD_PEER_LOST_EXIT,
     World,
+    exit_on_peer_loss,
     world_from_env,
 )
 
@@ -195,6 +212,119 @@ def sharded_cases(world: World, spec: dict) -> dict:
     ]}
 
 
+@task("bucket_probe")
+def bucket_probe(world: World, spec: dict) -> dict:
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends.batched import (
+        bucket_cache_size,
+        bucket_capture_count,
+        place_bucket,
+        solve_bucket,
+    )
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.models.generators import random_batched_lp
+
+    m, n, B = int(spec.get("m", 8)), int(spec.get("n", 24)), int(spec.get("batch", 8))
+    seed = int(spec.get("seed", 7))
+    cfg = SolverConfig(tol=float(spec.get("tol", 1e-8)), verbose=False)
+    mesh = world.mesh(axis="batch")
+    active = np.ones(B, dtype=bool)
+    dispatches, cache_after_first = [], 0
+    for i, s in enumerate((seed, seed + 1)):
+        batch = random_batched_lp(B, m, n, seed=s)
+        size0, caps0 = bucket_cache_size(), bucket_capture_count()
+        t0 = time.perf_counter()
+        placed, act = place_bucket(batch, active, cfg, mesh=mesh)
+        res = solve_bucket(placed, act, cfg, mesh=mesh)
+        wall = time.perf_counter() - t0
+        dispatches.append({
+            "seed": s, "wall_s": wall, "solve_s": res.solve_time,
+            "status": [st.value for st in res.status],
+            "iterations": [int(v) for v in res.iterations],
+            "objectives": [float(v) for v in res.objective],
+            "x_sha256": hashlib.sha256(np.ascontiguousarray(res.x).tobytes()).hexdigest(),
+            "x_lane_sha256": [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+                              for x in res.x],
+            "programs_built": bucket_cache_size() - size0,
+            "graphs_captured": bucket_capture_count() - caps0,
+            "phase_report": res.phase_report[0],
+        })
+        if i == 0:
+            cache_after_first = bucket_cache_size()
+    # Cross-process zero-warm-recompile check: the cache must not have
+    # grown on the SECOND dispatch on any rank, and every rank's total
+    # must agree (a collective; raises on disagreement).
+    sizes = world.agree(bucket_cache_size(), what="bucket_cache_size")
+    return {
+        "objectives_first": dispatches[0]["objectives"],
+        "objectives_second": dispatches[1]["objectives"],
+        "warm_recompiles": int(bucket_cache_size() - cache_after_first),
+        "bucket_cache_sizes": sizes,
+        "lane_block": list(mesh.lane_blocks(B)[0][1:]),
+        "dispatches": dispatches,
+    }
+
+
+def _supervised_case(world: World, spec: dict) -> dict:
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.ipm.state import FaultKind
+    from distributedlpsolver_tpu_torch.parallel import runtime
+    from distributedlpsolver_tpu_torch.supervisor import (
+        InjectedFault,
+        ShrunkOut,
+        SupervisorConfig,
+        supervised_solve,
+    )
+
+    problem = _problem(spec)
+    plan = [InjectedFault(FaultKind(f["kind"]), int(f["iteration"]),
+                          device_ids=f.get("device_ids"), shard=f.get("shard"),
+                          times=f.get("times", 1), hang_seconds=float(f.get("hang_seconds", 30.0)))
+            for f in spec.get("faults", [])]
+    sup = SupervisorConfig(fault_plan=plan or None, **spec.get("supervisor", {}))
+    log = spec.get("log_jsonl")
+    cfg = SolverConfig(tol=float(spec.get("tol", 1e-8)), max_iter=int(spec.get("max_iter", 200)),
+                       verbose=False, log_jsonl=log.format(rank=world.rank) if log else None)
+    from distributedlpsolver_tpu_torch.backends import get_backend
+
+    be = get_backend(spec.get("backend", "sharded"), device=world.device)
+    runtime.restore_devices()
+    t0 = time.perf_counter()
+    faults = lambda fs: [{"kind": f.kind.value, "iteration": f.iteration, "action": f.action,
+                          "devices": list(f.devices), "backend": f.backend,
+                          "recovery_overhead_s": f.recovery_overhead_s} for f in fs]
+    try:
+        r = supervised_solve(problem, backend=be, config=cfg, supervisor=sup)
+    except ShrunkOut as e:
+        return {"left": True, "faults": faults(e.faults), "wall_s": time.perf_counter() - t0}
+    finally:
+        runtime.restore_devices()
+    out = {
+        "left": False, "status": r.status.value, "objective": r.objective,
+        "iterations": r.iterations, "backend": r.backend, "rel_gap": r.rel_gap,
+        "pinf": r.pinf, "wall_s": time.perf_counter() - t0, "faults": faults(r.faults),
+        "x_sha256": None if r.x is None else hashlib.sha256(r.x.tobytes()).hexdigest(),
+    }
+    if spec.get("return_xy") and r.x is not None:
+        out["x"], out["y"] = r.x.tolist(), r.y.tolist()
+    return out
+
+
+@task("supervised_solve")
+def supervised_solve_task(world: World, spec: dict) -> dict:
+    """:func:`_supervised_case` of ``spec``, or of each of its ``cases``
+    in one world."""
+    cases = spec.get("cases", [spec])
+    out = []
+    for case in cases:
+        out.append(_supervised_case(world, case))
+        # A rank the shrink excluded waits here for the survivors, so the
+        # next case starts on the whole world.
+        world.barrier("case-done")
+    return {"cases": out} if "cases" in spec else out[0]
+
+
 def _unported(name: str, item: str):
     def run(world: World, spec: dict) -> dict:
         raise NotImplementedError(
@@ -205,7 +335,6 @@ def _unported(name: str, item: str):
     return run
 
 
-task("bucket_probe")(_unported("bucket_probe", "13b"))
 task("sparse_rows")(_unported("sparse_rows", "13c"))
 task("scenario_lanes")(_unported("scenario_lanes", "13c"))
 
@@ -217,22 +346,6 @@ def _write_result(out_dir: str, rank: int, payload: dict) -> None:
     with open(tmp, "w") as fh:
         json.dump(payload, fh)
     os.replace(tmp, path)
-
-
-# gloo's TCP transport reports a peer's closed connection so: a read
-# that hit EOF, or a read or write that the OS refused (ECONNRESET, EPIPE).
-_CLOSED_CONNECTION = ("connection closed by peer", "connection reset by peer", "broken pipe")
-
-
-def _peer_lost(world: World, err: BaseException) -> bool:
-    """Whether a failed task saw a peer die: gloo reports a closed
-    connection, or a peer's heartbeat is stale. Any other error is the
-    rank's own and keeps its exit code."""
-    msg = str(err).lower()
-    if any(w in msg for w in _CLOSED_CONNECTION):
-        return True
-    stale = world.peer_staleness() if world.cfg.heartbeat_dir else {}
-    return any(s > world.cfg.heartbeat_ttl_s for s in stale.values())
 
 
 def main(argv=None) -> int:
@@ -249,13 +362,7 @@ def main(argv=None) -> int:
         try:
             result = TASKS[args.task](world, spec)
         except RuntimeError as e:
-            if (world.world_size > 1 and not isinstance(e, NotImplementedError)
-                    and _peer_lost(world, e)):
-                # The world is dead: leave deliberately, skipping the
-                # teardown a collective with the dead peer would block.
-                print(f"[world] rank {world.rank}: a peer died mid-collective ({e}); "
-                      "exiting", file=sys.stderr, flush=True)
-                os._exit(WORLD_PEER_LOST_EXIT)
+            exit_on_peer_loss(world, e)  # the world is dead: leave deliberately
             raise
         result.update(world.describe())
         # Completion barrier BEFORE results land: a rank must not

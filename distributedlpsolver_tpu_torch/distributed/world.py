@@ -150,6 +150,30 @@ def pg_backend_for(cfg: WorldConfig, device: torch.device) -> str:
     return "nccl"
 
 
+def peer_lost(world: "World", err: BaseException) -> bool:
+    """Whether ``err``, raised on a rank of ``world``, is a peer's death:
+    gloo reports a closed connection, or a peer's heartbeat is stale. Any
+    other error is the rank's own."""
+    if world.world_size <= 1 or isinstance(err, NotImplementedError):
+        return False
+    msg = str(err).lower()
+    if any(w in msg for w in _CLOSED_CONNECTION):
+        return True
+    stale = world.peer_staleness() if world.cfg.heartbeat_dir else {}
+    return any(s > world.cfg.heartbeat_ttl_s for s in stale.values())
+
+
+def exit_on_peer_loss(world: "World", err: BaseException) -> None:
+    """Leave the process with :data:`WORLD_PEER_LOST_EXIT` when ``err`` is
+    a peer's death (a world dies as a unit; the launcher's supervisor
+    relaunches it), skipping the teardown a collective with the dead peer
+    would block; return otherwise."""
+    if peer_lost(world, err):
+        print(f"[world] rank {world.rank}: a peer died mid-collective ({err}); exiting",
+              file=sys.stderr, flush=True)
+        os._exit(WORLD_PEER_LOST_EXIT)
+
+
 def _die_on_peer_loss(world: "World", dead: List[int]) -> None:
     """Default peer-loss reaction: exit hard, immediately. A collective
     may be wedged on the dead peer, and normal teardown would block
@@ -167,6 +191,10 @@ def _die_on_peer_loss(world: "World", dead: List[int]) -> None:
 # distinguishes "this rank detected a dead peer" from "this rank was the
 # original fault".
 WORLD_PEER_LOST_EXIT = 43
+
+# gloo's TCP transport reports a peer's closed connection so: a read
+# that hit EOF, or a read or write that the OS refused (ECONNRESET, EPIPE).
+_CLOSED_CONNECTION = ("connection closed by peer", "connection reset by peer", "broken pipe")
 
 
 class World:

@@ -208,8 +208,9 @@ def solve(
     if cfg.checkpoint_path:
         # Every rank of a world runs this driver and rank 0 alone writes
         # the checkpoint: no rank may start (and rank 0 overwrite the
-        # file) before every rank has read it.
-        runtime.barrier()
+        # file) before every rank has read it. After a shrink the
+        # backend's mesh holds the survivors, and its first member writes.
+        runtime.barrier(getattr(be, "mesh", None))
     warm_label = "cold"
     if isinstance(warm_start, warm_mod.WarmStart):
         state, warm_label = _init_warm_start(
@@ -332,7 +333,7 @@ def solve(
             if hooks is not None:
                 hooks.on_iterate(it, last)
             if (cfg.checkpoint_every and it % cfg.checkpoint_every == 0 and cfg.checkpoint_path
-                    and runtime.is_primary()):  # once per world
+                    and runtime.is_primary(getattr(be, "mesh", None))):  # once per world
                 host_state = be.to_host(state)
                 if scaling is not None:
                     host_state = scaling.unscale_state(host_state)

@@ -3,6 +3,7 @@
 from distributedlpsolver_tpu_torch.parallel.mesh import (
     Mesh,
     Sharding,
+    batch_sharding,
     col_sharding,
     host_value,
     host_values,
@@ -16,12 +17,18 @@ from distributedlpsolver_tpu_torch.parallel.mesh import (
 from distributedlpsolver_tpu_torch.parallel.runtime import (
     init_distributed,
     is_primary,
+    probe_device,
+    probe_devices,
+    restore_devices,
+    simulate_device_loss,
+    simulated_lost_devices,
     world,
 )
 
 __all__ = [
     "Mesh",
     "Sharding",
+    "batch_sharding",
     "make_mesh",
     "make_hybrid_mesh",
     "reform_mesh",
@@ -34,4 +41,9 @@ __all__ = [
     "init_distributed",
     "world",
     "is_primary",
+    "simulate_device_loss",
+    "restore_devices",
+    "simulated_lost_devices",
+    "probe_device",
+    "probe_devices",
 ]

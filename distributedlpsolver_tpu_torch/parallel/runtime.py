@@ -8,15 +8,22 @@ it and picks its backend); this module is the rank/size view of it and
 the device each rank runs on. Without a world everything degrades to a
 world of one (the ``mpirun -np 1`` analogue).
 
-Not ported yet (ROADMAP Queue 1 item 13b): the simulated device loss and
-the per-device probes of the elastic shrink (``simulate_device_loss``,
-``restore_devices``, ``probe_devices``). The one-device probe is
-``utils/accel.py::probe_device``.
+The elastic shrink's health probes live here too, with the process's
+ONE simulated-loss registry (``simulate_device_loss``): the seam the
+fault injector (``supervisor/faults.py``) and the network plane's chaos
+probes use to make a loss testable without a real one. A key is a mesh
+member's id (a world's rank, a local mesh's device id) or a device
+(``"cuda:0"``, ``"cpu"``); ``utils/accel.py`` re-exports the registry.
+A probe reports a member unhealthy when the registry names it, or when
+a tiny op on its device raises or misses its deadline. Under a world a
+rank probes only its own device: another rank's device gives no
+evidence from here, as in the JAX package's multi-process guard.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,16 +104,24 @@ def world() -> dict:
     }
 
 
-def is_primary() -> bool:
-    """True on the process that should own logging and IO (rank 0)."""
+def is_primary(mesh=None) -> bool:
+    """True on the process that should own logging and IO: rank 0, or
+    the first member of ``mesh`` when it has a process group (after a
+    shrink, the survivors' first)."""
+    if mesh is not None and mesh.group is not None:
+        return mesh.is_primary
     dist = _dist()
     return dist is None or dist.get_rank() == 0
 
 
-def barrier() -> None:
-    """Wait for every rank of the world (a no-op without one). An
-    all-reduce of one element on the world's collective device: the
-    one collective every backend carries."""
+def barrier(mesh=None) -> None:
+    """Wait for every rank of the world (a no-op without one), or for
+    every member of ``mesh`` when it has a process group. An all-reduce
+    of one element on the world's collective device: the one collective
+    every backend carries."""
+    if mesh is not None and mesh.group is not None:
+        mesh.barrier()
+        return
     dist = _dist()
     if dist is None or dist.get_world_size() == 1:
         return
@@ -115,3 +130,98 @@ def barrier() -> None:
     dist.all_reduce(t)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+# ----------------------------------------------------------------------
+# Health probes and the simulated-loss registry (elastic recovery).
+
+_SIMULATED_LOST: set = set()
+_LOST_LOCK = threading.Lock()
+
+
+def _loss_key(item):
+    if isinstance(item, (int,)) and not isinstance(item, bool):
+        return int(item)
+    return str(torch.device(item))
+
+
+def simulate_device_loss(devices: Sequence) -> None:
+    """Mark mesh member ids (ints) or devices as lost for this process:
+    the probes then report them unhealthy without touching them."""
+    with _LOST_LOCK:
+        _SIMULATED_LOST.update(_loss_key(d) for d in devices)
+
+
+def restore_devices(devices: Optional[Sequence] = None) -> None:
+    """Undo :func:`simulate_device_loss` (every entry when None)."""
+    with _LOST_LOCK:
+        if devices is None:
+            _SIMULATED_LOST.clear()
+        else:
+            _SIMULATED_LOST.difference_update(_loss_key(d) for d in devices)
+
+
+def simulated_lost_devices() -> frozenset:
+    with _LOST_LOCK:
+        return frozenset(_SIMULATED_LOST)
+
+
+def probe_device(device, deadline: float = 2.0, device_id: Optional[int] = None) -> bool:
+    """One device's health: a tiny op on it and a synchronize, on a side
+    thread, within ``deadline`` seconds. Unhealthy when the op raises,
+    returns a wrong value or misses the deadline, or when the registry
+    names the device or its member id ``device_id``."""
+    dev = torch.device(device)
+    lost = simulated_lost_devices()
+    if str(dev) in lost or (device_id is not None and int(device_id) in lost):
+        return False
+    out: list = []
+
+    def _ping():
+        try:
+            t = torch.full((1,), 1.0, device=dev) + 1.0
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out.append(float(t.cpu()[0]) == 2.0)
+        except Exception:  # a raising probe is an unhealthy device
+            out.append(False)
+
+    th = threading.Thread(target=_ping, daemon=True, name="dlps-device-probe")
+    th.start()
+    th.join(deadline)
+    return bool(out) and out[0]
+
+
+def probe_devices(devices: Optional[Sequence] = None, deadline: float = 2.0) -> Tuple[List, List]:
+    """``(healthy, unhealthy)`` lists of ``torch.device`` from
+    :func:`probe_device` on each of ``devices`` (None: this process's
+    device, the world's or the first card or the CPU)."""
+    if devices is None:
+        devices = [_WORLD.device if _WORLD is not None
+                   else "cuda" if torch.cuda.is_available() else "cpu"]
+    healthy, unhealthy = [], []
+    for d in devices:
+        d = torch.device(d)
+        (healthy if probe_device(d, deadline) else unhealthy).append(d)
+    return healthy, unhealthy
+
+
+def probe_mesh(mesh, deadline: float = 2.0) -> Tuple[List[int], List[int]]:
+    """``(healthy, unhealthy)`` member ids of ``mesh``. A local mesh probes
+    each member's device; a process-group mesh probes this rank's own
+    device and reads the registry for the others (a peer's device gives
+    no evidence from here: a member that is neither in the registry nor
+    this rank is in neither list)."""
+    healthy, unhealthy = [], []
+    lost = simulated_lost_devices()
+    for i, mid in enumerate(mesh.device_ids):
+        if mesh.is_local:
+            ok = probe_device(mesh.devices[i], deadline, device_id=mid)
+        elif mid in lost:
+            ok = False
+        elif mesh.member and i == mesh.rank:
+            ok = probe_device(mesh.device, deadline, device_id=mid)
+        else:
+            continue
+        (healthy if ok else unhealthy).append(mid)
+    return healthy, unhealthy

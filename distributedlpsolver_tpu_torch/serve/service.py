@@ -50,10 +50,19 @@ brownout ladder (``ServiceConfig.brownout``) sit on the submit path, as
 in the JAX package (``net/admission.py``). A two-stage request (the
 ``two_stage`` hint of a lowered ``ScenarioLP``) takes the solo route pinned
 to the ``scenario`` backend and charges ``ceil(K / scenario_k_unit)``
-admission units, as in the JAX package. Not ported, and refused with
-``NotImplementedError`` naming the ROADMAP item: mesh or multi-host
-dispatch (``mesh_devices`` other than 0 or 1, ``reshard``,
-``slice_runner=``; item 13b).
+admission units, as in the JAX package.
+
+Mesh data parallelism: with ``ServiceConfig(mesh_devices=K)`` (or
+``mesh=``) the pack stage places each bucket's lane blocks over a local
+batch mesh (``parallel/mesh.py``: K distinct cards; on the CPU the CPU
+device K times) and ``solve_bucket`` runs each block through its own
+program; bucket batches must divide by K, and the warm-cache key holds
+the mesh, so a re-formed mesh builds once per bucket and then stays warm.
+``reshard(exclude)`` re-forms the mesh over the survivors, clamped to the
+gcd of the bucket batches. With ``slice_runner=`` (``distributed/
+slice.py``) every dispatch is published to a world's follower ranks and
+executed on the world's batch mesh; ``reshard`` then raises
+``RuntimeError`` (the world supervisor relaunches a lost world).
 
 Telemetry: one JSONL record per request, one per dispatched batch, and a
 service summary at shutdown, through utils/logging.IterLogger. The bucket
@@ -65,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import threading
 import time
@@ -112,12 +122,6 @@ from distributedlpsolver_tpu_torch.utils.logging import IterLogger
 _INF = np.inf
 
 
-def _unported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP Queue 1 item {item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     """Tunables of the serving loop (the JAX package's fields; those the
@@ -151,7 +155,9 @@ class ServiceConfig:
     # Deterministic fault injection (tests): called with (dispatch_index,
     # bucket_key) before each batch launch; raising faults that attempt.
     fault_injector: Optional[Callable[[int, tuple], None]] = None
-    # Batch-axis data parallelism: 0/1 only (the mesh is item 13b).
+    # Batch-axis data parallelism: split each bucket dispatch over this
+    # many local devices (0/1 = one device; -1 = every local card). Bucket
+    # batches are rounded/validated to divide by it (BucketTable).
     mesh_devices: int = 0
     # Dispatch pipeline depth: bound on popped batches between the
     # scheduler and solve stages.
@@ -238,11 +244,19 @@ class _Packed:
     # PDHG lanes' start-vector indices (first_order.pdhg_seed of each
     # member's name, each padding slot its own index); None on the IPM.
     seeds: object = None
+    # The batch mesh the bucket was placed on (None: one device). Under a
+    # mesh every placed field is a tuple of lane blocks; in slice mode the
+    # batch, mask and warm lanes stay on the host.
+    mesh: object = None
 
     def tensors(self):
         lanes = tuple(self.warm) if self.warm is not None else ()
         out = (self.batch.A, self.batch.b, self.batch.c, self.active, *lanes)
-        return out + ((self.warm_mask,) if self.warm_mask is not None else ())
+        out += (self.warm_mask,) if self.warm_mask is not None else ()
+        flat = []
+        for t in out:
+            flat.extend(t if isinstance(t, tuple) else (t,))
+        return [t for t in flat if isinstance(t, torch.Tensor)]
 
 
 @dataclasses.dataclass
@@ -273,14 +287,28 @@ class SolveService:
         device=None,
     ):
         self.config = config or ServiceConfig()
-        if mesh is not None or self.config.mesh_devices not in (0, 1):
-            raise _unported("mesh dispatch (mesh=, mesh_devices > 1)", "13b")
-        if slice_runner is not None:
-            raise _unported("multi-host slice serving (slice_runner=)", "13b")
+        # Multi-host slice mode (distributed/slice.py): an explicit
+        # slice_runner routes every bucket dispatch through the slice
+        # control plane so follower ranks execute the same programs; its
+        # world mesh stands in for mesh_devices. Bucket batch divisibility
+        # is enforced against the whole mesh.
+        self._slice = slice_runner
+        if slice_runner is not None and mesh is None:
+            mesh = slice_runner.mesh
+        if slice_runner is not None and self.config.solo_backend == "auto":
+            # Solo fallbacks run on rank 0 ONLY (no follower mirrors a solo
+            # solve): pinned to the one-device dense backend, as in the JAX
+            # package.
+            self.config = dataclasses.replace(self.config, solo_backend="dense")
         from distributedlpsolver_tpu_torch.backends.base import check_backend_name
 
         check_backend_name(self.config.solo_backend)
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self._mesh = (  # guarded-by: _lock
+            mesh if mesh is not None else self._build_mesh(self.config.mesh_devices, self.device)
+        )
         # The bucket path solves raw standard form — presolve/scaling and
         # per-iteration diagnostics are general-form driver concerns.
         self.solver_config = (solver_config or SolverConfig()).replace(
@@ -382,7 +410,8 @@ class SolveService:
                 self.config.brownout, max_depth=self.config.max_queue_depth, metrics=m,
             )
         self.scheduler = Scheduler(  # guarded-by: _lock
-            BucketTable(self.config.buckets, batch=self.config.batch, devices=1),
+            BucketTable(self.config.buckets, batch=self.config.batch,
+                        devices=self._mesh.size if self._mesh is not None else 1),
             self.config.max_queue_depth,
             self.config.flush_s,
             metrics=m,
@@ -445,10 +474,34 @@ class SolveService:
         if auto_start:
             self.start()
 
+    @staticmethod
+    def _build_mesh(mesh_devices: int, device):
+        """The local batch mesh of ``ServiceConfig.mesh_devices`` on the
+        service's device kind: None at 0/1; -1 = every local device; more
+        devices than the process has raises (``parallel.mesh.local_devices``;
+        on the CPU the CPU device repeats)."""
+        from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+        if mesh_devices in (0, 1):
+            return None
+        k = mesh_devices
+        if k == -1:
+            k = torch.cuda.device_count() if device.type == "cuda" else 1
+        if k <= 1:
+            return None
+        return mesh_lib.make_mesh((k,), axis_names=("batch",),
+                                  devices=mesh_lib.local_devices(k, device))
+
     @property
     def mesh_devices(self) -> int:
-        """Devices the batch axis is sharded over (always 1 here)."""
-        return 1
+        """Devices the batch axis is currently sharded over (1 = unsharded)."""
+        with self._lock:
+            mesh = self._mesh
+        return mesh.size if mesh is not None else 1
+
+    @staticmethod
+    def _mesh_key(mesh):
+        return None if mesh is None else mesh.key
 
     # -- lifecycle -------------------------------------------------------
 
@@ -1015,13 +1068,28 @@ class SolveService:
         else:
             warm_states, warm_mask, warm_hits = self._build_warm_lanes(spec, live)
         cfg = self.solver_config.replace(tol=tol)
+        # Snapshot: a reshard mid-pipeline only affects later packs; this
+        # bucket solves on the mesh it was placed on.
+        with self._lock:
+            mesh = self._mesh
+        if self._slice is not None:
+            # Slice mode: the batch stays on the host — the dispatch seam
+            # publishes it to the follower ranks and every rank (0
+            # included) places its own lane block at execute time.
+            return _Packed(
+                batch=BatchedLP(c=c, A=A, b=b, name=batch.name), active=active,
+                waste=padding_waste(sum(p.m * p.n for p in live), spec),
+                pack_ms=(time.perf_counter() - t0) * 1e3, warm=None, warm_mask=warm_mask,
+                warm_hits=warm_hits, warm_host=warm_states, seeds=seeds, mesh=mesh,
+            )
         ready = None
         with self._on_pack_stream():
-            placed, act = place_bucket(batch, active, cfg, device=self.device)
+            placed, act = place_bucket(batch, active, cfg, mesh=mesh, device=self.device)
             warm_placed = mask_placed = None
             if warm_states is not None:
                 warm_placed, mask_placed = place_warm(
-                    warm_states, warm_mask, (B, spec.m, spec.n), cfg, device=self.device
+                    warm_states, warm_mask, (B, spec.m, spec.n), cfg, mesh=mesh,
+                    device=self.device,
                 )
             if self._pack_stream is not None:
                 ready = torch.cuda.Event()
@@ -1037,6 +1105,7 @@ class SolveService:
             warm_host=warm_states,
             ready=ready,
             seeds=seeds,
+            mesh=mesh,
         )
 
     def _await_packed(self, packed: _Packed) -> None:
@@ -1048,7 +1117,8 @@ class SolveService:
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(packed.ready)
         for t in packed.tensors():
-            t.record_stream(stream)
+            if t.device == self.device:  # a local mesh's other cards copy on their own streams
+                t.record_stream(stream)
 
     def _build_warm_lanes(self, spec, live: List[PendingRequest]):
         """Warm lanes for one bucket: look each member's fingerprint up in
@@ -1112,9 +1182,14 @@ class SolveService:
             return
         wm = np.zeros(spec.batch, dtype=bool)
         wm[: len(hits)] = hits
+        if self._slice is not None:
+            # Slice mode keeps host lanes: the dispatch seam publishes the
+            # patched lanes and mask, and every rank places its block.
+            packed.warm_mask = wm
+            return
         packed.warm, packed.warm_mask = place_warm(
             st, wm, (spec.batch, spec.m, spec.n), self.solver_config.replace(tol=tol),
-            device=self.device,
+            mesh=packed.mesh, device=self.device,
         )
 
     def _overlap_ms(self, t1: float, t2: float) -> float:
@@ -1213,7 +1288,8 @@ class SolveService:
             seq = self._dispatch_seq
             self._dispatch_seq += 1
 
-        warm_key = (spec.key(), tol, cfg.dtype, engine)
+        mesh = packed.mesh
+        warm_key = (spec.key(), tol, cfg.dtype, self._mesh_key(mesh), engine)
         compile_ms = 0.0
         warmup = None
         faults: List[FaultRecord] = []
@@ -1239,9 +1315,16 @@ class SolveService:
                     with self.tracer.span(
                         f"compile {spec.m}x{spec.n}x{spec.batch}/{engine}", cat="pipeline",
                     ):
-                        extra = {"seeds": packed.seeds} if engine == "pdhg" else {}
-                        warmup = solve_engine_fn(batch, active, cfg, max_iter=1,
-                                                 device=self.device, **extra)
+                        if self._slice is not None:
+                            # Every rank of the slice builds the program:
+                            # the warm-up rides the dispatch seam.
+                            warmup = self._slice.dispatch(
+                                spec, tol, engine, batch, active, max_iter=1,
+                                seeds=packed.seeds)
+                        else:
+                            extra = {"seeds": packed.seeds} if engine == "pdhg" else {}
+                            warmup = solve_engine_fn(batch, active, cfg, mesh=mesh, max_iter=1,
+                                                     device=self.device, **extra)
                     compile_ms = (time.perf_counter() - t0) * 1e3
                     new_programs = bucket_cache_size() - size0
                     self._m_compiles.inc(new_programs)
@@ -1250,12 +1333,23 @@ class SolveService:
                         self._compiles += new_programs
 
                 def _solve():
+                    if self._slice is not None:
+                        # Rank 0 publishes the members' trace headers in
+                        # the dispatch journal's meta (host JSON, never a
+                        # program key); followers join them.
+                        return self._slice.dispatch(
+                            spec, tol, engine, batch, active,
+                            warm_host=None if engine == "pdhg" else packed.warm_host,
+                            warm_mask=packed.warm_mask, seeds=packed.seeds,
+                            trace=[p.trace.to_header() for p in live
+                                   if p.trace is not None] or None,
+                        )
                     if engine == "pdhg":
-                        return solve_pdhg_bucket(batch, active, cfg, device=self.device,
-                                                 seeds=packed.seeds)
+                        return solve_pdhg_bucket(batch, active, cfg, mesh=mesh,
+                                                 device=self.device, seeds=packed.seeds)
                     return solve_bucket(
-                        batch, active, cfg, warm=packed.warm, warm_mask=packed.warm_mask,
-                        device=self.device,
+                        batch, active, cfg, mesh=mesh, warm=packed.warm,
+                        warm_mask=packed.warm_mask, device=self.device,
                     )
 
                 res = run_with_deadline(_solve, self.config.batch_timeout_s, seq)
@@ -1350,6 +1444,8 @@ class SolveService:
         device_rows.update({
             f"warmup_{k}": loop(warmup, k) for k in ("bodies", "captures", "launches")
         })
+        first = (res.phase_report or [{}])[0] if res is not None else {}
+        n_mesh = mesh.size if mesh is not None else 1
 
         with self._lock:
             depth = self.scheduler.depth()
@@ -1375,7 +1471,8 @@ class SolveService:
                     "schedule": schedule_str,
                     "fused_iters": fused_k,
                     "warm": n_warm,
-                    "mesh_devices": 1,
+                    "mesh_devices": n_mesh,
+                    "captured": first.get("captured"),
                     **device_rows,
                 }
             )
@@ -1396,7 +1493,8 @@ class SolveService:
                 "schedule": schedule_str,
                 "fused_iters": fused_k,
                 "warm": n_warm,
-                "mesh_devices": 1,
+                "mesh_devices": n_mesh,
+                "captured": first.get("captured"),
                 "attempts": len(faults) + (1 if res is not None else 0),
                 "queue_depth": depth,
                 "occupancy": occupancy,
@@ -1685,8 +1783,50 @@ class SolveService:
     # -- ladder management ------------------------------------------------
 
     def reshard(self, exclude: Sequence = ()) -> int:
-        """Elastic mesh recovery — not ported (there is no mesh)."""
-        raise _unported("reshard() (elastic mesh recovery)", "13b")
+        """Elastic recovery: re-form the serving mesh over the surviving
+        devices (``parallel.mesh.reform_mesh`` semantics — ``exclude``
+        lists lost device ids). The survivor count is clamped DOWN to the
+        largest count that still divides every bucket's batch, so in-flight
+        and future dispatches stay shardable; at 1 the mesh is dropped and
+        dispatch continues unsharded. Batches already packed on the old
+        mesh finish there. Returns the new device count."""
+        if self._slice is not None:
+            # A slice's mesh spans PROCESSES: losing part of it kills the
+            # world as a unit (distributed/world.py), and recovery is the
+            # launcher's world re-initialization.
+            raise RuntimeError(
+                "reshard() is not available in slice mode — multi-host device loss is "
+                "recovered by the world supervisor (it relaunches a smaller world; see "
+                "README 'Multi-host')"
+            )
+        with self._lock:
+            mesh = self._mesh
+        if mesh is None:
+            return 1
+        from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+        new = mesh_lib.reform_mesh(mesh, exclude=exclude, axis_name="batch")
+        with self._lock:
+            table = self.scheduler.table
+            g = table.batch
+            for spec in table.specs():
+                g = math.gcd(g, spec.batch)
+            k = max(d for d in range(1, new.size + 1) if g % d == 0)
+            if k <= 1:
+                self._mesh = None
+            elif k == new.size:
+                self._mesh = new
+            else:
+                self._mesh = mesh_lib.make_mesh(
+                    (k,), axis_names=("batch",), devices=new.devices[:k])
+            n_dev = max(1, k)
+        self.metrics.gauge("serve_mesh_devices", help="devices under the batch axis").set(n_dev)
+        self.tracer.instant("serve.reshard", args={"devices": n_dev}, cat="serve")
+        self._logger.event({
+            "event": "reshard", "devices": n_dev,
+            "excluded": [int(getattr(d, "id", d)) for d in exclude],
+        })
+        return n_dev
 
     def apply_ladder(
         self,
@@ -1700,7 +1840,8 @@ class SolveService:
         every new bucket program so the first post-swap dispatches pay no
         build. Returns the number of bucket programs warmed."""
         self.drain(drain_timeout)
-        table = BucketTable(list(buckets), batch=batch or self.config.batch, devices=1)
+        table = BucketTable(list(buckets), batch=batch or self.config.batch,
+                            devices=self.mesh_devices)
         with self._wake:
             pending = self.scheduler.drain_pending()
             self.scheduler = Scheduler(
@@ -1777,10 +1918,12 @@ class SolveService:
             if self.config.pdhg_routing and tol >= self.config.pdhg_tol:
                 engines.append("pdhg")
         cfg = self.solver_config.replace(tol=tol)
+        with self._lock:
+            mesh = self._mesh
         warmed = 0
         for spec in specs:
             for engine in engines:
-                wk = (spec.key(), tol, cfg.dtype, engine)
+                wk = (spec.key(), tol, cfg.dtype, self._mesh_key(mesh), engine)
                 with self._lock:
                     already = wk in self._warm
                 if already:
@@ -1789,12 +1932,17 @@ class SolveService:
                 size0 = bucket_cache_size()
                 cache_dir, entries0 = self._cache_dir_snapshot()
                 t0 = time.perf_counter()
+                act_host = np.ones(spec.batch, dtype=bool)
                 try:
-                    placed, act = place_bucket(
-                        dummy, np.ones(spec.batch, dtype=bool), cfg, device=self.device
-                    )
-                    fn = solve_pdhg_bucket if engine == "pdhg" else solve_bucket
-                    fn(placed, act, cfg, max_iter=1, device=self.device)
+                    if self._slice is not None:
+                        # Warm every RANK of the slice: the warm-up is a
+                        # published dispatch.
+                        self._slice.dispatch(spec, tol, engine, dummy, act_host, max_iter=1)
+                    else:
+                        placed, act = place_bucket(dummy, act_host, cfg, mesh=mesh,
+                                                   device=self.device)
+                        fn = solve_pdhg_bucket if engine == "pdhg" else solve_bucket
+                        fn(placed, act, cfg, mesh=mesh, max_iter=1, device=self.device)
                 except (KeyboardInterrupt, SystemExit):
                     raise
                 except Exception as e:  # warm-up failure: traffic pays later
@@ -1906,7 +2054,7 @@ class SolveService:
             "dispatches": dispatches,
             "programs_compiled": compiles,
             "warm_cache": self._warm_cache.stats() if self._warm_cache is not None else None,
-            "mesh_devices": 1,
+            "mesh_devices": self.mesh_devices,
             "device": str(self.device),
             "pack_ms_total": round(pack_total, 3),
             "overlap_ms_total": round(overlap_total, 3),

@@ -22,6 +22,7 @@ from distributedlpsolver_tpu_torch.supervisor.faults import (
 )
 from distributedlpsolver_tpu_torch.supervisor.supervisor import (
     IterateHealthFault,
+    ShrunkOut,
     SolveFailure,
     SupervisorConfig,
     supervised_solve,
@@ -40,6 +41,7 @@ __all__ = [
     "InjectedDeviceLoss",
     "InjectedFault",
     "IterateHealthFault",
+    "ShrunkOut",
     "SolveFailure",
     "StepDeadlineExceeded",
     "SupervisorConfig",

@@ -30,10 +30,10 @@ backend:
   :class:`InjectedDeviceLoss` carrying the ids, the way a real device
   loss surfaces as a runtime error out of the dispatch.
 
-The torch package has no mesh and no runtime registry yet (ROADMAP
-Queue 1 item 13b): a plan holding a shard-loss injection (DEVICE_LOST, or
-a HANG blamed on a ``shard``) raises ``NotImplementedError`` when the
-injector is built.
+In the torch package a device id is a mesh member's id
+(``parallel/mesh.py``): a world's rank, or a local mesh's device id. Every
+rank of a world runs the same plan, so every rank marks the same ids and
+takes the same branch of the supervisor's ladder.
 
 Injection is keyed on the driver iteration number (1-based, as logged) and
 optionally on the backend name, and each fault fires a bounded number of
@@ -50,6 +50,7 @@ import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from distributedlpsolver_tpu_torch.ipm.state import FaultKind
+from distributedlpsolver_tpu_torch.parallel import runtime as _runtime
 
 
 class InjectedCrash(RuntimeError):
@@ -96,12 +97,6 @@ class FaultInjector:
     """
 
     def __init__(self, plan: List[InjectedFault]):
-        for f in plan:
-            if f.kind is FaultKind.DEVICE_LOST or f.shard is not None:
-                raise NotImplementedError(
-                    "shard-loss fault injection needs the device runtime registry, which is "
-                    "not ported to the torch package yet (ROADMAP Queue 1 item 13b)"
-                )
         self._plan = list(plan)
         self._fired: List[int] = [0] * len(self._plan)
 
@@ -152,9 +147,21 @@ class FaultInjector:
                 raise err
 
             return _crash
+        if fault.kind is FaultKind.DEVICE_LOST:
+
+            def _lose():
+                ids = tuple(int(d) for d in (fault.device_ids or ()))
+                _runtime.simulate_device_loss(ids)
+                raise InjectedDeviceLoss(iteration, ids)
+
+            return _lose
         if fault.kind is FaultKind.HANG:
 
             def _hang():
+                if fault.shard is not None:
+                    # The wedged shard also fails the health probe, so the
+                    # supervisor can attribute this hang to it.
+                    _runtime.simulate_device_loss([fault.shard])
                 time.sleep(fault.hang_seconds)
                 return step_fn()
 

@@ -62,12 +62,30 @@ load or launch (``ops.kernel_build.KernelError``, re-raised as it is —
 another backend would only hide it), and a lost card (no rung runs on a
 lost device; :class:`SolveFailure` at once). A degradation is recorded in
 the fault history (``action="degrade:<rung>"``) and in the result's
-backend name. A mesh backend (``sharded``) is attributed by its mesh's
-ranks, and its health probe pings the device of this rank (another
-rank's device gives no evidence here, as in the reference's
-multi-process guard): a healthy probe goes on up the ladder as the
-reference does, and an unhealthy one, which would SHRINK the mesh,
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 13b).
+backend name.
+
+A mesh backend (``sharded``) is attributed by its mesh's member ids
+(``parallel/mesh.py``: a world's ranks). The SHRINK rung re-forms the
+mesh over the survivors (``reform_mesh``), re-places the backend on it
+(``backend.reshard``) and resumes from the checkpoint with a fresh ladder
+(``action="shrink:K->K'"``); below ``min_devices`` survivors it falls
+through to ``degrade:<rung>`` on every member alike (a lost card ends
+the solve only for a backend without a mesh).
+
+Over a world of processes every rank runs this loop with the same fault
+plan, so every rank classifies the same fault and takes the same branch.
+Rank 0 alone writes the checkpoint (``ipm/driver.py``), to a path every
+rank shares (rank 0 picks it and broadcasts it), and every rank's retry
+waits at a barrier of the backend's mesh before it reads the file. The
+probe of a world's mesh pings this rank's own device and reads the
+simulated-loss registry for the others (``parallel.runtime.probe_mesh``).
+The re-form is a collective of the whole world (``dist.new_group``): the
+excluded ranks enter it too, and then leave the solve with
+:class:`ShrunkOut`. Only the simulated loss of the fault injector shrinks
+a world this way: a rank that really dies kills the world as a unit (its
+peers' next collective fails), and the launcher's supervisor
+(``distributed/launcher.WorldSupervisor``) relaunches a smaller world
+that resumes from rank 0's checkpoint.
 
 Telemetry: with ``config.log_jsonl`` set, fault classifications and
 resume completions are appended to the same JSONL stream as the
@@ -209,21 +227,22 @@ _DEVICE_LOSS_PATTERNS = (
 )
 
 
-def _mesh_unported(where: str):
-    return NotImplementedError(
-        f"{where} of a mesh backend is not ported to the torch package yet "
-        "(ROADMAP Queue 1 item 13b)"
-    )
+class ShrunkOut(RuntimeError):
+    """Raised on a rank of a world that a mesh shrink excluded: it took
+    part in the collective re-form of the mesh and leaves the solve; the
+    survivors go on without it. ``faults`` is the history up to the
+    shrink."""
+
+    def __init__(self, faults: List[FaultRecord]):
+        self.faults = list(faults)
+        super().__init__(f"this rank was shrunk out of the mesh ({faults[-1].action})")
 
 
-def _mesh_unhealthy(be, deadline: float) -> set:
-    """The mesh participants of ``be`` whose probe fails: this rank's
-    device is the only one probed (a peer rank's device gives no
-    evidence from here)."""
-    from distributedlpsolver_tpu_torch.utils.accel import probe_device
+def _unhealthy_ids(mesh, deadline: float) -> set:
+    """Member ids of ``mesh`` whose health probe fails."""
+    from distributedlpsolver_tpu_torch.parallel import runtime
 
-    mesh = be.mesh
-    return set() if probe_device(be.device, deadline) else {mesh.rank}
+    return set(runtime.probe_mesh(mesh, deadline)[1])
 
 
 def _looks_like_device_loss(e: BaseException) -> bool:
@@ -356,19 +375,14 @@ def supervised_solve(
         base_cfg = base_cfg.replace(**config_overrides)
     from distributedlpsolver_tpu_torch.parallel import runtime
 
-    if runtime.world()["num_processes"] > 1:
-        # Rank 0 alone writes a world's checkpoint, and each rank's
-        # rollback would read its own: the ladder over a world of
-        # processes is the elastic world's.
-        raise NotImplementedError(
-            "supervised solves over a world of several processes are not ported to the "
-            "torch package yet (ROADMAP Queue 1 item 13b)")
-
+    in_world = runtime.world()["num_processes"] > 1
     tmpdir = None
     ckpt_path = sup.checkpoint_path or base_cfg.checkpoint_path
     if not ckpt_path:
-        tmpdir = tempfile.mkdtemp(prefix="dlps-supervisor-")
-        ckpt_path = os.path.join(tmpdir, "rollback.npz")
+        if runtime.is_primary():
+            tmpdir = tempfile.mkdtemp(prefix="dlps-supervisor-")
+        # One checkpoint a world: rank 0 writes it, every rank reads it.
+        ckpt_path = os.path.join(_shared_value(tmpdir, in_world), "rollback.npz")
     base_cfg = base_cfg.replace(
         checkpoint_path=ckpt_path,
         checkpoint_every=base_cfg.checkpoint_every or sup.snapshot_every,
@@ -412,6 +426,7 @@ def supervised_solve(
     attempt_cfg = base_cfg
     rung = 0
     pending: Optional[FaultRecord] = None  # fault being recovered from
+    suspects: dict = {}  # member id -> hangs the probe attributed to it
 
     try:
         while True:
@@ -496,68 +511,120 @@ def supervised_solve(
 
             # ---- elastic attribution: who (if anyone) is to blame? -----
             mesh = getattr(be, "mesh", None)
-            if mesh is not None and fault.kind in (
-                FaultKind.DEVICE_LOST,
-                FaultKind.HANG,
-            ) and _mesh_unhealthy(be, sup.probe_deadline):
-                raise _mesh_unported("the shrink after a failed health probe")
+            if mesh is not None and fault.kind in (FaultKind.DEVICE_LOST, FaultKind.HANG):
+                probed = _unhealthy_ids(mesh, sup.probe_deadline)
+                if fault.kind is FaultKind.DEVICE_LOST:
+                    lost_ids |= probed
+                else:  # HANG: count suspicions; promote at the threshold
+                    for i in probed:
+                        suspects[i] = suspects.get(i, 0) + 1
+                    lost_ids |= {i for i, c in suspects.items()
+                                 if c >= sup.hang_shard_threshold}
+                if lost_ids:
+                    fault.devices = tuple(sorted(lost_ids))
 
             # ---- recovery ladder ---------------------------------------
+            shrunk = False
             if fault.kind is FaultKind.DEVICE_LOST or lost_ids:
-                # A lost device does not come back on retry: a mesh backend
-                # would SHRINK (not ported); anything else degrades, never
-                # rollback-and-hope.
-                _shrunk_backend(be, lost_ids, sup.min_devices)
-                rung = _RUNG_RECENTER + 1  # force the degrade rung
+                # A lost device does not come back on retry: straight to
+                # the SHRINK rung; its failure falls through to
+                # degradation, never to rollback-and-hope.
+                new_be, old_k, new_k = _shrunk_backend(be, lost_ids, sup.min_devices)
+                if new_be is not None:
+                    fault.action = f"shrink:{old_k}->{new_k}"
+                    _leave_if_shrunk_out(new_be, faults, events, fault)
+                    be = new_be
+                    rung = 0  # fresh ladder for the re-formed mesh
+                    suspects.clear()
+                    if adaptive is not None:
+                        # Shrunk shapes run a new first step; re-open the
+                        # grace window but keep the cadence.
+                        adaptive.grant_grace()
+                    shrunk = True
+                else:
+                    rung = _RUNG_RECENTER + 1  # force the degrade rung
 
-            if rung == _RUNG_ROLLBACK:
-                fault.action = "rollback"
-            elif rung == _RUNG_REG_BUMP:
-                fault.action = "rollback+reg_bump"
-                attempt_cfg = attempt_cfg.replace(
-                    reg_primal=attempt_cfg.reg_primal * sup.reg_bump,
-                    reg_dual=attempt_cfg.reg_dual * sup.reg_bump,
-                )
-            elif rung == _RUNG_RECENTER:
-                fault.action = "recenter"
-                _remove_quiet(ckpt_path)  # fresh, well-centered start
-            else:
-                # Rung overflow. SHRINK sits above degradation: a mesh
-                # backend gets one health probe first (an unhealthy
-                # participant would be shrunk out: not ported).
-                if getattr(be, "mesh", None) is not None and _mesh_unhealthy(
-                        be, sup.probe_deadline):
-                    raise _mesh_unported("the mesh-shrink rung")
-                # A lost card takes every rung on it along.
-                lost_card = fault.kind is FaultKind.DEVICE_LOST and not _on_host(be)
-                nxt = (
-                    _next_backend(current_name, faults, _on_host(be))
-                    if sup.degrade and not lost_card
-                    else None
-                )
-                if nxt is None:
-                    fault.action = "give_up"
-                    _emit_fault(events, fault)
-                    raise SolveFailure(
-                        faults,
-                        f"recovery ladder exhausted on backend "
-                        f"{current_name!r} and no degradation "
-                        "target remains"
-                        + (" (the card is lost)" if lost_card else "" if _on_host(be) else
-                           " (the host rungs serve only backends placed on the CPU)"),
+            if not shrunk:
+                if rung == _RUNG_ROLLBACK:
+                    fault.action = "rollback"
+                elif rung == _RUNG_REG_BUMP:
+                    fault.action = "rollback+reg_bump"
+                    attempt_cfg = attempt_cfg.replace(
+                        reg_primal=attempt_cfg.reg_primal * sup.reg_bump,
+                        reg_dual=attempt_cfg.reg_dual * sup.reg_bump,
                     )
-                fault.action = f"degrade:{nxt}"
-                current_name = nxt
-                be = get_backend(nxt, **_device_kw(be))
-                attempt_cfg = base_cfg  # reset reg escalation
-                rung = -1  # += 1 below: fresh ladder, new backend
-                if adaptive is not None:
-                    # New backend = new step-time regime: the old
-                    # cadence would mis-size the first deadlines.
-                    adaptive.reset()
-            rung += 1
+                elif rung == _RUNG_RECENTER:
+                    fault.action = "recenter"
+                    if runtime.is_primary(getattr(be, "mesh", None)):
+                        _remove_quiet(ckpt_path)  # fresh, well-centered start
+                else:
+                    # Rung overflow. SHRINK sits above degradation: a mesh
+                    # backend whose ladder is exhausted gets one health
+                    # probe, and any unhealthy participant is shrunk out
+                    # before the mesh is abandoned for the next backend.
+                    mesh = getattr(be, "mesh", None)
+                    new_be = None
+                    if mesh is not None:
+                        unhealthy = _unhealthy_ids(mesh, sup.probe_deadline)
+                        if unhealthy:
+                            new_be, old_k, new_k = _shrunk_backend(
+                                be, unhealthy, sup.min_devices)
+                    if new_be is not None:
+                        fault.action = f"shrink:{old_k}->{new_k}"
+                        fault.devices = tuple(sorted(unhealthy))
+                        _leave_if_shrunk_out(new_be, faults, events, fault)
+                        be = new_be
+                        rung = -1  # += 1 below: fresh ladder on the new mesh
+                        suspects.clear()
+                        if adaptive is not None:
+                            adaptive.grant_grace()
+                    else:
+                        # A lost card takes every rung on it along. A
+                        # mesh backend's loss names members instead, and
+                        # with the shrink gated off every rank of a world
+                        # degrades alike (they run the same plan).
+                        lost_card = (fault.kind is FaultKind.DEVICE_LOST and not _on_host(be)
+                                     and getattr(be, "mesh", None) is None)
+                        nxt = (
+                            _next_backend(current_name, faults, _on_host(be))
+                            if sup.degrade and not lost_card
+                            else None
+                        )
+                        if nxt is None:
+                            fault.action = "give_up"
+                            _emit_fault(events, fault)
+                            raise SolveFailure(
+                                faults,
+                                f"recovery ladder exhausted on backend "
+                                f"{current_name!r} and no degradation "
+                                "target remains"
+                                + (" (the card is lost)" if lost_card else "" if _on_host(be)
+                                   else " (the host rungs serve only backends placed on the "
+                                   "CPU)"),
+                            )
+                        fault.action = f"degrade:{nxt}"
+                        current_name = nxt
+                        be = get_backend(nxt, **_device_kw(be))
+                        attempt_cfg = base_cfg  # reset reg escalation
+                        rung = -1  # += 1 below: fresh ladder, new backend
+                        suspects.clear()
+                        if adaptive is not None:
+                            # New backend = new step-time regime: the old
+                            # cadence would mis-size the first deadlines.
+                            adaptive.reset()
+                rung += 1
             _emit_fault(events, fault)
             _backoff(sup, len(faults))
+            if in_world:
+                # Rank 0 may still be writing the checkpoint the retry
+                # reads: every member of the backend's mesh (the world's
+                # ranks when it has none yet) meets here first.
+                runtime.barrier(getattr(be, "mesh", None))
+    except ShrunkOut:
+        # The survivors go on writing and reading the world's checkpoint
+        # in rank 0's directory: an excluded rank 0 leaves it in place.
+        tmpdir = None
+        raise
     finally:
         if events is not None:
             events.close()
@@ -599,9 +666,9 @@ def _emit_fault(events: Optional[IterLogger], fault: FaultRecord) -> None:
             "devices": list(fault.devices),
             "detail": fault.detail[:300],
             "t": fault.at_time,
-            # Which PROCESS observed the fault (one process until the
-            # multi-process runtime is ported).
-            "rank": 0,
+            # Which PROCESS observed the fault: under a world each rank
+            # writes its own record.
+            "rank": _rank(),
         }
     )
 
@@ -611,13 +678,60 @@ def _mesh_ids(be) -> Optional[tuple]:
     return None if mesh is None else mesh.device_ids
 
 
+def _rank() -> int:
+    from distributedlpsolver_tpu_torch.parallel import runtime
+
+    return runtime.world()["process_id"]
+
+
+def _shared_value(value, in_world: bool):
+    """``value`` as rank 0 holds it, on every rank of the world (itself
+    without a world)."""
+    if not in_world:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _shrunk_backend(be, exclude_ids, min_devices: int):
     """(new_backend, old_count, new_count) for the SHRINK rung, or
-    (None, 0, 0) when there is nothing to shrink (no mesh, nothing to
-    exclude); a shrink itself raises (not ported)."""
-    if getattr(be, "mesh", None) is None or not exclude_ids:
+    (None, 0, 0) when shrinking is not possible: no mesh, nothing to
+    exclude, too few survivors, or the backend cannot re-place itself.
+    Every rank of a world computes the same answer from the same ids, so
+    all of them enter the collective re-form or none does."""
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = getattr(be, "mesh", None)
+    if mesh is None or not exclude_ids:
         return None, 0, 0
-    raise _mesh_unported("the mesh-shrink rung")
+    survivors = [d for d in mesh.device_ids if d not in exclude_ids]
+    if len(survivors) == mesh.size:
+        return None, 0, 0  # none of the excluded ids are in this mesh
+    if len(survivors) < max(1, min_devices):
+        return None, 0, 0
+    new_mesh = mesh_lib.reform_mesh(mesh, exclude=exclude_ids)
+    if not new_mesh.member:
+        return _ShrunkOutMarker(new_mesh), mesh.size, len(survivors)
+    new_be = be.reshard(new_mesh)
+    if new_be is None:
+        return None, 0, 0
+    return new_be, mesh.size, len(survivors)
+
+
+class _ShrunkOutMarker:
+    """What :func:`_shrunk_backend` hands back on an excluded rank."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+
+def _leave_if_shrunk_out(new_be, faults, events, fault) -> None:
+    if isinstance(new_be, _ShrunkOutMarker):
+        _emit_fault(events, fault)
+        raise ShrunkOut(faults)
 
 
 def _device_kw(be) -> dict:

@@ -318,11 +318,16 @@ def test_chunked_cleanup_rows_name_members_of_the_whole_batch():
 
 
 def test_what_is_not_ported_raises(batch12):
+    """The PCG schedule is still refused; ``mesh`` (once refused) splits
+    the batch: 12 members over a local mesh of 3 are the unsharded ones."""
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
     tb, _ = batch12
     with pytest.raises(NotImplementedError):
         tbatched.solve_batched(tb, device="cpu", solve_mode="pcg")
-    with pytest.raises(NotImplementedError):
-        tbatched.solve_batched(tb, device="cpu", mesh=object())
+    r = tbatched.solve_batched(tb, mesh=mesh_lib.make_mesh(axis_names=("batch",),
+                                                           devices=["cpu"] * 3))
+    np.testing.assert_array_equal(r.objective, tbatched.solve_batched(tb, device="cpu").objective)
 
 
 def test_phase_plan_and_cleanup_budget_match_the_jax_package():

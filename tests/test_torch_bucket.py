@@ -153,7 +153,19 @@ def test_second_dispatch_reuses_the_program_and_a_fresh_one_gives_its_bits():
     ({"fused_iters": 2}, "item 5b"),
 ])
 def test_unported_bucket_options_raise(kw, item):
+    """The unported schedules raise naming their items. ``mesh`` (item 13,
+    once refused) is ported: a local mesh gives the one-device bits, and
+    an object that is not a mesh is refused."""
     batch, act = _mixed_bucket()
+    if "mesh" in kw:
+        from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+        with pytest.raises(AttributeError):
+            tbatched.solve_bucket(batch, act, **kw)
+        mesh = mesh_lib.make_mesh(axis_names=("batch",), devices=[CPU] * 2)
+        np.testing.assert_array_equal(tbatched.solve_bucket(batch, act, mesh=mesh).x,
+                                      tbatched.solve_bucket(batch, act, device=CPU).x)
+        return
     with pytest.raises(NotImplementedError, match=item):
         tbatched.solve_bucket(batch, act, device=CPU, **kw)
 

@@ -181,11 +181,20 @@ def test_solo_runs_are_bitwise_deterministic():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """The solo engine's column mesh is still refused (item 13c); the
+    bucket's lane mesh is ported (item 13b): over a local mesh of 2 the
+    lanes keep their unsharded bits (``test_torch_batch_mesh.py`` holds
+    the rest)."""
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    with pytest.raises(NotImplementedError, match="item 13c"):
         tfo.FirstOrderBackend(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfo.solve_pdhg_bucket(tgen.random_batched_lp(2, 4, 8), np.ones(2, bool), mesh=object(),
-                              device="cpu")
+    batch, act = tgen.random_batched_lp(2, 4, 8), np.ones(2, bool)
+    mesh = mesh_lib.make_mesh(axis_names=("batch",), devices=["cpu"] * 2)
+    r = tfo.solve_pdhg_bucket(batch, act, mesh=mesh)
+    r0 = tfo.solve_pdhg_bucket(batch, act, device="cpu")
+    np.testing.assert_array_equal(r.x, r0.x)
+    assert r.phase_report[0]["executors"] == 2
 
 
 @pytest.mark.parametrize("B, m, n, seed, tol", [

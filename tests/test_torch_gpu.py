@@ -6,7 +6,9 @@ the sparse tier's hybrid-ELL kernel against its plain version and a
 ``sparse-iterative`` solve, the block and scenario tiers' solves, and
 the sharded backend (an NCCL world of one against ``cuda`` bit for bit,
 a gloo world of two ranks sharing the card, NCCL refused beyond the card
-count), on the card.
+count), and the batch mesh (K1 on a rank's lane block, a bucket over a
+gloo world of two sharing the card, ``mesh_devices`` beyond the card
+count refused), on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -746,3 +748,54 @@ def test_nccl_beyond_the_card_count_raises(cuda):
     with pytest.raises(ValueError, match="nccl world of"):
         world_lib.init_world(world_lib.WorldConfig(
             coordinator="127.0.0.1:1", rank=0, world_size=n, device="cuda"))
+
+
+def test_slice_lane_block_k1_matches_plain_version(cuda):
+    """K1 over a rank's lane block of the serve bucket over a world of 2
+    (f64 128 lanes of 128 × 512): each lane the unbatched kernel's bits,
+    the lower triangle within 1e-12 of the plain version."""
+    A, d = _inputs(128, 512, torch.float64, cuda)
+    A = A.expand(128, -1, -1).contiguous() * torch.linspace(0.5, 1.5, 128, device=cuda,
+                                                             dtype=torch.float64)[:, None, None]
+    d = d.expand(128, -1).contiguous()
+    M = normal_eq(A, d)
+    for i in (0, 63, 127):
+        assert torch.equal(M[i], normal_eq(A[i].contiguous(), d[i].contiguous()))
+    R = torch.tril(normal_eq_reference(A, d))
+    assert ((torch.tril(M) - R).norm() / R.norm()).item() <= TOL[torch.float64]
+    assert torch.equal(M, M.mT)
+
+
+def test_slice_bucket_over_a_gloo_world_of_two_on_one_card(cuda, tmp_path):
+    """``bucket_probe`` over two ranks sharing the card: each rank solves
+    its lane block through its own captured program (the loop holds no
+    collective, so gloo keeps the graph), the second dispatch builds and
+    captures nothing, and both ranks hold the one-process bucket's
+    statuses, iterations and objectives."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+    from distributedlpsolver_tpu_torch.ipm import SolverConfig
+
+    ref = tbatched.solve_bucket(random_batched_lp(8, 8, 24, seed=7), np.ones(8, bool),
+                                SolverConfig(tol=1e-8, verbose=False))
+    res = run_world("bucket_probe", {"m": 8, "n": 24, "batch": 8, "tol": 1e-8}, world_size=2,
+                    workdir=str(tmp_path), retries=0, timeout=240, device="cuda",
+                    pg_backend="gloo")
+    assert res[0]["dispatches"][0]["x_sha256"] == res[1]["dispatches"][0]["x_sha256"]
+    for out in res.values():
+        assert out["pg_backend"] == "gloo" and out["warm_recompiles"] == 0
+        first, second = out["dispatches"]
+        assert first["phase_report"]["captured"] is True
+        assert second["programs_built"] == 0 and second["graphs_captured"] == 0
+        assert first["status"] == [s.value for s in ref.status]
+        assert first["iterations"] == ref.iterations.tolist()
+        np.testing.assert_allclose(first["objectives"], ref.objective, rtol=1e-8, atol=1e-10)
+
+
+def test_mesh_devices_beyond_the_cards_raises(cuda):
+    """A local batch mesh names distinct cards: one more than the host
+    has raises naming the count; nothing falls back."""
+    from distributedlpsolver_tpu_torch.serve import ServiceConfig, SolveService
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"only {n} local devices"):
+        SolveService(ServiceConfig(mesh_devices=n + 1), auto_start=False)

@@ -377,8 +377,18 @@ def test_cli_serve_on_the_cpu(tmp_path):
     ({"mesh_devices": 2}, "item 13"),
 ])
 def test_unported_service_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _svc(**kw)
+    """Once refused (``item``), ``mesh_devices`` is ported: on the CPU it
+    splits each bucket over the CPU device K times, and an explicit
+    bucket whose batch does not divide the mesh raises
+    (``test_torch_batch_mesh.py`` holds the dispatch)."""
+    from distributedlpsolver_tpu_torch.serve import BucketSpec
+
+    with pytest.raises(ValueError, match="divisible"):
+        _svc(buckets=[BucketSpec(8, 24, 3)], **kw)
+    with _svc(**kw) as svc:
+        assert svc.mesh_devices == kw["mesh_devices"]
+        assert svc.submit(random_dense_lp(8, 24, seed=0)).result(timeout=WAIT).status \
+            is Status.OPTIMAL
 
 
 @pytest.mark.parametrize("key, cls", [
@@ -404,8 +414,15 @@ def test_service_admission_and_brownout_serve(key, cls):
 
 
 def test_unported_requests_and_calls_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        SolveService(ServiceConfig(), device=CPU, slice_runner=object())
+    """What the service once refused now serves: a slice runner takes the
+    dispatches (``test_torch_slice.py``), and ``reshard`` without a mesh
+    keeps the one device."""
+    class _Runner:
+        mesh = None
+
+    rsvc = SolveService(ServiceConfig(), device=CPU, slice_runner=_Runner(), auto_start=False)
+    assert rsvc._slice is not None and rsvc.config.solo_backend == "dense"
+    rsvc.shutdown()
     svc = _svc()
     try:
         p = random_dense_lp(8, 24, seed=0)
@@ -417,8 +434,7 @@ def test_unported_requests_and_calls_raise():
         r = svc.submit(scen).result(timeout=WAIT)
         assert r.status is Status.OPTIMAL and r.engine == "scenario"
         assert (r.n_scenarios, r.scenario_bucket, r.backend) == (2, 2, "scenario")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            svc.reshard()
+        assert svc.reshard() == 1 and svc.mesh_devices == 1
     finally:
         svc.shutdown()
     with _svc(pdhg_routing=False) as svc:  # the IPM takes a loose tol when asked

@@ -158,12 +158,19 @@ def test_world_of_one_in_process(jax_sharded, case):
 
 @pytest.mark.parametrize("name", ["sharded", "tpu-sharded", "mesh"])
 def test_the_names_resolve_and_the_unported_seams_raise(name):
+    """``prec_sharding`` is still refused (item 5b); ``reshard`` (item 13b,
+    once refused) hands back a fresh backend on the given mesh, on the
+    same device, that solves as the original does."""
     be = get_backend(name, device=CPU)
     assert isinstance(be, ShardedTorchBackend) and be.name == "sharded"
     with pytest.raises(NotImplementedError, match="item 5b"):
         be.prec_sharding()
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        be.reshard(None)
+    mesh = mesh_lib.make_mesh(device=CPU)
+    fresh = be.reshard(mesh)
+    assert isinstance(fresh, ShardedTorchBackend) and fresh is not be
+    assert fresh.mesh is mesh and fresh.device == be.device
+    p = random_dense_lp(12, 30, seed=1)
+    assert np.array_equal(solve(p, backend=fresh, tol=TOL).x, solve(p, backend=be, tol=TOL).x)
 
 
 def test_the_stage_clock_is_one_switch_for_capture():
@@ -192,8 +199,11 @@ def test_make_mesh_without_a_world():
         mesh_lib.make_mesh((3,), device=CPU)
     with pytest.raises(ValueError, match="axis names"):
         mesh_lib.make_mesh((1, 1), axis_names=("cols",), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        mesh_lib.reform_mesh(m)
+    # reform_mesh (item 13b, once refused): excluding nothing keeps the
+    # world of one; excluding its one member leaves no devices.
+    assert mesh_lib.reform_mesh(m).size == 1
+    with pytest.raises(ValueError, match="no devices"):
+        mesh_lib.reform_mesh(m, exclude=[0])
     A = np.arange(12.0).reshape(2, 6)
     assert np.array_equal(mesh_lib.col_sharding(m).local(A), A)
     assert np.array_equal(mesh_lib.replicated(m).local(A), A)
@@ -288,11 +298,22 @@ def test_init_distributed_without_a_world():
 
 
 def test_supervision_over_a_world_of_processes_is_refused(monkeypatch):
-    """Rank 0 alone writes a world's checkpoint, so the rollback ladder
-    over several processes waits for the elastic world (item 13b)."""
+    """Supervision over a world of processes (item 13b, once refused):
+    every rank takes rank 0's checkpoint path (a broadcast), and a retry
+    waits at a barrier before it reads the file. Here the world is faked
+    around one process: the broadcast hands back rank 0's path and the
+    solve, faulted once, rolls back and converges."""
     from distributedlpsolver_tpu_torch.parallel import runtime
+    from distributedlpsolver_tpu_torch.supervisor import FaultKind, InjectedFault, SupervisorConfig
 
-    monkeypatch.setattr(runtime, "world", lambda: {"num_processes": 2})
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        sup_mod.supervised_solve(random_dense_lp(8, 20, seed=0),
-                                 backend=get_backend("sharded", device=CPU))
+    shared, barriers = [], []
+    monkeypatch.setattr(runtime, "world", lambda: {"num_processes": 2, "process_id": 0})
+    monkeypatch.setattr(sup_mod, "_shared_value", lambda v, in_world: shared.append(v) or v)
+    monkeypatch.setattr(runtime, "barrier", lambda mesh=None: barriers.append(mesh))
+    plan = [InjectedFault(FaultKind.CRASH, iteration=3)]
+    r = sup_mod.supervised_solve(random_dense_lp(8, 20, seed=0),
+                                 backend=get_backend("sharded", device=CPU),
+                                 supervisor=SupervisorConfig(fault_plan=plan, backoff_base=0.0))
+    assert r.status == Status.OPTIMAL and [f.action for f in r.faults] == ["rollback"]
+    assert len(shared) == 1 and shared[0] is not None
+    assert barriers  # the retry waited for rank 0's checkpoint

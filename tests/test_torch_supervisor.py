@@ -14,6 +14,7 @@ the fault kinds and actions, and objectives (1e-6 relative, as the JAX
 package's own supervisor tests hold a rolled-back solve).
 """
 
+import dataclasses
 import importlib
 import time
 
@@ -274,5 +275,26 @@ class TestFaultInjector:
         InjectedFault(FaultKind.HANG, iteration=1, shard=3),
     ])
     def test_shard_loss_injections_are_refused(self, fault):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            FaultInjector([fault])
+        """Shard-loss injections (item 13, once refused) mark the shard in
+        the runtime's simulated-loss registry, which the health probes
+        read: DEVICE_LOST raises with the ids, a shard-keyed HANG only
+        matches while its shard is in the mesh."""
+        from distributedlpsolver_tpu_torch.parallel import runtime
+        from distributedlpsolver_tpu_torch.supervisor import InjectedDeviceLoss
+
+        runtime.restore_devices()
+        try:
+            ok = lambda: "stepped"
+            if fault.kind is FaultKind.DEVICE_LOST:
+                inj = FaultInjector([fault])
+                with pytest.raises(InjectedDeviceLoss) as ei:
+                    inj.wrap_step(ok, 1, "sharded")()
+                assert ei.value.device_ids == (3,) and ei.value.iteration == 1
+            else:
+                inj = FaultInjector([dataclasses.replace(fault, hang_seconds=0.0)])
+                assert inj.wrap_step(ok, 1, "sharded", mesh_device_ids=(0, 1, 2)) is ok
+                assert inj.wrap_step(ok, 1, "sharded", mesh_device_ids=(0, 3))() == "stepped"
+            assert runtime.simulated_lost_devices() == frozenset({3})
+            assert runtime.probe_devices(["cpu"], 1.0)[1] == []  # the device itself answers
+        finally:
+            runtime.restore_devices()
