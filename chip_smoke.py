@@ -297,7 +297,30 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    ``cuda``'s objective, the survivors' x bits equal, each survivor's
    answer held to the problem; with ``min_devices=4``: ``degrade:cuda``);
    ``ServiceConfig(mesh_devices=cards + 1)`` raises naming the card count;
-22. prints the ``kernels`` JSON line, the card line, and last the result
+22. the row-sharded matrix-free tier (``rows_phase``; ``--rows-only``
+   runs the build and this phase alone): ``run_world("sparse_rows",
+   STORM_FULL)`` on an NCCL world of one (stormG2_1000's shape, 528,000 ×
+   1,259,121, not cut; ``SparseIterativeBackend(mesh=world.mesh())``)
+   against the ``mesh=None`` solve of the same problem in this process —
+   OPTIMAL, x and y bit for bit (their SHA-256s), the same IPM and CG
+   iterations, the objective within 1e-8 of ``STORM_FULL_OBJECTIVE``, the
+   answer held to the problem (``sharded_answer_check``), with its s a
+   step, host setup by part, solve and per-device operand bytes; the ELL
+   kernel on rank 0's block of a ``ROWS_SPLIT``-way split of the scaled
+   full-shape A (A_r·v, A_rᵀ·v and the diagonal against their plain
+   versions at ``ELL_TOL``, every empty row of A_rᵀ·w an exact +0, timed
+   paced and L2-cold beside cuSPARSE and the bound) and the block's
+   memory against the whole operator's; then gloo worlds sharing the
+   card at the 20,480-row acceptance instance: ``sparse_rows`` over 2
+   ranks (every rank OPTIMAL at the ``mesh=None`` solve's IPM iterations
+   and objective within 1e-8, the same x bits and CG iterations on both,
+   each answer held to the problem) and ``supervised_solve`` on
+   ``sparse-iterative`` over 4 ranks with DEVICE_LOST of rank 3 at
+   iteration 3 (``shrink:4->3``, the rows re-split unevenly over 3, the
+   survivors' x bits equal, within 1e-8 of the ``mesh=None`` objective,
+   ``recovery_overhead_s`` printed). Gloo stages every all-reduce through
+   the host: no number of those worlds stands for NCCL over NVLink;
+23. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -2080,8 +2103,9 @@ def ell_bound(op, rows, n_in) -> tuple:
     """Least time of one product with the matrix of ``op`` (or its
     transpose) in whatever layout: the larger of the bytes it must move —
     each of the ``op.nnz`` live entries read once (value and int32
-    column), ``rows + 1`` int32 row pointers, the input vector read once,
-    the output written once — over the memory rate, and its multiply-adds
+    column), ``rows + 1`` int32 row pointers, the ``n_in`` input entries
+    that a live entry reads (a row block's empty columns read nothing)
+    read once, the output written once — over the memory rate, and its multiply-adds
     over the f64 peak. The pad slots of the kernel's layout (a slice's
     rows padded to its widest) and its perm in place of row pointers are
     bytes it moves beyond this bound. Returns (ms, "bytes"|"operations",
@@ -2096,8 +2120,8 @@ def ell_layout_bytes(lay, n_in) -> int:
     """Bytes the kernel reads and writes on its sliced-ELL layout ``lay``:
     every stored slot (pads included) and the heavy rows' entries, the
     index (slice offsets, perm, chunk index), the heavy rows' partials
-    written and read and their counters, the input vector once and the
-    output once."""
+    written and read and their counters, the ``n_in`` live input entries
+    once and the output once."""
     es = lay.vals.element_size()
     return (lay.vals.numel() * (es + 4) + lay.index.numel() * 4 + 2 * lay.n_chunks * es
             + 2 * lay.n_heavy * 4 + n_in * es + lay.rows * es)
@@ -2105,8 +2129,10 @@ def ell_layout_bytes(lay, n_in) -> int:
 
 def ell_cases(torch, op, seed=7):
     """(name, kernel call, plain call, CSR of the library yardstick, its
-    input, bound, the kernel's layout, its input length) for A·v, Aᵀ·w and
-    diag(A·D·Aᵀ) + reg of ``op``."""
+    input, bound, the kernel's layout, its live input entries) for A·v,
+    Aᵀ·w and diag(A·D·Aᵀ) + reg of ``op``. An input entry is live where its
+    column (of A for A·v and the diagonal, of Aᵀ for Aᵀ·w) holds an entry:
+    0.89 of v for the whole storm matrix, 0.45 for its first half's rows."""
     import numpy as np
 
     from distributedlpsolver_tpu_torch.ops.ell_spmv import ell_spmv_reference
@@ -2116,6 +2142,8 @@ def ell_cases(torch, op, seed=7):
     w = torch.randn(op.m, dtype=torch.float64, device="cuda", generator=g)
     d = torch.rand(op.n, dtype=torch.float64, device="cuda", generator=g) + 0.1
     A = op.to_scipy()
+    n_live = int((np.diff(A.tocsc().indptr) > 0).sum())
+    m_live = int((np.diff(A.tocsr().indptr) > 0).sum())
 
     def csr(M):
         M = M.tocsr()
@@ -2126,12 +2154,12 @@ def ell_cases(torch, op, seed=7):
     reg = 1e-8
     return [
         ("A·v", lambda: op.matvec(v), lambda: ell_spmv_reference(op.vals, op.cols, v, op.tail()),
-         csr(A), v, ell_bound(op, op.m, op.n), op.sell, op.n),
+         csr(A), v, ell_bound(op, op.m, n_live), op.sell, n_live),
         ("Aᵀ·v", lambda: op.rmatvec(w), lambda: ell_spmv_reference(op.tvals, op.tcols, w, op.ttail()),
-         csr(A.T), w, ell_bound(op, op.n, op.m), op.tsell, op.m),
+         csr(A.T), w, ell_bound(op, op.n, m_live), op.tsell, m_live),
         ("diag(A·D·Aᵀ)", lambda: op.normal_diag(d, reg),
          lambda: ell_spmv_reference(op.vals, op.cols, d, op.tail(), square=True, reg=reg),
-         csr(A.multiply(A)), d, ell_bound(op, op.m, op.n), op.sell, op.n),
+         csr(A.multiply(A)), d, ell_bound(op, op.m, n_live), op.sell, n_live),
     ]
 
 
@@ -3769,9 +3797,229 @@ def slice_phase(torch, ne, card):
     }]
 
 
+# -- the row-sharded matrix-free tier (sparse-iterative on a mesh) -------------
+
+# The kernel leg's split: rank 0's block of STORM_FULL over this many ranks.
+ROWS_SPLIT = 2
+# The gloo worlds sharing the card, the world of 2 and the shrink's world
+# of 4: the reference's acceptance instance, as a sparse_rows spec.
+ROWS_WORLD = dict(instance="storm", scenarios=STORM_20K["num_scenarios"],
+                  block_m=STORM_20K["block_m"], block_n=STORM_20K["block_n"],
+                  first_stage_n=STORM_20K["first_stage_n"], seed=STORM_20K["seed"], tol=1e-8)
+ROWS_OBJ_TOL = 1e-8
+ROWS_FULL_TIMEOUT_S = 420.0
+ROWS_WORLD_TIMEOUT_S = 300.0
+
+
+def rows_world(task, spec, n_ranks, pg_backend, tag, timeout=ROWS_WORLD_TIMEOUT_S):
+    """``run_world(task, spec)`` with ``n_ranks`` ranks on the card; any
+    rank's failure fails the run. Returns (per-rank results, wall s)."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+
+    work = os.path.join(ROOT, "build", "dlps_torch", f"rows_{tag}")
+    t0 = time.perf_counter()
+    try:
+        res = run_world(task, spec, world_size=n_ranks, workdir=work, retries=0, timeout=timeout,
+                        device="cuda", pg_backend=pg_backend)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"rows {tag}: {e}")
+    wall = time.perf_counter() - t0
+    if sorted(res) != list(range(n_ranks)):
+        fail(f"rows {tag}: results from ranks {sorted(res)}")
+    return res, wall
+
+
+def rows_phase(torch, card):
+    """The row-sharded matrix-free tier on the card (module note, step 22).
+    Returns the kernels-line rows of the ELL kernel on a rank's row block."""
+    import hashlib
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+    from distributedlpsolver_tpu_torch.models.problem import to_interior_form
+    from distributedlpsolver_tpu_torch.models.scaling import equilibrate
+    from distributedlpsolver_tpu_torch.ops import sparse
+
+    _T0[0] = time.perf_counter()
+    sha = lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()  # noqa: E731
+
+    # 1. stormG2_1000's shape on an NCCL world of one (run_world), against
+    # the mesh=None solve of the same problem in this process.
+    full = {"instance": "storm", "scenarios": STORM_FULL["num_scenarios"],
+            **{k: v for k, v in STORM_FULL.items() if k != "num_scenarios"}, "tol": 1e-8}
+    res, wall_w = rows_world("sparse_rows", full, 1, None, "full", ROWS_FULL_TIMEOUT_S)
+    o = res[0]
+    p_full = storm_sparse_lp(**STORM_FULL)
+    m_full, n_full = p_full.A.shape
+    be = get_backend("sparse-iterative")
+    t0 = time.perf_counter()
+    r = solve(p_full, backend=be, tol=1e-8)
+    wall0 = time.perf_counter() - t0
+    rep0 = be.cg_report()
+    if o["pg_backend"] != "nccl" or o["world_size"] != 1 or o["shape"] != [m_full, n_full]:
+        fail(f"rows full: {o['pg_backend']} world of {o['world_size']}, shape {o['shape']}")
+    if (o["status"] != "optimal" or o["x_sha256"] != sha(r.x) or o["y_sha256"] != sha(r.y)
+            or o["iterations"] != r.iterations or o["cg_iters"] != rep0["cg_iters"]):
+        fail(f"rows full: the world of one {o['status']} {o['iterations']} it cg {o['cg_iters']} "
+             f"x {o['x_sha256'][:12]} against mesh=None {r.status.value} {r.iterations} it cg "
+             f"{rep0['cg_iters']} x {sha(r.x)[:12]}")
+    obj_rel = abs(o["objective"] - STORM_FULL_OBJECTIVE) / abs(STORM_FULL_OBJECTIVE)
+    if not obj_rel <= 1e-8:
+        fail(f"rows full: objective {o['objective']!r}, {obj_rel:.2e} from {STORM_FULL_OBJECTIVE!r}")
+    if o["ell_launches"]["A·v"] <= 0 or o["ell_launches"]["Aᵀ·v"] <= 0:
+        fail(f"rows full: ELL launches {o['ell_launches']}")
+    # x and y are the world's bit for bit (their digests): hold them to the
+    # problem on the host.
+    answer = sharded_answer_check("rows full", p_full, r.x, r.y, o["rel_gap"])
+    print(f"rows_full {since()} " + json.dumps({
+        "problem": p_full.name, "world": "nccl world of one", "status": o["status"],
+        "iterations": o["iterations"], "cg_iters": o["cg_iters"], "objective": o["objective"],
+        "objective_rel": obj_rel, "x_bits_equal_mesh_none": True, "y_bits_equal_mesh_none": True,
+        "s_per_step": o["solve_s"] / max(o["iterations"], 1), "wall_s": o["wall_s"],
+        "setup_s": o["setup_s"], "solve_s": o["solve_s"], "setup_parts": o["setup"],
+        "world_wall_s": wall_w, "newton_solves": o["newton_solves"], "host_syncs": o["host_syncs"],
+        "shards": o["shards"], "psum_per_iter": o["psum_per_iter"],
+        "max_operand_per_device": o["max_operand_per_device"],
+        "operator_bytes_per_device": o["operator_bytes_per_device"],
+        "ell_launches": o["ell_launches"], "answer": answer,
+        "mesh_none": {"wall_s": wall0, "setup_s": r.setup_time, "solve_s": r.solve_time,
+                      "setup_parts": be.setup_report, "cg_iters": rep0["cg_iters"]},
+    }) + f" [{card}]")
+    del r, be
+    torch.cuda.empty_cache()
+
+    # 2. The ELL kernel on rank 0's block of a ROWS_SPLIT-way split (the
+    # scaled A the solve runs on), beside the whole operator's memory.
+    inf_s, _ = equilibrate(to_interior_form(p_full))
+    lo, hi = 0, -(-m_full // ROWS_SPLIT)
+    t0 = time.perf_counter()
+    op_r = sparse.from_scipy(inf_s.A[lo:hi], device="cuda", fmt="ell")
+    torch.cuda.synchronize()
+    t_block = time.perf_counter() - t0
+    op_w = sparse.from_scipy(inf_s.A, device="cuda")
+    empty = int((np.diff(inf_s.A[lo:hi].tocsc().indptr) == 0).sum())
+    mem = {"block_bytes": op_r.nbytes(), "whole_bytes": op_w.nbytes(),
+           "block_share": op_r.nbytes() / op_w.nbytes(),
+           "transpose_index_bytes": op_r.tsell.index.numel() * 4,
+           "whole_transpose_index_bytes": op_w.tsell.index.numel() * 4,
+           "block_by_tensor": {k: v["nbytes"] for k, v in op_r.memory_report().items()},
+           "whole_by_tensor": {k: v["nbytes"] for k, v in op_w.memory_report().items()}}
+    del op_w
+    torch.cuda.empty_cache()
+    print(f"rows_block {since()} rows [{lo}, {hi}) of {m_full} x {n_full}: nnz {op_r.nnz}, Aᵀ "
+          f"rows empty {empty} of {n_full}, A_r {op_r.sell.n_slices} slices, A_rᵀ "
+          f"{op_r.tsell.n_slices} slices + {op_r.tsell.n_chunks} chunks on {op_r.tsell.n_heavy} heavy "
+          f"rows, built in {t_block:.2f} s; memory " + json.dumps(mem))
+    w = torch.randn(op_r.m, dtype=torch.float64, device="cuda")
+    out = op_r.rmatvec(w)
+    torch.cuda.synchronize()
+    zero_rows = torch.as_tensor(np.diff(inf_s.A[lo:hi].tocsc().indptr) == 0, device="cuda")
+    if not bool((out[zero_rows] == 0).all()) or bool(torch.signbit(out[zero_rows]).any()):
+        fail("rows block: an empty row of A_rᵀ·w is not an exact +0")
+    ell_block = ell_phase(torch, op_r, f"storm rank 0 of {ROWS_SPLIT} {hi - lo}x{n_full}", card)
+    del op_r, out, w, inf_s
+    torch.cuda.empty_cache()
+
+    # 3. Gloo worlds sharing the card at the 20,480-row instance: the
+    # single-device solve, a world of 2, and the shrink of a world of 4.
+    p20 = storm_sparse_lp(**STORM_20K)
+    be = get_backend("sparse-iterative")
+    r20 = solve(p20, backend=be, tol=1e-8)
+    ref_cg = be.cg_report()["cg_iters"]
+    if r20.status.value != "optimal":
+        fail(f"rows: mesh=None on {p20.name}: {r20.status.value}")
+    rel = lambda v: abs(v - r20.objective) / (1.0 + abs(r20.objective))  # noqa: E731
+    res2, wall2 = rows_world("sparse_rows", {**ROWS_WORLD, "return_xy": True}, 2, "gloo", "gloo2")
+    for rank, o in res2.items():
+        if (o["status"] != "optimal" or o["iterations"] != r20.iterations
+                or not rel(o["objective"]) <= ROWS_OBJ_TOL or o["shards"] != 2
+                or o["pg_backend"] != "gloo" or o["ell_launches"]["A·v"] <= 0
+                or o["ell_launches"]["Aᵀ·v"] <= 0):
+            fail(f"rows gloo world of 2: rank {rank} {o['status']} {o['iterations']} it (mesh=None "
+                 f"{r20.iterations}), objective {o['objective']!r} ({rel(o['objective']):.2e}), "
+                 f"shards {o['shards']}, {o['pg_backend']}, launches {o['ell_launches']}")
+        o["answer"] = sharded_answer_check(f"rows gloo world of 2: rank {rank}", p20, o.pop("x"),
+                                           o.pop("y"), o["rel_gap"])
+    if len({o["x_sha256"] for o in res2.values()}) != 1 or len({o["cg_iters"] for o in res2.values()}) != 1:
+        fail(f"rows gloo world of 2: ranks disagree: {[(o['x_sha256'][:12], o['cg_iters']) for o in res2.values()]}")
+    o = res2[0]
+    w2 = {"world": "gloo world of 2", "problem": p20.name, "status": o["status"],
+          "iterations": o["iterations"], "mesh_none_iterations": r20.iterations,
+          "objective_rel_mesh_none": rel(o["objective"]), "cg_iters": o["cg_iters"],
+          "mesh_none_cg_iters": ref_cg, "x_bits_equal_across_ranks": True,
+          "rows_by_rank": [res2[k]["rows"] for k in sorted(res2)],
+          "ell_launches_by_rank": [res2[k]["ell_launches"] for k in sorted(res2)],
+          "s_per_step_rank0": o["solve_s"] / max(o["iterations"], 1), "solve_s_rank0": o["solve_s"],
+          "setup_parts_rank0": o["setup"], "mesh_none_solve_s": r20.solve_time,
+          "max_operand_per_device": o["max_operand_per_device"],
+          "operator_bytes_per_device": [res2[k]["operator_bytes_per_device"] for k in sorted(res2)],
+          "answers": [res2[k]["answer"] for k in sorted(res2)], "world_wall_s": wall2}
+    print(f"rows_gloo2 {since()} " + json.dumps(w2) + f" [{card}; gloo through the host, not NCCL]")
+
+    m4 = p20.A.shape[0]
+    split3 = [min(m4, (k + 1) * -(-m4 // 3)) - min(m4, k * -(-m4 // 3)) for k in range(3)]
+    fault = [{"kind": "device_lost", "iteration": SHRINK_FAULT_ITERATION, "device_ids": [3]}]
+    case = {**ROWS_WORLD, "backend": "sparse-iterative", "faults": fault,
+            "supervisor": {"backoff_base": 0.001}, "return_xy": True}
+    res4, wall4 = rows_world("supervised_solve", case, 4, "gloo", "shrink_gloo4")
+    if not res4[3]["left"] or res4[3]["faults"][0]["action"] != "shrink:4->3":
+        fail(f"rows shrink: rank 3 {res4[3]}")
+    shas, answers, overhead = set(), [], []
+    for rank in (0, 1, 2):
+        o = res4[rank]
+        f = o["faults"]
+        if (o["left"] or o["status"] != "optimal" or o["backend"] != "sparse-iterative"
+                or [x["action"] for x in f] != ["shrink:4->3"] or f[0]["devices"] != [3]
+                or not f[0]["recovery_overhead_s"] > 0 or not rel(o["objective"]) <= ROWS_OBJ_TOL):
+            fail(f"rows shrink: rank {rank} {o['status']} on {o['backend']}, faults {f}, objective "
+                 f"{o['objective']!r} against mesh=None's {r20.objective!r}")
+        shas.add(o["x_sha256"])
+        answers.append(sharded_answer_check(f"rows shrink rank {rank}", p20, o.pop("x"), o.pop("y"),
+                                            o["rel_gap"]))
+        overhead.append(f[0]["recovery_overhead_s"])
+    if len(shas) != 1:
+        fail(f"rows shrink: the survivors' x differ: {shas}")
+    o = res4[0]
+    w4 = {"world": "gloo world of 4", "problem": p20.name, "action": "shrink:4->3",
+          "rows_after_shrink": split3, "status": o["status"],
+          "backend": o["backend"], "iterations": o["iterations"],
+          "mesh_none_iterations": r20.iterations, "objective_rel_mesh_none": rel(o["objective"]),
+          "x_bits_equal_across_survivors": True, "recovery_overhead_s": overhead,
+          "answers": answers, "wall_s_rank0": o["wall_s"], "world_wall_s": wall4}
+    print(f"rows_shrink {since()} " + json.dumps(w4) + f" [{card}; gloo through the host, not NCCL]")
+    print(f"rows phase {since()}")
+
+    rows = []
+    for name, replaces in (("A·v", "distributedlpsolver_tpu/ops/sparse.py:579"),
+                           ("Aᵀ·v", "distributedlpsolver_tpu/ops/sparse.py:595")):
+        t = ell_block[name]
+        rows.append({
+            "name": f"ell_spmv ({name[0]}_r{name[1:]}, row block)", "route": "cuda",
+            "source": "distributedlpsolver_tpu_torch/csrc/ell_spmv.cu", "replaces": replaces,
+            # Rank 0's launches in the gloo world of 2 (its row block of
+            # the 20,480-row instance); the kernel's numbers below are at
+            # rank 0's block of stormG2_1000's shape split in two.
+            "launches": res2[0]["ell_launches"][name],
+            "launches_path": "sparse_rows over a gloo world of 2 on one card (rank 0)",
+            "launches_full_world_of_one": res[0]["ell_launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+            "library_ms": t["library_ms"], "library": "cuSPARSE CSR SpMV (torch.sparse)",
+            "ms_cold": t["ms_cold"], "library_ms_cold": t["library_ms_cold"],
+            "bound_share_cold": t["bound_share_cold"], "layout_bytes": t["layout_bytes"],
+            "slices": t["slices"], "heavy_chunks": t["heavy_chunks"], "dtypes": ["float64"],
+            "shape": [hi - lo, n_full],
+        })
+    return rows
+
+
 def main(only: str = "") -> int:
     """The whole run, or with ``only`` ("sparse", "plane", "block",
-    "scenario", "sharded" or "slice") the build and that phase alone."""
+    "scenario", "sharded", "slice" or "rows") the build and that phase
+    alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3829,6 +4077,9 @@ def main(only: str = "") -> int:
     # 21. The serving slice and the elastic shrink.
     if only in ("", "slice"):
         rows += slice_phase(torch, ne, card)
+    # 22. The row-sharded matrix-free tier.
+    if only in ("", "rows"):
+        rows += rows_phase(torch, card)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3996,7 +4247,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--highs-storm20k"]:
         sys.exit(highs_storm20k())
     only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block",
-            "--scenario-only": "scenario", "--sharded-only": "sharded", "--slice-only": "slice"}
+            "--scenario-only": "scenario", "--sharded-only": "sharded", "--slice-only": "slice",
+            "--rows-only": "rows"}
     if sys.argv[1:] and sys.argv[1] not in only:
         raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
     sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

@@ -110,9 +110,14 @@ def check_backend_name(name: str) -> None:
     raise KeyError(f"unknown backend {name!r}; available: {', '.join(available_backends())}")
 
 
-def get_backend(name: str, **kwargs) -> SolverBackend:
+def backend_class(name: str) -> Type[SolverBackend]:
+    """The class registered under ``name`` (any of its names)."""
     check_backend_name(name)
-    return _REGISTRY[name.lower()](**kwargs)
+    return _REGISTRY[name.lower()]
+
+
+def get_backend(name: str, **kwargs) -> SolverBackend:
+    return backend_class(name)(**kwargs)
 
 
 def available_backends() -> List[str]:

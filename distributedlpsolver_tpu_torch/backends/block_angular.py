@@ -45,7 +45,7 @@ of the masked step on the card), host-segmented with ``segment_iters >
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
 item: the TPU schedules (``mixed``, ``f64c``, ``pcg`` and the two-phase
 plan; item 5b) and the mesh (``mesh=``, ``link_shard``, ``reshard``;
-item 13c).
+item 13e).
 """
 
 from __future__ import annotations
@@ -344,7 +344,7 @@ class BlockAngularBackend(SolverBackend):
 
     def __init__(self, device=None, mesh=None):
         if mesh is not None:
-            raise _unported("the block tier on a mesh (mesh=, link_shard)", "13")
+            raise _unported("the block tier on a mesh (mesh=, link_shard)", "13e")
         self.device = resolve_device(device)
         self._reg: float = 0.0
         self._cfg: Optional[SolverConfig] = None
@@ -353,7 +353,7 @@ class BlockAngularBackend(SolverBackend):
         if config.solve_mode == "pcg":
             raise _unported("the block tier's pcg mode", "5b")
         if config.mesh_shape is not None:
-            raise _unported("the block tier on a mesh (mesh_shape)", "13")
+            raise _unported("the block tier on a mesh (mesh_shape)", "13e")
         self._cfg = config
         self._reg = config.reg_dual
         self._params = config.step_params()
@@ -472,7 +472,7 @@ class BlockAngularBackend(SolverBackend):
         return True
 
     def reshard(self, mesh) -> "BlockAngularBackend":
-        raise _unported("re-placing the block tier on a mesh (reshard)", "13")
+        raise _unported("re-placing the block tier on a mesh (reshard)", "13e")
 
     def to_host(self, state: IPMState) -> IPMState:
         return IPMState(*(v.detach().cpu().numpy() for v in state))

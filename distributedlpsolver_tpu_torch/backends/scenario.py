@@ -55,7 +55,7 @@ reference also adds every application's stages to ``schur_ms``/
 card (``scripts/port_time_stage_clock.py``), so the port does not.
 
 Not ported: the lane axis sharded over a mesh (``mesh=``; ROADMAP Queue 1
-item 13c).
+item 13d).
 """
 
 from __future__ import annotations
@@ -329,7 +329,7 @@ class ScenarioBackend(SolverBackend):
         if mesh is not None:
             raise NotImplementedError(
                 "the scenario tier on a mesh (mesh=) is not ported to the torch package yet "
-                "(ROADMAP Queue 1 item 13c)"
+                "(ROADMAP Queue 1 item 13d)"
             )
         self.device = resolve_device(device)
         self._reg = 0.0

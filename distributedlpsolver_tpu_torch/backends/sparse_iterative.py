@@ -29,8 +29,21 @@ backend's device with this backend's ``LinOps``; CG asks the host whether
 to go on once per chunk of masked iterations (``ops/pcg.py``). The
 driver's host loop runs it (there is no fused loop, as in the reference).
 
-Not ported: the row-sharded tier (``mesh=``, ``reshard()``; ROADMAP
-Queue 1 item 13c).
+The row-sharded tier (``mesh=``): A's rows split over a mesh
+(``ops/sparse.py::RowShardedOperator``: a rank's block and its kernel
+layouts on its device, the vectors replicated), CG on the distributed
+normal matvec — an n-vector sum and an m-vector gather a CG iteration
+(:meth:`~SparseIterativeBackend.cg_report`'s ``psum_per_iter`` counts
+the sums; each comes with one gather). Jacobi's diagonal is computed shard-locally and
+gathered; the block and bordered preconditioners are built from the whole
+A on every member and applied there in global row order (replicated, as
+in the reference). ILDL stays single-device: asking for it on a mesh
+raises, and the escalation is armed only without one. Every member holds
+the same bits of every vector, so CG's exits and the step's branches agree
+with no collective of their own. :meth:`~SparseIterativeBackend.reshard`
+is the elastic shrink's seam: a fresh backend with the same
+preconditioner request on the re-formed mesh, resumed from the
+host-canonical checkpoint.
 """
 
 from __future__ import annotations
@@ -72,10 +85,6 @@ _FROZEN_ERR_EXIT = 1e-4
 # each spending ≥ _ILDL_CG_FRAC of the CG cap — or one bad step.
 _ILDL_CG_FRAC = 0.5
 _ILDL_STREAK = 3
-
-_MESH_UNPORTED = ("the row-sharded sparse tier (mesh=, reshard) is not ported to the torch "
-                  "package yet (ROADMAP Queue 1 item 13c)")
-
 
 def _bordered_usable(hint: dict) -> bool:
     """Whether a block-structure hint feeds the bordered-Woodbury
@@ -128,14 +137,20 @@ def _as_csr(A) -> sp.csr_matrix:
 @register_backend("sparse-iterative", "inexact-ipm", "sparse-pcg")
 class SparseIterativeBackend(SolverBackend):
     """Inexact (PCG) normal-equations execution of the shared IPM core, on
-    one CUDA card (or the CPU when asked for with ``device="cpu"``)."""
+    one CUDA card (or the CPU when asked for with ``device="cpu"``), or
+    with ``mesh`` over its members (the device is then the mesh's)."""
 
     def __init__(self, precond: str = "auto", mesh=None, device=None):
         if precond not in ("auto", "jacobi", "block", "bordered", "ildl"):
             raise ValueError(f"precond must be auto/jacobi/block/bordered/ildl; got {precond!r}")
-        if mesh is not None:
-            raise NotImplementedError(_MESH_UNPORTED)
         self._precond_req = precond
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"mesh device {mesh.device} != backend device {device}")
+            device = mesh.device
+        # The row-sharded tier's mesh (None: one device); the supervisor
+        # reads it to attribute a loss and re-form a smaller mesh.
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._prec = None
         self._frozen = None
@@ -150,7 +165,15 @@ class SparseIterativeBackend(SolverBackend):
         A = inf.A
         hint = inf.block_structure or {}
         kind = self._precond_req
-        self._op = sparse_ops.from_scipy(A, dtype=dtype, device=dev)
+        mesh = self.mesh
+        if mesh is None:
+            self._op = sparse_ops.from_scipy(A, dtype=dtype, device=dev)
+        else:
+            if kind == "ildl":
+                raise ValueError("precond='ildl' is not available on the row-sharded tier "
+                                 "(mesh=...); use auto or a single device")
+            axis = config.mesh_axis if config.mesh_axis in mesh.axis_names else None
+            self._op = sparse_ops.shard_rows(A, mesh, dtype=dtype, axis=axis)
         if kind == "auto":
             kind = "bordered" if _bordered_usable(hint) else "jacobi"
         if kind == "bordered":
@@ -167,8 +190,8 @@ class SparseIterativeBackend(SolverBackend):
         self._A_csr = None
         self._ildl_tried = False
         self._hi_cg = 0
-        if (self._precond_req == "auto" and kind == "jacobi" and not _bordered_usable(hint)
-                and int(A.shape[0]) <= ildl_ops._MAX_ROWS):
+        if (mesh is None and self._precond_req == "auto" and kind == "jacobi"
+                and not _bordered_usable(hint) and int(A.shape[0]) <= ildl_ops._MAX_ROWS):
             self._A_csr = _as_csr(A)
         self._data = core.make_problem_data(
             np.asarray(inf.c, dtype=np.float64), np.asarray(inf.b, dtype=np.float64),
@@ -178,6 +201,7 @@ class SparseIterativeBackend(SolverBackend):
         self._params = config.step_params()
         self._reg = float(config.reg_dual)
         self._cg_cap = min(self._op.m + 32, _CG_CAP)
+        self._n_shards = 1 if mesh is None else self._op.num_shards
         self._cg_floor = float(config.cg_tol)
         self._last_err = 1.0
         self._frozen = None
@@ -200,8 +224,10 @@ class SparseIterativeBackend(SolverBackend):
         final scaling vector (warm cache): the factors are built once here
         and reused (frozen) until the iterate's KKT error drops to the
         endgame. Takes the export dict (``{"d": numpy, "precond": name}``)
-        or a bare vector; a mismatched, non-finite or non-positive vector
-        is refused (False)."""
+        or a bare vector, host numpy either way, so an entry written at one
+        mesh width seeds any other: the factors are built here, on this
+        backend's placement. A mismatched, non-finite or non-positive
+        vector is refused (False)."""
         if isinstance(d_prior, dict):
             d_prior = d_prior.get("d")
             if d_prior is None:
@@ -217,8 +243,8 @@ class SparseIterativeBackend(SolverBackend):
         return True
 
     def export_precond(self):
-        """This solve's final scaling vector, host-canonical (numpy dict),
-        for the warm cache (None before any step)."""
+        """This solve's final scaling vector, host-canonical (numpy dict,
+        whatever the mesh), for the warm cache (None before any step)."""
         if self._last_state is None:
             return None
         d = core.scaling_d(self._last_state, self._data, self._params)
@@ -245,7 +271,7 @@ class SparseIterativeBackend(SolverBackend):
             d, fac = factors
 
             def mv(v):
-                return op.matvec(d * op.rmatvec(v)) + reg * v
+                return op.normal_matvec(d, reg, v)
 
             syncs = pcg_ops.pcg.syncs
             x, it = pcg_ops.pcg(mv, _apply_factors(prec, fac), rhs, cg_tol, cg_max,
@@ -295,7 +321,8 @@ class SparseIterativeBackend(SolverBackend):
         tr = obs_trace.get_tracer()
         if tr.enabled:
             # One instant per step's CG work, linked to the owning request.
-            cg_args = {"cg_iters": n, "precond": self.precond, "shards": 1, "psum_per_iter": 0}
+            cg_args = {"cg_iters": n, "precond": self.precond, "shards": self._n_shards,
+                       "psum_per_iter": self._psum_per_iter()}
             ctx = obs_context.current()
             if ctx is not None:
                 cg_args.update(ctx.span_args())
@@ -334,8 +361,11 @@ class SparseIterativeBackend(SolverBackend):
         self._reg = max(self._reg, 1e-12) * self._cfg.reg_grow
         return True
 
-    def reshard(self, mesh):
-        raise NotImplementedError(_MESH_UNPORTED)
+    def reshard(self, mesh) -> "SparseIterativeBackend":
+        """A fresh, un-set-up backend with the same preconditioner request
+        on ``mesh`` — the supervisor's SHRINK rung: ``ipm.solve``'s setup
+        re-splits the rows, ``from_host`` places the checkpointed iterate."""
+        return type(self)(precond=self._precond_req, mesh=mesh)
 
     def to_host(self, state: IPMState) -> IPMState:
         return IPMState(*(v.detach().cpu().numpy() for v in state))
@@ -350,24 +380,31 @@ class SparseIterativeBackend(SolverBackend):
 
     # -- telemetry & guards ----------------------------------------------
 
+    def _psum_per_iter(self) -> int:
+        return 1 if self._n_shards > 1 else 0
+
     def cg_report(self) -> dict:
         """cg_iters telemetry: total + per-IPM-iteration counts, the
-        resolved preconditioner, and the host reads of CG's exit flag."""
+        resolved preconditioner, the host reads of CG's exit flag, the row
+        shards (1: one device) and the n-vector sums a CG iteration
+        (``psum_per_iter``, the reference's psum; each comes with one
+        m-vector gather, the normal matvec's rows)."""
         return {
             "cg_iters": self._cg_iters_total,
             "cg_per_iteration": list(self._cg_per_iter),
             "precond": self.precond,
             "cg_cap": self._cg_cap,
             "warm_precond_steps": self._frozen_used,
-            "shards": 1,
-            "psum_per_iter": 0,
+            "shards": self._n_shards,
+            "psum_per_iter": self._psum_per_iter(),
             "newton_solves": self._newton_solves,
             "host_syncs": self._host_syncs,
         }
 
     def memory_report(self) -> dict:
         """Every device tensor this backend holds, name → {shape, nbytes}
-        — the never-materialized-ADAᵀ guard."""
+        — the never-materialized-ADAᵀ guard. On a mesh the operator's
+        entries also carry ``nbytes_per_device``; the rest is replicated."""
         rep = {f"operator.{k}": v for k, v in self._op.memory_report().items()}
         if self._prec is not None:
             rep.update({f"precond.{k}": v for k, v in self._prec.memory_report().items()})
@@ -378,6 +415,8 @@ class SparseIterativeBackend(SolverBackend):
         return rep
 
     def max_operand_nbytes(self, per_device: bool = False) -> int:
-        """Largest live device operand (one device: ``per_device`` changes
-        nothing)."""
-        return max(v["nbytes"] for v in self.memory_report().values())
+        """Largest live device operand; ``per_device=True`` takes the most
+        one member holds of each row-sharded entry (replicated entries
+        count whole)."""
+        key = "nbytes_per_device" if per_device else "nbytes"
+        return max(v.get(key, v["nbytes"]) for v in self.memory_report().values())

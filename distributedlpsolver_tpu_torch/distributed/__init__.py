@@ -15,8 +15,8 @@ first-class citizens of the solver (the JAX package's ``distributed/``).
   front-end publishes each bucket dispatch to a file journal, every rank
   solves its lane block (``cli serve-slice``).
 
-Not ported yet: the world tasks of the row-sharded tiers
-(``sparse_rows``, ``scenario_lanes``; ROADMAP Queue 1 item 13c).
+Not ported yet: the scenario tier's world task (``scenario_lanes``;
+ROADMAP Queue 1 item 13d).
 """
 
 from distributedlpsolver_tpu_torch.distributed.world import (  # noqa: F401

@@ -47,10 +47,24 @@ Tasks:
     ``iteration``, ``device_ids``, ``shard``, ``times``,
     ``hang_seconds``) and supervisor knobs; a rank the SHRINK rung
     excluded reports ``"left": true`` and its fault history. ``cases``
-    runs several in one world.
+    runs several in one world. ``backend: "sparse-iterative"`` runs the
+    row-sharded tier over the world's mesh (a storm ``instance``, say).
 
-Not ported yet: ``sparse_rows`` and ``scenario_lanes`` (the row-sharded
-tiers, ROADMAP Queue 1 item 13c).
+``sparse_rows``
+    ``storm_sparse_lp(scenarios, block_m, block_n, first_stage_n, seed,
+    t_nnz_per_row, w_nnz_per_row)`` through ``SparseIterativeBackend(mesh=
+    world.mesh(axis="batch"))``: each rank holds its row block and runs the
+    ELL kernel on it; the normal matvec's n-vector sum and m-vector gather
+    cross the process boundary. The result carries the verdict, the CG
+    report (``cg_iters``, ``shards``, ``psum_per_iter``, ``precond``), the
+    most operand bytes on this rank (``max_operand_per_device``,
+    ``operator_bytes_per_device``), the ELL
+    kernel's launches on this rank, the setup by part, and SHA-256s of x's
+    and y's bytes (ranks must agree bit for bit); with ``return_xy`` also
+    x and y.
+
+Not ported yet: ``scenario_lanes`` (the scenario tier's lane mesh,
+ROADMAP Queue 1 item 13d).
 """
 
 from __future__ import annotations
@@ -97,6 +111,8 @@ def _problem(spec: dict):
             block_n=int(spec.get("block_n", 36)),
             first_stage_n=int(spec.get("first_stage_n", 24)),
             seed=seed,
+            t_nnz_per_row=int(spec.get("t_nnz_per_row", 4)),
+            w_nnz_per_row=int(spec.get("w_nnz_per_row", 6)),
         )
     if instance == "general":
         return random_general_lp(int(spec.get("m", 20)), int(spec.get("n", 40)), seed=seed)
@@ -202,6 +218,51 @@ def sharded_linops(world: World, spec: dict) -> dict:
             "M": host(factors[1]), "solve": host(ops.solve(factors, t(r)))}
 
 
+@task("sparse_rows")
+def sparse_rows(world: World, spec: dict) -> dict:
+    from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.ops.ell_spmv import ell_normal_diag, ell_spmv
+
+    spec = {"instance": "storm", "scenarios": 6, "seed": 3, **spec}
+    t0 = time.perf_counter()
+    problem = _problem(spec)
+    t_gen = time.perf_counter() - t0
+    cfg = SolverConfig(tol=float(spec.get("tol", 1e-8)), max_iter=int(spec.get("max_iter", 200)),
+                       verbose=False)
+    be = SparseIterativeBackend(precond=spec.get("precond", "auto"),
+                                mesh=world.mesh(axis="batch"))
+    ell_spmv.launches = ell_spmv.launches_t = ell_normal_diag.launches = 0
+    t0 = time.perf_counter()
+    result = solve(problem, backend=be, config=cfg)
+    wall = time.perf_counter() - t0
+    rep = be.cg_report()
+    x = result.x
+    (lo, hi), = be._op.ranges
+    out = {
+        "status": result.status.value, "objective": result.objective,
+        "iterations": result.iterations, "rel_gap": result.rel_gap, "pinf": result.pinf,
+        "dinf": result.dinf, "wall_s": wall, "setup_s": result.setup_time,
+        "solve_s": result.solve_time, "setup": dict(be.setup_report, generate_s=t_gen),
+        "cg_iters": rep["cg_iters"], "cg_per_iteration": rep["cg_per_iteration"],
+        "newton_solves": rep["newton_solves"], "host_syncs": rep["host_syncs"],
+        "shards": rep["shards"], "psum_per_iter": rep["psum_per_iter"],
+        "precond": rep["precond"],
+        "rows": [lo, hi], "shape": list(be._op.shape),
+        "max_operand_per_device": be.max_operand_nbytes(per_device=True),
+        "max_operand": be.max_operand_nbytes(),
+        "operator_bytes_per_device": be._op.nbytes_per_device(),
+        "ell_launches": {"A·v": ell_spmv.launches, "Aᵀ·v": ell_spmv.launches_t,
+                         "diag(A·D·Aᵀ)": ell_normal_diag.launches},
+        "x_sha256": None if x is None else hashlib.sha256(x.tobytes()).hexdigest(),
+        "y_sha256": None if x is None else hashlib.sha256(result.y.tobytes()).hexdigest(),
+    }
+    if spec.get("return_xy") and x is not None:
+        out["x"], out["y"] = x.tolist(), result.y.tolist()
+    return out
+
+
 @task("sharded_cases")
 def sharded_cases(world: World, spec: dict) -> dict:
     """Each case of ``cases`` through ``sharded_solve``, or through
@@ -286,9 +347,14 @@ def _supervised_case(world: World, spec: dict) -> dict:
     log = spec.get("log_jsonl")
     cfg = SolverConfig(tol=float(spec.get("tol", 1e-8)), max_iter=int(spec.get("max_iter", 200)),
                        verbose=False, log_jsonl=log.format(rank=world.rank) if log else None)
-    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.backends.base import backend_class
+    from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
 
-    be = get_backend(spec.get("backend", "sharded"), device=world.device)
+    cls = backend_class(spec.get("backend", "sharded"))
+    # The row-sharded tier (under any of its names) takes its mesh at
+    # construction: the world's.
+    kw = {"mesh": world.mesh(axis="batch")} if issubclass(cls, SparseIterativeBackend) else {}
+    be = cls(device=world.device, **kw)
     runtime.restore_devices()
     t0 = time.perf_counter()
     faults = lambda fs: [{"kind": f.kind.value, "iteration": f.iteration, "action": f.action,
@@ -335,8 +401,7 @@ def _unported(name: str, item: str):
     return run
 
 
-task("sparse_rows")(_unported("sparse_rows", "13c"))
-task("scenario_lanes")(_unported("scenario_lanes", "13c"))
+task("scenario_lanes")(_unported("scenario_lanes", "13d"))
 
 
 def _write_result(out_dir: str, rank: int, payload: dict) -> None:

@@ -24,8 +24,27 @@ order, no atomics), the JAX package's eager formula over the hybrid on the
 CPU. The dense fallback stores A itself and its products are library
 GEMVs, as they are XLA's in the JAX package.
 
-Not here: ``RowShardedOperator``/``shard_rows``, the row-distributed tier
-(ROADMAP Queue 1 item 13c).
+The row-distributed tier, :class:`RowShardedOperator` (built by
+:func:`shard_rows`), splits A into contiguous row blocks over a mesh
+(``parallel/mesh.py``), each block a :class:`SparseOperator` of its own
+(global columns, so its kernel layouts are A_r's and A_rᵀ's) on its
+member's device. Where the JAX package keeps m-vectors flat and sharded
+and lets XLA insert the psum, the vectors here stay replicated (as in
+``backends/sharded.py``) and the operator calls the collectives itself:
+
+* ``rmatvec(y)`` = ``all_reduce(A_rᵀ·y[lo:hi])`` — the reference's one
+  n-vector psum;
+* ``matvec(v)``, ``normal_diag`` and ``normal_matvec``: each member writes
+  its rows into a zeroed m-vector, then ``all_reduce`` (a sum with zeros
+  is exact, so every row keeps its bits);
+* ``normal_matvec(d, reg, v)`` = that gather of ``A_r·(d ∘ rmatvec(v)) +
+  reg·v[lo:hi]``: two collectives a CG iteration, an n-vector sum and an
+  m-vector gather.
+
+Every member then holds the same bits of every vector, so CG and the step
+take the same branches everywhere with no collective of their own. A
+local mesh (several devices of one process) sums its members' partials in
+member order on the first member's device, and concatenates the rows.
 """
 
 from __future__ import annotations
@@ -147,6 +166,11 @@ class SparseOperator:
             return self.dense.T @ v
         return ell_spmv(self.tvals, self.tcols, v, self.ttail(), layout=self.tsell,
                         transpose=True)
+
+    def normal_matvec(self, d, reg, v):
+        """``v ↦ A·(d ∘ Aᵀv) + reg·v``, CG's operator on the normal
+        equations, never forming A·diag(d)·Aᵀ."""
+        return self.matvec(d * self.rmatvec(v)) + reg * v
 
     def normal_diag(self, d, reg=0.0):
         """diag(A·diag(d)·Aᵀ) + reg without forming the normal matrix:
@@ -321,23 +345,31 @@ def _hybrid_tensors(A: sp.csr_matrix, dtype, device) -> dict:
     return out
 
 
+def _sparse_fmt(m: int, n: int, nnz: int, density_threshold: float) -> str:
+    """The storage a sparse m×n matrix with ``nnz`` entries gets: ELL
+    unless dense-ish or tiny."""
+    dens = nnz / max(m * n, 1)
+    return "ell" if dens <= density_threshold and m * n > _DENSE_FALLBACK_ENTRIES else "dense"
+
+
 def from_scipy(
     A,
     dtype=np.float64,
     density_threshold: float = DENSE_FALLBACK_DENSITY,
     device="cpu",
+    fmt: Optional[str] = None,
 ) -> SparseOperator:
     """Build a :class:`SparseOperator` on ``device`` from scipy-sparse or
     dense input WITHOUT densifying sparse inputs; dense-ish or tiny inputs
-    take the dense fallback."""
+    take the dense fallback. ``fmt`` ("ell" or "dense") forces the storage
+    of a sparse input (a row block keeps its whole matrix's)."""
     dtype = _np_dtype(dtype)
     device = torch.device(device)
     if sp.issparse(A):
         A = A.tocsr()
         m, n = A.shape
         nnz = int(A.nnz)
-        dens = nnz / max(m * n, 1)
-        if dens <= density_threshold and m * n > _DENSE_FALLBACK_ENTRIES:
+        if (fmt or _sparse_fmt(m, n, nnz, density_threshold)) == "ell":
             fwd = _hybrid_tensors(A, dtype, device)
             rev = _hybrid_tensors(A.T.tocsr(), dtype, device)
             return SparseOperator(
@@ -355,6 +387,163 @@ def from_scipy(
 def from_problem(inf, dtype=np.float64, **kw) -> SparseOperator:
     """Operator over an LPProblem/InteriorForm's constraint matrix."""
     return from_scipy(inf.A, dtype=dtype, **kw)
+
+
+# -- the row-distributed tier ------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RowShardedOperator:
+    """Row-distributed operator over a mesh (see the module note).
+
+    ``blocks[i]`` holds the global rows ``ranges[i]`` of A, with global
+    columns, on its member's device: one block on a process-group mesh
+    (this rank's), every member's on a local mesh. Vectors in and out are
+    replicated on :attr:`device`."""
+
+    shape: Tuple[int, int]
+    nnz: int
+    fmt: str  # "ell" | "dense", the whole matrix's (every block keeps it)
+    mesh: object  # parallel.mesh.Mesh
+    axis: str
+    rows_per: int  # ⌈m/R⌉; the last block may hold fewer
+    blocks: Tuple[SparseOperator, ...]
+    ranges: Tuple[Tuple[int, int], ...]
+
+    @property
+    def m(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.shape[1]
+
+    @property
+    def num_shards(self) -> int:
+        return int(self.mesh.shape[self.axis])
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def _group(self) -> bool:
+        return not self.mesh.is_local
+
+    def _sum(self, parts):
+        """Σ over the members of their n-vector partials: one all-reduce
+        over the axis, or on a local mesh the sum in member order."""
+        if self._group:
+            return self.mesh.all_reduce(parts[0], self.axis)
+        total = parts[0].to(self.device)
+        for p in parts[1:]:
+            total = total + p.to(self.device)
+        return total
+
+    def _rows(self, parts):
+        """The m-vector of the members' row blocks: this rank's rows in a
+        zeroed vector summed over the axis, or on a local mesh the blocks
+        concatenated."""
+        if self._group:
+            (lo, hi), = self.ranges
+            out = torch.zeros(self.m, dtype=parts[0].dtype, device=self.device)
+            out[lo:hi] = parts[0]
+            return self.mesh.all_reduce(out, self.axis)
+        return torch.cat([p.to(self.device) for p in parts])
+
+    def _each(self, fn):
+        return [fn(b, lo, hi) for b, (lo, hi) in zip(self.blocks, self.ranges)]
+
+    # -- linear maps (every vector replicated) -----------------------------
+
+    def matvec(self, v):
+        """A @ v, (n,) → (m,): each block's rows, gathered."""
+        return self._rows(self._each(lambda b, lo, hi: b.matvec(v.to(b.device))))
+
+    def rmatvec(self, y):
+        """Aᵀ @ y, (m,) → (n,): the blocks' partials A_rᵀ·y[lo:hi], summed
+        (the one n-vector all-reduce)."""
+        return self._sum(self._each(lambda b, lo, hi: b.rmatvec(y[lo:hi].to(b.device))))
+
+    def normal_matvec(self, d, reg, v):
+        """``v ↦ A·(d ∘ Aᵀv) + reg·v`` in :meth:`SparseOperator.
+        normal_matvec`'s order (``rmatvec``, then ``matvec(d * ·) + reg *
+        v``), so a mesh of one gives its bits."""
+        w = d * self.rmatvec(v)
+        return self._rows(self._each(
+            lambda b, lo, hi: b.matvec(w.to(b.device)) + reg * v[lo:hi].to(b.device)))
+
+    def normal_diag(self, d, reg=0.0):
+        """diag(A·diag(d)·Aᵀ) + reg, each block's rows computed where they
+        live, gathered."""
+        return self._rows(self._each(lambda b, lo, hi: b.normal_diag(d.to(b.device), reg)))
+
+    # -- host-side helpers -------------------------------------------------
+
+    def to_scipy(self) -> sp.csr_matrix:
+        """Exact CSR of A in global row order (tests). A rank of a
+        process-group mesh holds only its block and raises."""
+        if self._group and self.num_shards > 1:
+            raise ValueError("a rank of a process-group mesh holds only its row block")
+        return sp.vstack([b.to_scipy() for b in self.blocks]).tocsr()
+
+    def memory_report(self) -> dict:
+        """name → {shape, nbytes, nbytes_per_device} over the blocks this
+        process holds (every member's on a local mesh, this rank's on a
+        process-group mesh): ``nbytes`` their sum, ``nbytes_per_device``
+        and ``shape`` the largest one's."""
+        out = {}
+        for rep in (b.memory_report() for b in self.blocks):
+            for name, h in rep.items():
+                e = out.setdefault(name, {"shape": h["shape"], "nbytes": 0, "nbytes_per_device": 0})
+                e["nbytes"] += h["nbytes"]
+                if h["nbytes"] > e["nbytes_per_device"]:
+                    e["shape"], e["nbytes_per_device"] = h["shape"], h["nbytes"]
+        return out
+
+    def nbytes(self) -> int:
+        """Operand bytes of the blocks this process holds."""
+        return sum(b.nbytes() for b in self.blocks)
+
+    def nbytes_per_device(self) -> int:
+        """The most operand bytes one member holds."""
+        return max(b.nbytes() for b in self.blocks)
+
+
+def _shard_axis(mesh, axis: Optional[str] = None) -> str:
+    if axis is not None:
+        return axis
+    return "batch" if "batch" in mesh.axis_names else mesh.axis_names[-1]
+
+
+def shard_rows(op, mesh, dtype=None, axis: Optional[str] = None,
+               density_threshold: float = DENSE_FALLBACK_DENSITY) -> RowShardedOperator:
+    """Partition a :class:`SparseOperator` (or a scipy or dense matrix)
+    row-wise over ``mesh``'s ``axis`` (default "batch" when the mesh has
+    it, else its innermost) into a :class:`RowShardedOperator`.
+
+    Member r owns the contiguous rows ``[r·⌈m/R⌉, min((r+1)·⌈m/R⌉, m))``
+    (``Mesh.row_blocks``; fewer rows than members raises ``ValueError``).
+    Each block is built by :func:`from_scipy` on its member's device in
+    the storage :func:`from_scipy` gives the whole matrix, so a mesh of one
+    holds the single-device operator."""
+    if isinstance(op, SparseOperator):
+        A, fmt = op.to_scipy(), op.fmt
+        dtype = op.dtype if dtype is None else dtype
+    elif sp.issparse(op):
+        A = op.tocsr()
+        fmt = _sparse_fmt(A.shape[0], A.shape[1], int(A.nnz), density_threshold)
+    else:
+        A, fmt = sp.csr_matrix(np.asarray(op)), "dense"
+    dtype = np.float64 if dtype is None else dtype
+    m, n = A.shape
+    ax = _shard_axis(mesh, axis)
+    spans = mesh.row_blocks(m, ax)
+    blocks = tuple(from_scipy(A[lo:hi], dtype=dtype, device=dev, fmt=fmt) for dev, lo, hi in spans)
+    R = int(mesh.shape[ax])
+    return RowShardedOperator(
+        shape=(m, n), nnz=int(A.nnz), fmt=fmt, mesh=mesh, axis=ax, rows_per=-(-m // R),
+        blocks=blocks, ranges=tuple((lo, hi) for _, lo, hi in spans),
+    )
 
 
 def _host(t) -> np.ndarray:

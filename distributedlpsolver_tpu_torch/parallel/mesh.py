@@ -12,7 +12,9 @@ calls the collectives itself (``backends/sharded.py`` does so inside its
 A mesh knows its ranks, shape and axis names, this rank's device and
 coordinates, and this rank's column range for a given n (the contiguous
 block GSPMD gives a device on a ``PartitionSpec(None, axis)`` of an
-evenly divisible axis). :class:`Sharding` is the port of a
+evenly divisible axis). :meth:`Mesh.row_blocks` splits m rows the JAX
+package's ``ops/sparse.py::shard_rows`` way: ⌈m/R⌉ a member, contiguous,
+the last block possibly shorter (the row-sharded matrix-free tier). :class:`Sharding` is the port of a
 ``NamedSharding``: a mesh plus the axis a dimension is split over, or
 none (replicated); ``local`` cuts this rank's block out of a host array.
 
@@ -44,8 +46,11 @@ surviving ranks — a collective of the whole world, so every rank enters
 it in the same order, the excluded ranks too (an excluded rank gets a
 mesh it is not a member of, and leaves).
 
-Not ported (ROADMAP Queue 1 item 13c): ``shard_map_compat`` — no path of
-the port runs per-shard programs; the row-sharded tiers would.
+Not ported (ROADMAP Queue 1 item 13e): ``shard_map_compat`` — no path of
+the port runs per-shard programs. The row-sharded tier keeps its vectors
+replicated and calls ``all_reduce`` itself (``ops/sparse.py::
+RowShardedOperator``); the block tier's distributed Cholesky
+(``ops/dist_chol.py`` in the JAX package) is the one user left.
 """
 
 from __future__ import annotations
@@ -136,6 +141,26 @@ class Mesh:
         w = n // k
         i = int(self.coords()[axis])
         return i * w, (i + 1) * w
+
+    def row_blocks(self, m: int, axis: Optional[str] = None) -> list:
+        """``[(device, lo, hi)]``: the row blocks of an m-row axis split
+        over ``axis`` (default the innermost) that THIS process holds —
+        every member's on a local mesh, this rank's on a process-group
+        mesh. Member r owns ``[r·⌈m/R⌉, min((r+1)·⌈m/R⌉, m))``, the JAX
+        package's ``shard_rows`` split; fewer rows than members raises
+        ``ValueError``."""
+        axis = axis or self.axis_names[-1]
+        k = self.shape[axis]
+        if m < k:
+            raise ValueError(f"cannot shard {m} rows over {k} devices")
+        per = -(-m // k)
+        span = lambda i: (min(i * per, m), min((i + 1) * per, m))  # noqa: E731
+        if self.is_local:
+            if k != self.size:
+                raise ValueError(f"a local mesh splits rows over all its {self.size} members, "
+                                 f"not axis {axis!r} of {k}")
+            return [(d, *span(i)) for i, d in enumerate(self.devices)]
+        return [(self.device, *span(int(self.coords()[axis])))]
 
     def lane_blocks(self, batch: int, axis: str = "batch") -> list:
         """``[(device, lo, hi)]``: the lane blocks of a ``batch``-lane axis
@@ -355,7 +380,8 @@ def reform_mesh(mesh: Mesh, exclude: Sequence = (), axis_name: Optional[str] = N
 def shard_map_compat(f, mesh: Mesh, in_specs, out_specs):
     raise NotImplementedError(
         "shard_map_compat (per-shard programs) is not ported to the torch package: no "
-        "ported path runs one; the row-sharded tiers would (ROADMAP Queue 1 item 13c)"
+        "ported path runs one; the block tier's distributed Cholesky would (ROADMAP Queue 1 "
+        "item 13e)"
     )
 
 

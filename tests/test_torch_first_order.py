@@ -181,13 +181,13 @@ def test_solo_runs_are_bitwise_deterministic():
 
 
 def test_mesh_is_not_ported():
-    """The solo engine's column mesh is still refused (item 13c); the
+    """The solo engine's column mesh is still refused (item 13d); the
     bucket's lane mesh is ported (item 13b): over a local mesh of 2 the
     lanes keep their unsharded bits (``test_torch_batch_mesh.py`` holds
     the rest)."""
     from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
 
-    with pytest.raises(NotImplementedError, match="item 13c"):
+    with pytest.raises(NotImplementedError, match="item 13d"):
         tfo.FirstOrderBackend(mesh=object(), device="cpu")
     batch, act = tgen.random_batched_lp(2, 4, 8), np.ones(2, bool)
     mesh = mesh_lib.make_mesh(axis_names=("batch",), devices=["cpu"] * 2)

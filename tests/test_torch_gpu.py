@@ -8,7 +8,9 @@ the sharded backend (an NCCL world of one against ``cuda`` bit for bit,
 a gloo world of two ranks sharing the card, NCCL refused beyond the card
 count), and the batch mesh (K1 on a rank's lane block, a bucket over a
 gloo world of two sharing the card, ``mesh_devices`` beyond the card
-count refused), on the card.
+count refused), and the row-sharded tier (the ELL kernel on a rank's row
+block, an NCCL world of one against ``mesh=None`` bit for bit, a gloo world
+of two sharing the card), on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -799,3 +801,75 @@ def test_mesh_devices_beyond_the_cards_raises(cuda):
     n = torch.cuda.device_count()
     with pytest.raises(ValueError, match=f"only {n} local devices"):
         SolveService(ServiceConfig(mesh_devices=n + 1), auto_start=False)
+
+
+# -- the row-sharded tier ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_rows_ell_kernel_on_a_row_block(cuda, parts):
+    """The kernel on rank 0's row block of a storm matrix split over
+    ``parts`` ranks: A_r·v and A_rᵀ·w (an n-row transpose whose rows of the
+    other ranks' scenarios are empty, whole zero-width slices of them)
+    within 1e-12 of the plain version, every empty row an exact 0, two
+    launches bit for bit."""
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+    from distributedlpsolver_tpu_torch.ops import ell_spmv
+    from distributedlpsolver_tpu_torch.ops import sparse as tsparse
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    A = storm_sparse_lp(400, 32, 48, 24, seed=2).A.tocsr()
+    # The rows of a rank's block, as shard_rows cuts them (one rank here).
+    (_, lo, hi), = mesh_lib.Mesh((parts,), ("batch",), cuda).row_blocks(A.shape[0])
+    op = tsparse.from_scipy(A[lo:hi], device=cuda, fmt="ell")
+    empty = np.diff(A[lo:hi].tocsc().indptr) == 0
+    assert empty.sum() > 32 * 8  # whole slices of empty transpose rows
+    before = (ell_spmv.launches, ell_spmv.launches_t)
+    for kern, ref in _ell_cases(op, torch.float64, cuda)[:2]:
+        got = kern()
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= ELL_TOL[torch.float64]
+        assert torch.equal(got, kern())
+    assert (ell_spmv.launches - before[0], ell_spmv.launches_t - before[1]) == (2, 2)
+    w = torch.randn(op.m, dtype=torch.float64, device=cuda)
+    out = op.rmatvec(w).cpu().numpy()
+    assert np.all(out[empty] == 0.0) and not np.signbit(out[empty]).any()
+
+
+def test_rows_nccl_world_of_one_matches_mesh_none_bit_for_bit(cuda):
+    """A row-sharded solve on an NCCL world of one is the single-device
+    solve bit for bit: the same x, IPM and CG iterations."""
+    from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+
+    p = storm_sparse_lp(32, 64, 96, 64, seed=1)
+    world = _nccl_world_of_one()
+    try:
+        be = SparseIterativeBackend(mesh=world.mesh(axis="batch"))
+        rs = solve(p, backend=be, tol=1e-8)
+        rep = be.cg_report()
+    finally:
+        world.close()
+    be0 = get_backend("sparse-iterative")
+    r0 = solve(storm_sparse_lp(32, 64, 96, 64, seed=1), backend=be0, tol=1e-8)
+    assert rs.status == r0.status == Status.OPTIMAL
+    assert rs.iterations == r0.iterations and rep["cg_iters"] == be0.cg_report()["cg_iters"]
+    assert rep["shards"] == 1 and np.array_equal(rs.x, r0.x)
+
+
+def test_rows_gloo_world_of_two_on_one_card(cuda, tmp_path):
+    """Two ranks share the card over gloo on the row-sharded tier: both
+    OPTIMAL at the single-device IPM iterations and objective, with the
+    same x bits and CG count, the kernel launched on each rank."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+
+    ref = solve(storm_sparse_lp(6, 24, 36, 24, seed=3), backend="sparse-iterative", tol=1e-8)
+    res = run_world("sparse_rows", {"tol": 1e-8}, world_size=2, workdir=str(tmp_path), retries=0,
+                    timeout=240, device="cuda", pg_backend="gloo")
+    assert len({o["x_sha256"] for o in res.values()}) == 1
+    assert len({o["cg_iters"] for o in res.values()}) == 1
+    for o in res.values():
+        assert o["status"] == "optimal" and o["pg_backend"] == "gloo" and o["shards"] == 2
+        assert o["iterations"] == ref.iterations
+        assert abs(o["objective"] - ref.objective) <= 1e-8 * (1 + abs(ref.objective))
+        assert o["ell_launches"]["A·v"] > 0 and o["ell_launches"]["Aᵀ·v"] > 0

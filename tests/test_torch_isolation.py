@@ -75,6 +75,31 @@ def test_importing_the_port_and_its_cli_loads_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_row_sharded_tier_runs_without_jax():
+    """The row-sharded tier's code paths (``shard_rows``, the backend on a
+    mesh, ``reshard``, the ``sparse_rows`` world task's module) run in a
+    process that never loads JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend\n"
+        "from distributedlpsolver_tpu_torch.distributed import worker\n"
+        "from distributedlpsolver_tpu_torch.ipm import solve\n"
+        "from distributedlpsolver_tpu_torch.models import storm_sparse_lp\n"
+        "from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib\n"
+        "mesh = mesh_lib.make_mesh(axis_names=('batch',), devices=['cpu'] * 2)\n"
+        "be = SparseIterativeBackend(mesh=mesh).reshard(mesh)\n"
+        "r = solve(storm_sparse_lp(4, 8, 12, 8, seed=0), backend=be, tol=1e-8)\n"
+        "assert r.status.value == 'optimal' and be.cg_report()['shards'] == 2\n"
+        "assert 'sparse_rows' in worker.TASKS\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'distributedlpsolver_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_the_serving_modules_are_scanned():
     """The AST scan above covers the serving stack, the sparse tier and the
     network plane this package added."""

@@ -8,12 +8,14 @@ launcher. Waits are polls with deadlines, never fixed sleeps; the rank
 kill's solve is paced (``pace_s``) so that the kill lands mid-solve.
 """
 
+import hashlib
 import json
 import os
 import signal
 import threading
 import time
 
+import numpy as np
 import pytest
 
 from distributedlpsolver_tpu.ipm import solve as jsolve
@@ -135,12 +137,14 @@ def test_rank_kill_world_reinit_checkpoint_resume(tmp_path):
 
 
 def test_unported_world_tasks_fail_naming_their_items(tmp_path):
-    """``sparse_rows`` still fails naming item 13c. ``bucket_probe`` (item
-    13b) is ported: ``test_torch_slice.py`` runs it over a world of 2."""
+    """``scenario_lanes`` still fails naming item 13d. ``bucket_probe`` (item
+    13b) and ``sparse_rows`` (item 13c) are ported: ``test_torch_slice.py``
+    runs the first over a world of 2, the tests below the second."""
     from distributedlpsolver_tpu_torch.distributed import worker
 
     assert worker.TASKS["bucket_probe"].__name__ == "bucket_probe"
-    for task, item in (("sparse_rows", "13c"),):
+    assert worker.TASKS["sparse_rows"].__name__ == "sparse_rows"
+    for task, item in (("scenario_lanes", "13d"),):
         with pytest.raises(RuntimeError, match=f"item {item}"):
             run_world(task, {}, world_size=1, workdir=str(tmp_path / task), device="cpu",
                       timeout=120, retries=0)
@@ -227,3 +231,57 @@ def test_only_a_closed_connection_counts_as_a_lost_peer(monkeypatch, tmp_path, m
     else:
         with pytest.raises(RuntimeError, match=msg.split(",")[0]):
             worker.main(argv)
+
+
+# The reference's sparse_rows instance (its ``test_sparse_rows_matches_single_process``).
+_SPARSE_SPEC = {"scenarios": 6, "block_m": 24, "block_n": 36, "first_stage_n": 24, "seed": 3,
+                "tol": 1e-8}
+
+
+def _sparse_single():
+    from distributedlpsolver_tpu_torch.models import storm_sparse_lp
+
+    be = get_backend("sparse-iterative", device="cpu")
+    r = solve(storm_sparse_lp(6, block_m=24, block_n=36, first_stage_n=24, seed=3),
+              backend=be, tol=1e-8)
+    assert r.status.value == "optimal"
+    return r, be
+
+
+def test_sparse_rows_matches_single_process(tmp_path):
+    """The row-sharded tier over a gloo world of 2: each rank's ELL block,
+    the normal matvec's n-vector sum and m-vector gather crossing the
+    process boundary; every rank the single-process solve's status and IPM
+    iterations and its objective within 1e-8, and the same x bits and CG
+    count on both ranks."""
+    ref, be1 = _sparse_single()
+    whole = be1._op.nbytes()
+    res = run_world("sparse_rows", {**_SPARSE_SPEC, "return_xy": True}, world_size=2,
+                    workdir=str(tmp_path), device="cpu", timeout=240, retries=0)
+    assert set(res) == {0, 1}
+    m = 6 * 24
+    assert [res[r]["rows"] for r in (0, 1)] == [[0, m // 2], [m // 2, m]]
+    for rank, out in res.items():
+        assert out["status"] == "optimal" and out["iterations"] == ref.iterations, (rank, out)
+        assert out["shards"] == 2 and out["psum_per_iter"] == 1
+        assert out["precond"] == "bordered" and out["pg_backend"] == "gloo"
+        assert _rel(out["objective"], ref.objective) <= 1e-8
+        x = np.asarray(out["x"])
+        assert hashlib.sha256(x.tobytes()).hexdigest() == out["x_sha256"]
+        assert out["operator_bytes_per_device"] < whole
+    assert len({out["x_sha256"] for out in res.values()}) == 1
+    assert len({out["cg_iters"] for out in res.values()}) == 1
+    assert res[0]["cg_per_iteration"] == res[1]["cg_per_iteration"]
+
+
+def test_sparse_rows_world_of_one_gives_the_single_device_bits(tmp_path):
+    """A gloo world of one: the block is A and the collectives copy, so x
+    is the single-process ``mesh=None`` solve's bit for bit, at the same
+    IPM and CG iterations."""
+    ref, be = _sparse_single()
+    (out,) = run_world("sparse_rows", _SPARSE_SPEC, world_size=1, workdir=str(tmp_path),
+                       device="cpu", timeout=240, retries=0).values()
+    assert out["x_sha256"] == hashlib.sha256(ref.x.tobytes()).hexdigest()
+    assert out["iterations"] == ref.iterations
+    assert out["cg_iters"] == be.cg_report()["cg_iters"]
+    assert out["shards"] == 1 and out["psum_per_iter"] == 0

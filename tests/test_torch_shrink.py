@@ -9,7 +9,10 @@ world task), each rank with the same fault plan: the acceptance shrink
 (DEVICE_LOST of rank 3 at iteration 3, with the telemetry stream), the
 ``min_devices`` gate (degrade), and a persistent shard hang attributed
 by the probe and shrunk out. Every answer is held to the JAX package's
-fault-free sharded solve of the same problem. The building blocks —
+fault-free sharded solve of the same problem. A second world of 4 runs
+the same rung on the row-sharded tier (``sparse-iterative`` over the
+world's mesh) on a storm instance whose 175 rows split unevenly over 4
+and then over the 3 survivors. The building blocks —
 mesh re-formation and the health probes over the simulated-loss
 registry — are checked in-process on local meshes.
 """
@@ -67,6 +70,36 @@ def world4(tmp_path_factory):
     res = run_world("supervised_solve", {"cases": cases}, world_size=4, workdir=str(work),
                     device="cpu", timeout=300)
     return {rank: out["cases"] for rank, out in res.items()}, log
+
+
+# A storm instance whose rows split unevenly over 4 (44, 44, 44, 43) and
+# over the 3 survivors (59, 59, 57).
+_STORM = dict(instance="storm", scenarios=7, block_m=25, block_n=36, first_stage_n=24, seed=3)
+# The row-sharded tier's other registered names (cases 2 and 3 of the world).
+_ALIASES = ("inexact-ipm", "sparse-pcg")
+
+
+@pytest.fixture(scope="module")
+def sparse_world4(tmp_path_factory):
+    """One gloo world of 4 running the row-sharded tier's supervised cases:
+    the loss of rank 3 at iteration 3, the same under ``min_devices=4``, and
+    the loss again under the tier's other two names."""
+    work = tmp_path_factory.mktemp("shrink4_sparse")
+    case = {**_STORM, "backend": "sparse-iterative", "supervisor": _SUP,
+            "faults": [{"kind": "device_lost", "iteration": 3, "device_ids": [3]}]}
+    cases = [case, {**case, "supervisor": {**_SUP, "min_devices": 4}},
+             *({**case, "backend": alias} for alias in _ALIASES)]
+    res = run_world("supervised_solve", {"cases": cases}, world_size=4, workdir=str(work),
+                    device="cpu", timeout=300)
+    return {rank: out["cases"] for rank, out in res.items()}
+
+
+@pytest.fixture(scope="module")
+def sparse_reference():
+    """The JAX package's single-device sparse-iterative solve."""
+    spec = {k: v for k, v in _STORM.items() if k not in ("instance", "scenarios")}
+    return jsolve(jgen.storm_sparse_lp(_STORM["scenarios"], **spec), backend="sparse-iterative",
+                  tol=1e-8)
 
 
 def _close(a, b, tol):
@@ -207,3 +240,53 @@ def test_fault_and_resume_events_in_jsonl(world4):
     assert [rec["iter"] for rec in iters][:2] == [1, 2]
     left = [json.loads(ln) for ln in open(log.format(rank=3)).read().splitlines()]
     assert [e["action"] for e in left if e.get("event") == "fault"] == ["shrink:4->3"]
+
+
+# -- the row-sharded tier (sparse-iterative) ---------------------------------------
+
+
+def test_sparse_iterative_device_loss_shrinks_rows_and_converges(sparse_world4,
+                                                                 sparse_reference):
+    """The loss of rank 3 of 4 on ``sparse-iterative``: the survivors
+    re-split the rows over 3 (``reshard``), resume from rank 0's checkpoint
+    and finish OPTIMAL on the tier with one x among them, within 1e-8 of
+    the JAX package's objective; rank 3 entered the re-form and left."""
+    left = sparse_world4[3][0]
+    assert left["left"] is True and left["faults"][0]["action"] == "shrink:4->3"
+    shas = set()
+    for rank in (0, 1, 2):
+        r = sparse_world4[rank][0]
+        assert r["left"] is False and r["status"] == "optimal"
+        assert r["backend"] == "sparse-iterative"
+        (f,) = r["faults"]
+        assert f["kind"] == "device_lost" and f["action"] == "shrink:4->3"
+        assert f["devices"] == [3] and f["recovery_overhead_s"] > 0.0
+        assert _close(r["objective"], sparse_reference.objective, 1e-8)
+        shas.add(r["x_sha256"])
+    assert len(shas) == 1
+
+
+def test_sparse_iterative_below_min_devices_degrades_alike(sparse_world4, sparse_reference):
+    """With ``min_devices=4`` the shrink is gated off and every rank takes
+    the same degradation (the host rung, the backend being on the CPU)."""
+    for rank in range(4):
+        r = sparse_world4[rank][1]
+        assert r["left"] is False and r["status"] == "optimal"
+        assert r["backend"] == "cpu-sparse"
+        assert [f["action"] for f in r["faults"]] == ["degrade:cpu-sparse"]
+        assert _close(r["objective"], sparse_reference.objective, 1e-8)
+    assert len({sparse_world4[rank][1]["x_sha256"] for rank in range(4)}) == 1
+
+
+@pytest.mark.parametrize("case", [2, 3], ids=_ALIASES)
+def test_sparse_iterative_aliases_take_the_worlds_mesh(sparse_world4, case):
+    """Under ``inexact-ipm`` and ``sparse-pcg`` the case builds the same
+    row-sharded backend on the world's mesh: the loss of rank 3 shrinks the
+    rows to the 3 survivors, and the answer is the canonical name's, bit
+    for bit."""
+    assert sparse_world4[3][case]["left"] is True
+    for rank in (0, 1, 2):
+        r = sparse_world4[rank][case]
+        assert r["status"] == "optimal" and r["backend"] == "sparse-iterative"
+        assert [f["action"] for f in r["faults"]] == ["shrink:4->3"]
+        assert r["x_sha256"] == sparse_world4[rank][0]["x_sha256"]

@@ -185,14 +185,22 @@ def test_routes_and_the_degradation_chain_match_the_jax_package():
 
 
 def test_registered_names_device_and_the_unported_mesh_tier():
+    """Every name of the tier, on the device asked for; the row-sharded
+    tier (item 13c, once refused) takes its device from its mesh, and
+    ``reshard`` hands back a fresh backend on the new mesh
+    (``test_torch_sparse_dist.py`` solves on it)."""
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
     for name in ("sparse-iterative", "inexact-ipm", "sparse-pcg"):
         be = get_backend(name, device=CPU)
         assert isinstance(be, SparseIterativeBackend) and be.device.type == "cpu"
         assert be.name == "sparse-iterative" and be.mesh is None
-    with pytest.raises(NotImplementedError, match="item 13"):
-        SparseIterativeBackend(mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        SparseIterativeBackend(device=CPU).reshard(object())
+    mesh2 = mesh_lib.make_mesh(axis_names=("batch",), devices=[CPU] * 2)
+    be = SparseIterativeBackend(precond="jacobi", mesh=mesh2)
+    assert be.mesh is mesh2 and be.device.type == "cpu"
+    be1 = be.reshard(mesh_lib.reform_mesh(mesh2, exclude=[1]))
+    assert be1 is not be and be1.mesh.size == 1 and be1._precond_req == "jacobi"
+    assert SparseIterativeBackend(device=CPU).reshard(mesh2).mesh is mesh2
 
 
 def test_auto_on_the_cpu_solves_a_bordered_problem_as_the_jax_auto():
