@@ -214,7 +214,26 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    lanes K × mb × nb and the linking (link, K·nb + n0) of each class)
    against its plain version (lower triangles ≤ 1e-12, M = Mᵀ and two
    launches bit for bit, each lane the unbatched kernel's bits) and timed
-   beside ``torch.einsum`` and its bound;
+   beside ``torch.einsum`` and its bound; and the tier on a mesh
+   (``BlockAngularBackend(mesh=)``, the K axis over the ranks, the linking
+   factor ``ops/dist_chol.py``): pds-10 and pds-20 through the
+   ``sharded_cases`` task on one NCCL world of one in this process
+   (``block_nccl_legs``) — OPTIMAL, iterations
+   within ±2 and the objective within 1e-8 of the mesh=None solves above,
+   each answer held by ``sharded_answer_check``, the loop captured with K1
+   1 + bodies on the lanes and as many on the linking columns — and the
+   same code on a local mesh of one in this process (x bit for bit with
+   the world's, the same K1 launches, 1 + 2·P ``Mesh.all_reduce`` calls a
+   factorization), with ms an iteration beside mesh=None's; pds-10 over a
+   gloo world of 2 sharing the card (both ranks the same x bits, OPTIMAL
+   within 1e-8 of mesh=None's objective, 16 blocks a rank, uncaptured)
+   and ``supervised_solve`` on ``block`` over a gloo world of 4 with
+   DEVICE_LOST of rank 3 at iteration 3 (``shrink:4->3``, K 32 -> 33 over
+   3 survivors, their x bits equal, within 1e-8 of mesh=None's objective,
+   ``recovery_overhead_s`` printed), both gloo legs as second cases of
+   the worlds of steps 20 and 22 in a whole run; and K1 at rank 0's
+   shares on those worlds (16, 8 and 11 lanes of 432 × 1263; 800 ×
+   (K_r·1263 + 5831) linking columns) held and timed as above;
 19. the stochastic scenario tier (``scenario_phase``; ``--scenario-only``
    runs the build and this phase alone): the tier's own family at a full
    bucket, ``two_stage_storm(1024, 24, 36, 24, 2, seed=1)`` lowered
@@ -245,8 +264,9 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    then ``cli solve`` (no hint in the file: ``auto``'s detection,
    ``auto(scenario)``, the JAX CLI's verdict); a ``SolveService`` on the
    card with the reference's delta wave (median warm iterations below the
-   cold ones), a 64-scenario warm-up and K = 33..64 (one bucket, admission
-   units ``ceil(K/16)`` off the tenant's tokens), a 64-scenario HTTP body
+   cold ones), a 64-scenario warm-up and K = 33, 37, ..., 61 (one bucket,
+   admission units ``ceil(K/16)`` off the tenant's tokens; every fourth K
+   of 33..64, to fit the script's time), a 64-scenario HTTP body
    (200 OPTIMAL), and ``stats()["scenario"]``, the metrics and ``cli
    report``'s table over the log reconciled;
 20. the column-sharded dense backend (``sharded_phase``;
@@ -298,10 +318,13 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    answer held to the problem; with ``min_devices=4``: ``degrade:cuda``);
    ``ServiceConfig(mesh_devices=cards + 1)`` raises naming the card count;
 22. the row-sharded matrix-free tier (``rows_phase``; ``--rows-only``
-   runs the build and this phase alone): ``run_world("sparse_rows",
-   STORM_FULL)`` on an NCCL world of one (stormG2_1000's shape, 528,000 ×
+   runs the build and this phase alone): the ``sparse_rows`` task on
+   STORM_FULL on an NCCL world of one in this process (stormG2_1000's
+   shape, 528,000 ×
    1,259,121, not cut; ``SparseIterativeBackend(mesh=world.mesh())``)
-   against the ``mesh=None`` solve of the same problem in this process —
+   against the ``mesh=None`` solve of the same problem (step 16's
+   unprofiled ``auto`` solve, the same code; in this phase's own run with
+   ``--rows-only``) —
    OPTIMAL, x and y bit for bit (their SHA-256s), the same IPM and CG
    iterations, the objective within 1e-8 of ``STORM_FULL_OBJECTIVE``, the
    answer held to the problem (``sharded_answer_check``), with its s a
@@ -2316,7 +2339,7 @@ def highs_storm20k() -> int:
     return 0
 
 
-def sparse_phase(torch, card):
+def sparse_phase(torch, card, shared):
     """The matrix-free sparse tier on the card (module note, step 16).
     Returns the kernels-line rows of the sliced-ELL kernel. HiGHS's answer
     for the acceptance instance is computed meanwhile in a second
@@ -2324,14 +2347,14 @@ def sparse_phase(torch, card):
     highs = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--highs-storm20k"],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
     try:
-        return _sparse_phase(torch, card, highs)
+        return _sparse_phase(torch, card, highs, shared)
     finally:
         if highs.poll() is None:
             highs.kill()
         highs.communicate()
 
 
-def _sparse_phase(torch, card, highs):
+def _sparse_phase(torch, card, highs, shared):
     import numpy as np
     import scipy.sparse as sp
 
@@ -2450,6 +2473,11 @@ def _sparse_phase(torch, card, highs):
         fail("storm full shape: x differs between two solves")
     print(f"sparse_full_repeat {since()} x bit for bit; {r.iterations} it, cg "
           f"{be.inner.cg_report()['cg_iters']}, wall {wall2:.2f} s, solve {r.solve_time:.2f} s")
+    # The rows phase holds its world of one to this solve (auto routes to
+    # sparse-iterative, the same code bit for bit) instead of solving again.
+    shared["sparse_full"] = dict(x=x, y=np.asarray(r.y), iterations=r.iterations, wall_s=wall2,
+                                 cg_iters=be.inner.cg_report()["cg_iters"], setup_s=r.setup_time,
+                                 solve_s=r.solve_time, setup_parts=be.setup_report)
     del r, be, x
     torch.cuda.empty_cache()
 
@@ -2656,9 +2684,256 @@ def block_solve(torch, ne, name, p, jax_ref, recorded, backend, **kw):
     return r, row, be
 
 
-def block_phase(torch, ne, card):
+# The tier on a mesh (step 18's mesh legs): pds-10 over gloo worlds of 2
+# and 4 sharing the card (the shrink's survivors: 33 blocks over 3), rank
+# 0's K lanes there; and what a mesh solve is held to against mesh=None's
+# (another route: the linking factor's explicit inverse, ``ops/dist_chol.py``).
+BLOCK_RANK_SHAPES = {"gloo2": (16, 2), "gloo4": (8, 4), "shrunk": (11, 3)}
+BLOCK_RANK_PATHS = {
+    "gloo2": "pds-10 block over a gloo world of 2 on one card, rank 0's solve",
+    "gloo4": "pds-10 supervised block over a gloo world of 4 on one card, rank 0, before "
+             "shrink:4->3 (the launches are the run's on both shapes)",
+    "shrunk": "the same run after shrink:4->3 (K 32 -> 33 over 3; the run's launches on "
+              "both shapes)",
+}
+BLOCK_MESH_ITERS = 2
+BLOCK_WORLD_TIMEOUT_S = 300.0
+
+
+def pds_spec(K, mb, nb, link, **kw) -> dict:
+    """A world case of the pds class ``(K, mb, nb, link)`` on ``block``."""
+    return {"backend": "block", "instance": "block", "blocks": K, "block_m": mb, "block_n": nb,
+            "link": link, "tol": 1e-8, **PDS_KW, **kw}
+
+
+def block_gloo2_case() -> dict:
+    return pds_spec(*PDS10, return_xy=True)
+
+
+def block_shrink_case() -> dict:
+    return pds_spec(*PDS10, return_xy=True, supervisor={"backoff_base": 0.001},
+                    faults=[{"kind": "device_lost", "iteration": SHRINK_FAULT_ITERATION,
+                             "device_ids": [3]}])
+
+
+def mesh_none_check(name, o, ref_rows, iterations=True):
+    """A mesh solve against the phase's mesh=None solves of the problem:
+    OPTIMAL, the objective within ``BLOCK_OBJ_TOL`` relative and, with
+    ``iterations``, the iterations within ±``BLOCK_MESH_ITERS``."""
+    ref = ref_rows[0]
+    rel = abs(o["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
+    off = abs(o["iterations"] - ref["iterations"]) if iterations else 0
+    if o["status"] != "optimal" or off > BLOCK_MESH_ITERS or not rel <= BLOCK_OBJ_TOL:
+        fail(f"{name}: {o['status']} {o['iterations']} it objective {o['objective']!r} against "
+             f"mesh=None's {ref['iterations']} it {ref['objective']!r} ({rel:.3e})")
+    return rel
+
+
+def allreduces_a_factorization(torch, be) -> int:
+    """``Mesh.all_reduce`` calls of one factorization on ``be``'s mesh (d = 1)."""
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    calls, real = [], mesh_lib.Mesh.all_reduce
+
+    def counted(self, t, axis=None):
+        calls.append(axis)
+        return real(self, t, axis)
+
+    mesh_lib.Mesh.all_reduce = counted
+    try:
+        be._ops().factorize(torch.ones(be.layout.n, dtype=torch.float64, device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        mesh_lib.Mesh.all_reduce = real
+    return len(calls)
+
+
+def block_nccl_legs(torch, ne, card, p10, p20, ref10, ref20) -> dict:
+    """pds-10 and pds-20 through the ``sharded_cases`` world task on an
+    NCCL world of one in this process (the problems handed over as
+    objects), then the same code on a local mesh of one (x bit for bit)
+    and against the mesh=None solves. Returns the world's K1 launches by
+    class (``{"lanes", "link"}``)."""
+    import hashlib
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends.block_angular import BlockAngularBackend
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+    from distributedlpsolver_tpu_torch.distributed.launcher import free_port
+    from distributedlpsolver_tpu_torch.distributed.worker import TASKS
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.ops import dist_chol
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    sha = lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()  # noqa: E731
+    cases = [pds_spec(*PDS10, problem=p10), pds_spec(*PDS20, problem=p20)]
+    t0 = time.perf_counter()
+    world = world_lib.init_world(world_lib.WorldConfig(
+        coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
+    try:
+        if world.pg_backend != "nccl":
+            fail(f"block: the world of one runs {world.pg_backend}, not nccl")
+        res = TASKS["sharded_cases"](world, {"cases": cases})["cases"]
+    finally:
+        world.close()
+    wall = time.perf_counter() - t0
+    out = {}
+    for o, (tag, p, ref) in zip(res, (("pds-10", p10, ref10), ("pds-20", p20, ref20))):
+        name = f"block {tag} nccl world of one"
+        rel = mesh_none_check(name, o, ref)
+        row0 = o["phase_report"][0]
+        counts = block_k1(o)
+        if not row0["captured"] or not counts["lanes"] == counts["link"] == 1 + row0["bodies"]:
+            fail(f"{name}: captured {row0['captured']}, K1 {counts}, bodies {row0['bodies']}")
+        be = BlockAngularBackend(mesh=mesh_lib.make_mesh(axis_names=("blocks",),
+                                                         devices=["cuda:0"]))
+        block_counts_reset(ne)
+        t0 = time.perf_counter()
+        r = solve(p, backend=be, tol=1e-8)
+        wall_l = time.perf_counter() - t0
+        local = block_counts(ne)
+        if sha(r.x) != o["x_sha256"] or r.iterations != o["iterations"] or local != counts:
+            fail(f"{name}: the local mesh of one {r.iterations} it x {sha(r.x)[:12]} K1 {local} "
+                 f"against the world's {o['iterations']} it x {o['x_sha256'][:12]} K1 {counts}")
+        # x is the world's bit for bit: hold it (and y) to the problem.
+        answer = sharded_answer_check(name, p, r.x, r.y, o["rel_gap"])
+        P = dist_chol.slab_plan(be.layout.link, 1, be.link_panel)[3]
+        reduces = allreduces_a_factorization(torch, be)
+        if reduces != 1 + 2 * P:
+            fail(f"{name}: {reduces} all-reduces a factorization, not 1 + 2·{P}")
+        out[tag] = counts
+        print(f"block_mesh_nccl1 {since()} " + json.dumps({
+            "problem": p.name, "world": "nccl world of one (in this process)",
+            "status": o["status"], "iterations": o["iterations"], "objective": o["objective"],
+            "mesh_none_iterations": ref[0]["iterations"], "objective_rel_mesh_none": rel,
+            "x_bits_equal_local_mesh_of_one": True,
+            "ms_per_iteration": 1e3 * o["solve_s"] / max(o["iterations"], 1),
+            "mesh_none_ms_per_iteration": [row["ms_per_iteration"] for row in ref],
+            "local_mesh_ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1),
+            "local_mesh_wall_s": wall_l, "solve_s": o["solve_s"], "wall_s": o["wall_s"],
+            "setup": o["setup"], "k1_launches": counts, "bodies": row0["bodies"],
+            "captured": row0["captured"], "allreduces_a_factorization": reduces,
+            "link_panels": P, "layout": o["layout"], "answer": answer,
+            "world_wall_s": wall}) + f" [{card}]")
+        del r, be
+        torch.cuda.empty_cache()
+    return out
+
+
+def block_k1(o) -> dict:
+    """A world result's K1 launches: the K lanes and the linking columns."""
+    return {"lanes": o["k1_launches_batched"], "link": o["k1_launches"] - o["k1_launches_batched"]}
+
+
+def block_gloo2_check(block, outs, wall, card) -> dict:
+    """pds-10 over a gloo world of 2 sharing the card (``outs``: each
+    rank's case result; ``block``: the block phase's pds-10 and its
+    mesh=None rows): both ranks the same x bits, OPTIMAL within 1e-8 of
+    mesh=None's objective, each answer held to the problem, 16 blocks a
+    rank, the loop uncaptured. Returns rank 0's K1 launches."""
+    p10, ref10 = block["p10"], block["ref10"]
+    if len({o["x_sha256"] for o in outs}) != 1:
+        fail(f"block gloo world of 2: ranks' x differ: {[o['x_sha256'][:12] for o in outs]}")
+    for k, o in enumerate(outs):
+        rel = mesh_none_check(f"block gloo world of 2, rank {k}", o, ref10, iterations=False)
+        o["answer"] = sharded_answer_check(f"block gloo world of 2, rank {k}", p10, o.pop("x"),
+                                           o.pop("y"), o["rel_gap"])
+        if o["phase_report"][0]["captured"] or o["shard_shape"][0] != 16:
+            fail(f"block gloo world of 2, rank {k}: captured {o['phase_report'][0]['captured']}, "
+                 f"shard {o['shard_shape']}")
+    o = outs[0]
+    print(f"block_mesh_gloo2 {since()} " + json.dumps({
+        "problem": p10.name, "world": "gloo world of 2", "status": o["status"],
+        "iterations": o["iterations"], "mesh_none_iterations": ref10[0]["iterations"],
+        "objective_rel_mesh_none": rel, "x_bits_equal_across_ranks": True,
+        "ms_per_iteration_rank0": 1e3 * o["solve_s"] / max(o["iterations"], 1),
+        "solve_s_rank0": o["solve_s"], "wall_s_rank0": o["wall_s"],
+        "shard_shape_rank0": o["shard_shape"],
+        "link_columns_by_rank": [x["link_columns"] for x in outs],
+        "k1_launches_by_rank": [block_k1(x) for x in outs], "answers": [x["answer"] for x in outs],
+        "capture_off_reason": o["phase_report"][0]["capture_off_reason"],
+        "setup_rank0": o["setup"], "world_wall_s": wall}) + f" [{card}; gloo through the host, "
+          "not NCCL]")
+    return block_k1(o)
+
+
+def block_shrink_check(block, res4, wall, card) -> dict:
+    """The shrink on ``block``: ``res4`` maps each rank of the gloo world of
+    4 to its case result; rank 3 left at ``shrink:4->3``, the survivors
+    OPTIMAL on ``block`` within 1e-8 of mesh=None's objective with equal x
+    bits, each answer held to the problem. Returns rank 0's K1 launches
+    (before and after the shrink)."""
+    p10, ref10 = block["p10"], block["ref10"]
+    if not res4[3]["left"] or res4[3]["faults"][0]["action"] != "shrink:4->3":
+        fail(f"block shrink: rank 3 {res4[3]}")
+    shas, answers, overhead = set(), [], []
+    for k in (0, 1, 2):
+        o = res4[k]
+        f = o["faults"]
+        if (o["left"] or o["backend"] != "block" or [x["action"] for x in f] != ["shrink:4->3"]
+                or f[0]["devices"] != [3] or not f[0]["recovery_overhead_s"] > 0):
+            fail(f"block shrink: rank {k} on {o['backend']}, faults {f}")
+        rel = mesh_none_check(f"block shrink, rank {k}", o, ref10, iterations=False)
+        shas.add(o["x_sha256"])
+        answers.append(sharded_answer_check(f"block shrink, rank {k}", p10, o.pop("x"), o.pop("y"),
+                                            o["rel_gap"]))
+        overhead.append(f[0]["recovery_overhead_s"])
+    if len(shas) != 1:
+        fail(f"block shrink: the survivors' x differ: {shas}")
+    o = res4[0]
+    print(f"block_mesh_shrink {since()} " + json.dumps({
+        "problem": p10.name, "world": "gloo world of 4", "action": "shrink:4->3",
+        "blocks": "32 over 4, then 33 (one dead) over 3", "status": o["status"],
+        "backend": o["backend"], "iterations": o["iterations"],
+        "mesh_none_iterations": ref10[0]["iterations"], "objective_rel_mesh_none": rel,
+        "x_bits_equal_across_survivors": True, "recovery_overhead_s": overhead,
+        "k1_launches_rank0": block_k1(o), "answers": answers, "wall_s_rank0": o["wall_s"],
+        "world_wall_s": wall}) + f" [{card}; gloo through the host, not NCCL]")
+    return block_k1(o)
+
+
+def block_rank_rows(torch, ne, card, block, key, counts) -> list:
+    """The kernels-line rows of K1 at rank 0's share of pds-10 on the world
+    ``key`` of ``BLOCK_RANK_SHAPES`` (its lanes, and its linking columns
+    with the border's), held against the plain version and timed."""
+    Kr, ranks = BLOCK_RANK_SHAPES[key]
+    lay = block["lay10"]._replace(K=Kr)
+    tag = f"pds-10 rank 0 of {ranks}" + (" after shrink:4->3" if key == "shrunk" else "")
+    return [block_k1_row(torch, ne, card, tag, part, shape, counts[part], BLOCK_RANK_PATHS[key])
+            for part, shape in (("lanes", (lay.mb, lay.nb, lay.K)),
+                                ("link", (lay.link, lay.K * lay.nb + lay.n0, None)))]
+
+
+def block_k1_row(torch, ne, card, tag, part, shape, launches, path) -> dict:
+    """K1 at one of the tier's shapes against its plain version (≤ 1e-12,
+    M = Mᵀ and two launches bit for bit), timed beside ``torch.einsum``
+    and its bound: a kernels-line row."""
+    m, n, batch = shape
+    rel_err, mx = kernel_parity(torch, ne, m, n, "float64", batch=batch)
+    t = kernel_timing(torch, ne, m, n, "float64", iters=20, warm=3, batch=batch)
+    print(f"block_k1 {tag} {part} {shape_name(m, n, batch)}: rel_err {rel_err:.3e} max_abs_err "
+          f"{mx:.3e} (tol {TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise equal; "
+          f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} "
+          f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_share']:.3f} "
+          f"[{card}]")
+    return {
+        "name": f"normal_eq (block {part}, {tag})", "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        "launches": launches, "launches_path": path,
+        "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+        "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
+    }
+
+
+def block_phase(torch, ne, card, shared, defer=False):
     """The block-angular tier on the card (module note, step 18). Returns
-    the kernels-line rows of K1 at the tier's four shapes."""
+    the kernels-line rows of K1 at the tier's shapes. With ``defer`` (a
+    whole run) the gloo legs of the tier on a mesh are left to the
+    sharded and rows phases' worlds: ``shared["block"]`` hands them pds-10,
+    its mesh=None rows and its layout."""
     import numpy as np
 
     from distributedlpsolver_tpu_torch import cli
@@ -2705,6 +2980,7 @@ def block_phase(torch, ne, card):
         "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * (r.setup_time + r.solve_time)),
         **prof}))
     p10_counts = runs[0][1]["k1_launches"]
+    ref10 = [row for _, row in runs]  # mesh=None, cold and warm
     del runs, r, inf10
     torch.cuda.empty_cache()
 
@@ -2753,32 +3029,40 @@ def block_phase(torch, ne, card):
         fail("pds-20: x differs between two solves")
     print("block_pds20 x bit for bit across two solves")
     p20_counts = runs[0][1]["k1_launches"]
+    ref20 = [row for _, row in runs]
     lay20 = be.layout
     del runs, r, be
     torch.cuda.empty_cache()
 
-    # 4. K1 at the tier's four shapes: parity and timing.
+    # 4. The tier on a mesh: an NCCL world of one and a local mesh of one.
+    nccl1 = block_nccl_legs(torch, ne, card, p10, p20, ref10, ref20)
+
+    # 5. K1 at the tier's four shapes: parity and timing.
     rows = []
     for tag, lay, counts in (("pds-10", lay10, p10_counts), ("pds-20", lay20, p20_counts)):
-        for part, (m, n, batch) in (("lanes", (lay.mb, lay.nb, lay.K)),
-                                    ("link", (lay.link, lay.K * lay.nb + lay.n0, None))):
-            rel_err, mx = kernel_parity(torch, ne, m, n, "float64", batch=batch)
-            t = kernel_timing(torch, ne, m, n, "float64", iters=20, warm=3, batch=batch)
-            print(f"block_k1 {tag} {part} {shape_name(m, n, batch)}: rel_err {rel_err:.3e} max_abs_err "
-                  f"{mx:.3e} (tol {TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise equal; "
-                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} "
-                  f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_share']:.3f} "
-                  f"[{card}]")
-            rows.append({
-                "name": f"normal_eq (block {part}, {tag})", "route": "cuda",
-                "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
-                "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
-                "launches": counts[part],
-                "launches_path": f"{tag} {'auto' if tag == 'pds-10' else 'block'} cold solve",
-                "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
-                "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
-            })
+        for part, shape in (("lanes", (lay.mb, lay.nb, lay.K)),
+                            ("link", (lay.link, lay.K * lay.nb + lay.n0, None))):
+            path = f"{tag} {'auto' if tag == 'pds-10' else 'block'} cold solve"
+            row = block_k1_row(torch, ne, card, tag, part, shape, counts[part], path)
+            row["launches_nccl_world_of_one"] = nccl1[tag][part]
+            rows.append(row)
+
+    # 6. pds-10 over gloo worlds of 2 and 4 sharing the card: here with
+    # --block-only, and in a whole run as cases of the sharded phase's
+    # world of 2 and the rows phase's world of 4.
+    block = dict(p10=p10, ref10=ref10, lay10=lay10)
+    if defer:
+        shared["block"] = block
+    else:
+        res2, wall2 = card_world("sharded_cases", {"cases": [block_gloo2_case()]}, 2, "gloo",
+                                 "block_gloo2", BLOCK_WORLD_TIMEOUT_S)
+        counts = block_gloo2_check(block, [res2[k]["cases"][0] for k in (0, 1)], wall2, card)
+        rows += block_rank_rows(torch, ne, card, block, "gloo2", counts)
+        res4, wall4 = card_world("supervised_solve", block_shrink_case(), 4, "gloo",
+                                 "block_shrink_gloo4", BLOCK_WORLD_TIMEOUT_S)
+        counts = block_shrink_check(block, res4, wall4, card)
+        rows += block_rank_rows(torch, ne, card, block, "gloo4", counts)
+        rows += block_rank_rows(torch, ne, card, block, "shrunk", counts)
     print(f"block phase {since()}")
     return rows
 
@@ -2810,6 +3094,9 @@ SCENARIO_JAX = {
     "cli_file": {"status": "optimal", "iterations": 18, "objective": 1922.6162423151154},
 }
 SCENARIO_OBJ_TOL = 1e-8
+# The K-mixed serve stream takes every fourth K of 33..64 (8 requests): its
+# solo solves run one at a time at ~2 s each, and the script has a limit.
+SCENARIO_KMIXED_STEP = 4
 
 
 def scenario_storm(K):
@@ -3090,13 +3377,14 @@ def scenario_phase(torch, ne, card):
             "requests": len(wave), "wall_s": wave_s, "cold_iterations": cold,
             "warm_iterations": warm, "schur_ms_p50": float(np.median([r.schur_ms for r in wave])),
             "link_ms_p50": float(np.median([r.link_ms for r in wave]))}))
-        # K = 33..64: one bucket (64); units ceil(K/16) each.
+        # K = 33, 37, ..., 61 (every fourth of 33..64, cut for the script's
+        # time): one bucket (64); units ceil(K/16) each.
         r64 = svc.submit(two_stage_storm(64, 24, 36, 24, 2, seed=64).to_block_angular(),
                          tol=1e-8).result(timeout=600)
         # Constant by construction (the port compiles nothing per key):
         # printed, not a gate.
         meter = sc.scenario_program_cache_size()
-        ks = list(range(33, 65))
+        ks = list(range(33, 65, SCENARIO_KMIXED_STEP))
         t0 = time.perf_counter()
         futs = [svc.submit(two_stage_storm(K, 24, 36, 24, 2, seed=K).to_block_angular(), tol=1e-8,
                            tenant="wave") for K in ks]
@@ -3189,14 +3477,17 @@ def sharded_answer_check(name, p, x, y, rel_gap, tol=1e-8) -> dict:
     violation of x within 1e-7 of the rows' scale (1 + max |row bound|:
     the solver's pinf is relative to 1 + ‖b‖ too, and at 10000x50000 |b|
     runs past 1,000), the solver's rel_gap within ``tol``, and the host
-    gap |cᵀx - bᵀy| / (1 + |cᵀx|) within 1e-7, as on the main path."""
+    gap |cᵀx - bᵀy| / (1 + |cᵀx|) within 1e-7, as on the main path, b
+    each row's finite bound (the right-hand side the interior form takes:
+    the pds classes' linking rows are ≤ rows)."""
     import numpy as np
 
     x, y = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
     viol = p.max_violation(x)
     bounds = np.concatenate([p.rlb, p.rub])
     scale = 1.0 + float(np.max(np.abs(bounds[np.isfinite(bounds)]), initial=0.0))
-    pobj, dobj = float(p.c @ x), float(p.rlb @ y)
+    b = np.where(np.isfinite(p.rlb), p.rlb, p.rub)
+    pobj, dobj = float(p.c @ x), float(b @ y)
     gap = abs(pobj - dobj) / (1.0 + abs(pobj))
     if not viol <= 1e-7 * scale:
         fail(f"{name}: max_violation {viol:.3e} > 1e-7 x {scale:.3e}")
@@ -3242,23 +3533,35 @@ def stage_parts(rep, wall_ms, iterations) -> dict:
             "wall_ms": per(wall_ms), "calls": rep["calls"]}
 
 
-def sharded_world(torch, n_ranks, pg_backend, p, ref, card) -> dict:
+def sharded_world(torch, n_ranks, pg_backend, p, ref, card, block=None) -> dict:
     """``run_world("sharded_solve", ...)`` on the main path's problem ``p``
     with ``n_ranks`` ranks on the cards; fails unless every rank is
     OPTIMAL with the same x bits and an answer that passes
     :func:`sharded_answer_check`, K1 ran at its shard's shape, and the
-    objective is within ``SHARDED_OBJ_TOL`` of ``ref``'s."""
+    objective is within ``SHARDED_OBJ_TOL`` of ``ref``'s. With ``block``
+    (the block phase's pds-10) the block tier's gloo case rides the same
+    world (``sharded_cases``), its per-rank results left in
+    ``block["gloo2"]`` with the world's wall."""
     from distributedlpsolver_tpu_torch.distributed.launcher import run_world
 
     work = os.path.join(ROOT, "build", "dlps_torch", f"sharded_{pg_backend}{n_ranks}")
     spec = {**SHARDED_MAIN, "tol": 1e-8, "stage_clock": True, "return_xy": True}
     t0 = time.perf_counter()
     try:
-        res = run_world("sharded_solve", spec, world_size=n_ranks, workdir=work, retries=0,
-                        timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
+        if block is not None:
+            res = run_world("sharded_cases", {"cases": [spec, block_gloo2_case()]},
+                            world_size=n_ranks, workdir=work, retries=0,
+                            timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
+        else:
+            res = run_world("sharded_solve", spec, world_size=n_ranks, workdir=work, retries=0,
+                            timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
     except (RuntimeError, TimeoutError) as e:
         fail(f"{pg_backend} world of {n_ranks}: {e}")
     wall = time.perf_counter() - t0
+    if block is not None:  # its case's results, for the caller
+        block["gloo2"] = ([o["cases"][1] for _, o in sorted(res.items())], wall)
+        res = {rank: {**{k: v for k, v in o.items() if k != "cases"}, **o["cases"][0]}
+               for rank, o in res.items()}
     name = f"{pg_backend} world of {n_ranks}"
     if sorted(res) != list(range(n_ranks)):
         fail(f"{name}: results from ranks {sorted(res)}")
@@ -3288,6 +3591,7 @@ def sharded_world(torch, n_ranks, pg_backend, p, ref, card) -> dict:
         "answer_by_rank": [res[r]["answer"] for r in sorted(res)],
         "rel_gap": o["rel_gap"], "pinf": o["pinf"],
         "rank0_wall_s": o["wall_s"], "world_wall_s": wall, "setup_parts_rank0": o["setup"],
+        "world_cases": ["dense"] + (["block pds-10"] if block is not None else []),
         "captured": o["phase_report"][0].get("captured"),
         "capture_off_reason": o["phase_report"][0].get("capture_off_reason"),
         # The clock covers the starting point and the loop.
@@ -3301,7 +3605,7 @@ def sharded_world(torch, n_ranks, pg_backend, p, ref, card) -> dict:
     return row
 
 
-def sharded_phase(torch, ne, card):
+def sharded_phase(torch, ne, card, shared):
     """The column-sharded dense backend on the card (module note, step
     20). Returns the kernels-line rows of K1 at the path's shapes."""
     import numpy as np
@@ -3375,7 +3679,14 @@ def sharded_phase(torch, ne, card):
     ref = solve(p_main, backend="cuda", tol=1e-8)
     print(f"sharded_main_cuda {since()} {p_main.name}: {ref.status.value} {ref.iterations} it "
           f"objective {ref.objective!r}")
-    worlds = {k: sharded_world(torch, k, "gloo", p_main, ref, card) for k in SHARDED_WORLDS}
+    # In a whole run the block tier's gloo world of 2 rides this phase's.
+    block = shared.get("block")
+    worlds = {k: sharded_world(torch, k, "gloo", p_main, ref, card, block if k == 2 else None)
+              for k in SHARDED_WORLDS}
+    block_rows = []
+    if block is not None:
+        counts = block_gloo2_check(block, *block.pop("gloo2"), card)
+        block_rows = block_rank_rows(torch, ne, card, block, "gloo2", counts)
     if cards >= 2:
         sharded_world(torch, min(cards, 4), "nccl", p_main, ref, card)
     else:
@@ -3399,7 +3710,7 @@ def sharded_phase(torch, ne, card):
             "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
         })
     print(f"sharded phase {since()}")
-    return rows
+    return rows + block_rows
 
 
 # -- the serving slice and the elastic shrink (item 13b) ------------------------------
@@ -3807,29 +4118,28 @@ ROWS_WORLD = dict(instance="storm", scenarios=STORM_20K["num_scenarios"],
                   block_m=STORM_20K["block_m"], block_n=STORM_20K["block_n"],
                   first_stage_n=STORM_20K["first_stage_n"], seed=STORM_20K["seed"], tol=1e-8)
 ROWS_OBJ_TOL = 1e-8
-ROWS_FULL_TIMEOUT_S = 420.0
 ROWS_WORLD_TIMEOUT_S = 300.0
 
 
-def rows_world(task, spec, n_ranks, pg_backend, tag, timeout=ROWS_WORLD_TIMEOUT_S):
+def card_world(task, spec, n_ranks, pg_backend, tag, timeout=ROWS_WORLD_TIMEOUT_S):
     """``run_world(task, spec)`` with ``n_ranks`` ranks on the card; any
     rank's failure fails the run. Returns (per-rank results, wall s)."""
     from distributedlpsolver_tpu_torch.distributed.launcher import run_world
 
-    work = os.path.join(ROOT, "build", "dlps_torch", f"rows_{tag}")
+    work = os.path.join(ROOT, "build", "dlps_torch", f"world_{tag}")
     t0 = time.perf_counter()
     try:
         res = run_world(task, spec, world_size=n_ranks, workdir=work, retries=0, timeout=timeout,
                         device="cuda", pg_backend=pg_backend)
     except (RuntimeError, TimeoutError) as e:
-        fail(f"rows {tag}: {e}")
+        fail(f"world {tag}: {e}")
     wall = time.perf_counter() - t0
     if sorted(res) != list(range(n_ranks)):
-        fail(f"rows {tag}: results from ranks {sorted(res)}")
+        fail(f"world {tag}: results from ranks {sorted(res)}")
     return res, wall
 
 
-def rows_phase(torch, card):
+def rows_phase(torch, ne, card, shared):
     """The row-sharded matrix-free tier on the card (module note, step 22).
     Returns the kernels-line rows of the ELL kernel on a rank's row block."""
     import hashlib
@@ -3837,6 +4147,9 @@ def rows_phase(torch, card):
     import numpy as np
 
     from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+    from distributedlpsolver_tpu_torch.distributed.launcher import free_port
+    from distributedlpsolver_tpu_torch.distributed.worker import TASKS
     from distributedlpsolver_tpu_torch.ipm import solve
     from distributedlpsolver_tpu_torch.models import storm_sparse_lp
     from distributedlpsolver_tpu_torch.models.problem import to_interior_form
@@ -3850,22 +4163,35 @@ def rows_phase(torch, card):
     # the mesh=None solve of the same problem in this process.
     full = {"instance": "storm", "scenarios": STORM_FULL["num_scenarios"],
             **{k: v for k, v in STORM_FULL.items() if k != "num_scenarios"}, "tol": 1e-8}
-    res, wall_w = rows_world("sparse_rows", full, 1, None, "full", ROWS_FULL_TIMEOUT_S)
-    o = res[0]
+    # The world of one runs in this process (the task itself on an NCCL
+    # world of one), as the sharded phase's does.
+    t0 = time.perf_counter()
+    world = world_lib.init_world(world_lib.WorldConfig(
+        coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
+    try:
+        o = {**TASKS["sparse_rows"](world, full), **world.describe()}
+    finally:
+        world.close()
+    wall_w = time.perf_counter() - t0
+    res = {0: o}
     p_full = storm_sparse_lp(**STORM_FULL)
     m_full, n_full = p_full.A.shape
-    be = get_backend("sparse-iterative")
-    t0 = time.perf_counter()
-    r = solve(p_full, backend=be, tol=1e-8)
-    wall0 = time.perf_counter() - t0
-    rep0 = be.cg_report()
+    ref = shared.get("sparse_full")
+    if ref is None:  # --rows-only: the mesh=None solve here
+        be = get_backend("sparse-iterative")
+        t0 = time.perf_counter()
+        r = solve(p_full, backend=be, tol=1e-8)
+        ref = dict(x=np.asarray(r.x), y=np.asarray(r.y), iterations=r.iterations,
+                   wall_s=time.perf_counter() - t0, cg_iters=be.cg_report()["cg_iters"],
+                   setup_s=r.setup_time, solve_s=r.solve_time, setup_parts=be.setup_report)
+        del r, be
     if o["pg_backend"] != "nccl" or o["world_size"] != 1 or o["shape"] != [m_full, n_full]:
         fail(f"rows full: {o['pg_backend']} world of {o['world_size']}, shape {o['shape']}")
-    if (o["status"] != "optimal" or o["x_sha256"] != sha(r.x) or o["y_sha256"] != sha(r.y)
-            or o["iterations"] != r.iterations or o["cg_iters"] != rep0["cg_iters"]):
+    if (o["status"] != "optimal" or o["x_sha256"] != sha(ref["x"]) or o["y_sha256"] != sha(ref["y"])
+            or o["iterations"] != ref["iterations"] or o["cg_iters"] != ref["cg_iters"]):
         fail(f"rows full: the world of one {o['status']} {o['iterations']} it cg {o['cg_iters']} "
-             f"x {o['x_sha256'][:12]} against mesh=None {r.status.value} {r.iterations} it cg "
-             f"{rep0['cg_iters']} x {sha(r.x)[:12]}")
+             f"x {o['x_sha256'][:12]} against mesh=None {ref['iterations']} it cg "
+             f"{ref['cg_iters']} x {sha(ref['x'])[:12]}")
     obj_rel = abs(o["objective"] - STORM_FULL_OBJECTIVE) / abs(STORM_FULL_OBJECTIVE)
     if not obj_rel <= 1e-8:
         fail(f"rows full: objective {o['objective']!r}, {obj_rel:.2e} from {STORM_FULL_OBJECTIVE!r}")
@@ -3873,9 +4199,10 @@ def rows_phase(torch, card):
         fail(f"rows full: ELL launches {o['ell_launches']}")
     # x and y are the world's bit for bit (their digests): hold them to the
     # problem on the host.
-    answer = sharded_answer_check("rows full", p_full, r.x, r.y, o["rel_gap"])
+    answer = sharded_answer_check("rows full", p_full, ref["x"], ref["y"], o["rel_gap"])
     print(f"rows_full {since()} " + json.dumps({
-        "problem": p_full.name, "world": "nccl world of one", "status": o["status"],
+        "problem": p_full.name, "world": "nccl world of one (in this process)",
+        "status": o["status"],
         "iterations": o["iterations"], "cg_iters": o["cg_iters"], "objective": o["objective"],
         "objective_rel": obj_rel, "x_bits_equal_mesh_none": True, "y_bits_equal_mesh_none": True,
         "s_per_step": o["solve_s"] / max(o["iterations"], 1), "wall_s": o["wall_s"],
@@ -3885,10 +4212,9 @@ def rows_phase(torch, card):
         "max_operand_per_device": o["max_operand_per_device"],
         "operator_bytes_per_device": o["operator_bytes_per_device"],
         "ell_launches": o["ell_launches"], "answer": answer,
-        "mesh_none": {"wall_s": wall0, "setup_s": r.setup_time, "solve_s": r.solve_time,
-                      "setup_parts": be.setup_report, "cg_iters": rep0["cg_iters"]},
+        "mesh_none": {k: ref[k] for k in ("wall_s", "setup_s", "solve_s", "setup_parts",
+                                          "cg_iters")},
     }) + f" [{card}]")
-    del r, be
     torch.cuda.empty_cache()
 
     # 2. The ELL kernel on rank 0's block of a ROWS_SPLIT-way split (the
@@ -3932,7 +4258,8 @@ def rows_phase(torch, card):
     if r20.status.value != "optimal":
         fail(f"rows: mesh=None on {p20.name}: {r20.status.value}")
     rel = lambda v: abs(v - r20.objective) / (1.0 + abs(r20.objective))  # noqa: E731
-    res2, wall2 = rows_world("sparse_rows", {**ROWS_WORLD, "return_xy": True}, 2, "gloo", "gloo2")
+    res2, wall2 = card_world("sparse_rows", {**ROWS_WORLD, "return_xy": True}, 2, "gloo",
+                             "rows_gloo2")
     for rank, o in res2.items():
         if (o["status"] != "optimal" or o["iterations"] != r20.iterations
                 or not rel(o["objective"]) <= ROWS_OBJ_TOL or o["shards"] != 2
@@ -3964,7 +4291,12 @@ def rows_phase(torch, card):
     fault = [{"kind": "device_lost", "iteration": SHRINK_FAULT_ITERATION, "device_ids": [3]}]
     case = {**ROWS_WORLD, "backend": "sparse-iterative", "faults": fault,
             "supervisor": {"backoff_base": 0.001}, "return_xy": True}
-    res4, wall4 = rows_world("supervised_solve", case, 4, "gloo", "shrink_gloo4")
+    # In a whole run the block tier's shrink rides this world as a second case.
+    block = shared.get("block")
+    cases = [case, block_shrink_case()] if block else [case]
+    res4, wall4 = card_world("supervised_solve", {"cases": cases}, 4, "gloo", "rows_shrink_gloo4")
+    block4 = {rank: o["cases"][1] for rank, o in res4.items()} if block else None
+    res4 = {rank: o["cases"][0] for rank, o in res4.items()}
     if not res4[3]["left"] or res4[3]["faults"][0]["action"] != "shrink:4->3":
         fail(f"rows shrink: rank 3 {res4[3]}")
     shas, answers, overhead = set(), [], []
@@ -3988,8 +4320,14 @@ def rows_phase(torch, card):
           "backend": o["backend"], "iterations": o["iterations"],
           "mesh_none_iterations": r20.iterations, "objective_rel_mesh_none": rel(o["objective"]),
           "x_bits_equal_across_survivors": True, "recovery_overhead_s": overhead,
-          "answers": answers, "wall_s_rank0": o["wall_s"], "world_wall_s": wall4}
+          "answers": answers, "wall_s_rank0": o["wall_s"], "world_wall_s": wall4,
+          "world_cases": ["sparse-iterative"] + (["block"] if block else [])}
     print(f"rows_shrink {since()} " + json.dumps(w4) + f" [{card}; gloo through the host, not NCCL]")
+    block_rows = []
+    if block:
+        counts = block_shrink_check(block, block4, wall4, card)
+        block_rows = (block_rank_rows(torch, ne, card, block, "gloo4", counts)
+                      + block_rank_rows(torch, ne, card, block, "shrunk", counts))
     print(f"rows phase {since()}")
 
     rows = []
@@ -4013,7 +4351,7 @@ def rows_phase(torch, card):
             "slices": t["slices"], "heavy_chunks": t["heavy_chunks"], "dtypes": ["float64"],
             "shape": [hi - lo, n_full],
         })
-    return rows
+    return rows + block_rows
 
 
 def main(only: str = "") -> int:
@@ -4051,6 +4389,11 @@ def main(only: str = "") -> int:
             print(f"  {ln}")
 
     rows = [] if only else dense_phases(torch, ne, card)
+    # What a later phase takes from an earlier one in a whole run: the
+    # sparse phase's full-shape solve (the rows phase's mesh=None answer)
+    # and the block phase's pds-10 (cases of the sharded and rows phases'
+    # gloo worlds).
+    shared = {}
     # 17. The network plane: its launches go to the serve bucket's K1 row,
     # which a --plane-only run times on its own.
     if only in ("", "plane"):
@@ -4064,22 +4407,22 @@ def main(only: str = "") -> int:
         row["plane_launches"] = launches
     # 16. The matrix-free sparse tier.
     if only in ("", "sparse"):
-        rows += sparse_phase(torch, card)
+        rows += sparse_phase(torch, card, shared)
     # 18. The block-angular tier.
     if only in ("", "block"):
-        rows += block_phase(torch, ne, card)
+        rows += block_phase(torch, ne, card, shared, defer=not only)
     # 19. The stochastic scenario tier.
     if only in ("", "scenario"):
         rows += scenario_phase(torch, ne, card)
     # 20. The column-sharded dense backend.
     if only in ("", "sharded"):
-        rows += sharded_phase(torch, ne, card)
+        rows += sharded_phase(torch, ne, card, shared)
     # 21. The serving slice and the elastic shrink.
     if only in ("", "slice"):
         rows += slice_phase(torch, ne, card)
     # 22. The row-sharded matrix-free tier.
     if only in ("", "rows"):
-        rows += rows_phase(torch, card)
+        rows += rows_phase(torch, ne, card, shared)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

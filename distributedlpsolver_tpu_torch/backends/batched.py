@@ -1303,7 +1303,8 @@ def solve_batched(
     two_phase, use_pcg, n_phases = _phase_plan(cfg, member_entries=m * n, platform=dev.type)
     if two_phase or use_pcg:
         raise NotImplementedError(
-            "the two-phase and PCG batched schedules are not ported to the torch package yet"
+            "the two-phase and PCG batched schedules are not ported to the torch package yet "
+            "(ROADMAP Queue 1 item 5b)"
         )
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 library matmuls in true fp32

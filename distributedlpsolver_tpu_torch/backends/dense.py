@@ -236,7 +236,8 @@ class DenseTorchBackend(SolverBackend):
     # -- SolverBackend ------------------------------------------------------
     def setup(self, inf: InteriorForm, config: SolverConfig) -> None:
         if config.solve_mode == "pcg":
-            raise NotImplementedError("solve_mode='pcg' is not ported to the torch package yet")
+            raise NotImplementedError("solve_mode='pcg' is not ported to the torch package yet "
+                                      "(ROADMAP Queue 1 item 5b)")
         self._cfg = config
         self._reg = config.reg_dual
         dtype = _torch_dtype(config.dtype)

@@ -155,13 +155,9 @@ class ShardedTorchBackend(DenseTorchBackend):
         self._decide_capture()
 
     def _decide_capture(self) -> None:
-        if (self._mesh is not None and self.device.type == "cuda"
-                and self._mesh.pg_backend == "gloo"):
-            reason = "gloo collectives cannot be captured into a CUDA graph"
-        elif self._clock is not None:
+        reason = mesh_lib.capture_off_reason(self._mesh, self.device)
+        if reason is None and self._clock is not None:
             reason = "the stage clock synchronizes inside the step"
-        else:
-            reason = None
         self.capture = reason is None
         self.capture_off_reason = reason
 

@@ -20,9 +20,14 @@ Tasks:
     every iteration (a harness can then act mid-solve); ``stage_clock``
     times the step's parts (``backends/sharded.py``); ``hybrid: [dcn,
     ici]`` runs on ``make_hybrid_mesh(ici, dcn)`` (columns split over the
-    inner axis, replicated over the outer). The result carries
+    inner axis, replicated over the outer); ``backend: "block"`` runs
+    the block tier with its K axis over the world's mesh (``instance:
+    "block"``: ``block_angular_lp(blocks, block_m, block_n, link, seed,
+    sparse, density)``; a caller in this process may hand the problem
+    itself as ``problem``). The result carries
     the solve's verdict, a SHA-256 of x's bytes (ranks must agree bit for
-    bit), K1's launches on this rank, the phase rows and the setup parts;
+    bit), K1's launches on this rank (the batched lanes' among them), the
+    phase rows and the setup parts;
     with ``return_xy`` also x and y, for a caller to check the answer
     against the problem itself.
 
@@ -48,7 +53,9 @@ Tasks:
     ``hang_seconds``) and supervisor knobs; a rank the SHRINK rung
     excluded reports ``"left": true`` and its fault history. ``cases``
     runs several in one world. ``backend: "sparse-iterative"`` runs the
-    row-sharded tier over the world's mesh (a storm ``instance``, say).
+    row-sharded tier over the world's mesh (a storm ``instance``, say),
+    ``backend: "block"`` the block tier (a block ``instance``). The result
+    carries K1's launches on this rank over every attempt.
 
 ``sparse_rows``
     ``storm_sparse_lp(scenarios, block_m, block_n, first_stage_n, seed,
@@ -96,7 +103,13 @@ def task(name: str):
 
 
 def _problem(spec: dict):
+    """The LP a case names: a generator's (``instance``), or, from a caller
+    in this process (a world of one), the problem object itself
+    (``problem``)."""
+    if spec.get("problem") is not None:
+        return spec["problem"]
     from distributedlpsolver_tpu_torch.models.generators import (
+        block_angular_lp,
         random_dense_lp,
         random_general_lp,
         storm_sparse_lp,
@@ -104,6 +117,11 @@ def _problem(spec: dict):
 
     instance = spec.get("instance", "dense")
     seed = int(spec.get("seed", 0))
+    if instance == "block":
+        kw = {k: spec[k] for k in ("sparse", "density") if k in spec}
+        return block_angular_lp(int(spec.get("blocks", 8)), int(spec.get("block_m", 10)),
+                                int(spec.get("block_n", 24)), int(spec.get("link", 6)),
+                                seed=seed, **kw)
     if instance == "storm":
         return storm_sparse_lp(
             int(spec.get("scenarios", 8)),
@@ -117,8 +135,25 @@ def _problem(spec: dict):
     if instance == "general":
         return random_general_lp(int(spec.get("m", 20)), int(spec.get("n", 40)), seed=seed)
     if instance != "dense":
-        raise ValueError(f"unknown instance {instance!r} (dense, general or storm)")
+        raise ValueError(f"unknown instance {instance!r} (dense, general, storm or block)")
     return random_dense_lp(int(spec.get("m", 48)), int(spec.get("n", 128)), seed=seed)
+
+
+def _world_mesh_kw(world: World, name: str) -> dict:
+    """The mesh a backend takes at construction in a world: the row-sharded
+    tier's rows and the block tier's K axis ride the world's 1-D mesh (for
+    the block tier ``mesh=None`` means one device). The sharded backend
+    makes its own at setup."""
+    from distributedlpsolver_tpu_torch.backends.base import backend_class
+    from distributedlpsolver_tpu_torch.backends.block_angular import BlockAngularBackend
+    from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
+
+    cls = backend_class(name)
+    if issubclass(cls, SparseIterativeBackend):
+        return {"mesh": world.mesh(axis="batch")}
+    if issubclass(cls, BlockAngularBackend):
+        return {"mesh": world.mesh(axis="blocks")}
+    return {}
 
 
 @task("sharded_solve")
@@ -146,6 +181,8 @@ def sharded_solve(world: World, spec: dict) -> dict:
 
         dcn, ici = spec["hybrid"]
         kw["mesh"] = make_hybrid_mesh(ici, dcn)
+    else:
+        kw.update(_world_mesh_kw(world, name))
     be = get_backend(name, device=world.device, **kw)
     if spec.get("stage_clock"):
         from distributedlpsolver_tpu_torch.backends.sharded import StageClock
@@ -159,7 +196,7 @@ def sharded_solve(world: World, spec: dict) -> dict:
                 time.sleep(pace)
 
         hooks = _Pace()
-    launches0 = normal_eq.launches
+    launches0, batched0 = normal_eq.launches, normal_eq.launches_batched
     t0 = time.perf_counter()
     result = solve(problem, backend=be, config=cfg, hooks=hooks)
     wall = time.perf_counter() - t0
@@ -175,6 +212,7 @@ def sharded_solve(world: World, spec: dict) -> dict:
         "solve_s": result.solve_time,
         "x_sha256": None if x is None else hashlib.sha256(x.tobytes()).hexdigest(),
         "k1_launches": normal_eq.launches - launches0,
+        "k1_launches_batched": normal_eq.launches_batched - batched0,
         "phase_report": getattr(be, "phase_report", None),
         "setup": dict(getattr(be, "setup_report", {}), generate_s=t_gen),
     }
@@ -183,6 +221,11 @@ def sharded_solve(world: World, spec: dict) -> dict:
     shard = getattr(be, "_A", None)
     if shard is not None:
         out["shard_shape"] = list(shard.shape)
+    member = getattr(be, "_parts", None)  # the block tier: this rank's one member
+    if member:
+        out["shard_shape"] = list(member[0].B_all.shape)
+        out["link_columns"] = int(member[0].L_cat.shape[1])
+        out["layout"] = list(be.layout)
     if getattr(be, "clock", None) is not None:
         out["stage_clock"] = be.clock.report()
     return out
@@ -348,14 +391,12 @@ def _supervised_case(world: World, spec: dict) -> dict:
     cfg = SolverConfig(tol=float(spec.get("tol", 1e-8)), max_iter=int(spec.get("max_iter", 200)),
                        verbose=False, log_jsonl=log.format(rank=world.rank) if log else None)
     from distributedlpsolver_tpu_torch.backends.base import backend_class
-    from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
+    from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq
 
-    cls = backend_class(spec.get("backend", "sharded"))
-    # The row-sharded tier (under any of its names) takes its mesh at
-    # construction: the world's.
-    kw = {"mesh": world.mesh(axis="batch")} if issubclass(cls, SparseIterativeBackend) else {}
-    be = cls(device=world.device, **kw)
+    name = spec.get("backend", "sharded")
+    be = backend_class(name)(device=world.device, **_world_mesh_kw(world, name))
     runtime.restore_devices()
+    launches0, batched0 = normal_eq.launches, normal_eq.launches_batched
     t0 = time.perf_counter()
     faults = lambda fs: [{"kind": f.kind.value, "iteration": f.iteration, "action": f.action,
                           "devices": list(f.devices), "backend": f.backend,
@@ -371,6 +412,8 @@ def _supervised_case(world: World, spec: dict) -> dict:
         "iterations": r.iterations, "backend": r.backend, "rel_gap": r.rel_gap,
         "pinf": r.pinf, "wall_s": time.perf_counter() - t0, "faults": faults(r.faults),
         "x_sha256": None if r.x is None else hashlib.sha256(r.x.tobytes()).hexdigest(),
+        "k1_launches": normal_eq.launches - launches0,
+        "k1_launches_batched": normal_eq.launches_batched - batched0,
     }
     if spec.get("return_xy") and r.x is not None:
         out["x"], out["y"] = r.x.tolist(), r.y.tolist()

@@ -5,7 +5,7 @@ hop that does work on its behalf (router ingress, each retry/hedge
 leg, the backend pipeline, the multi-host follower executing its
 dispatch, the CG solve at the bottom of the IPM) emits spans stamped
 with that id plus its own ``span_id``/``parent_span_id``, so the
-fleet aggregator (``obs/agg.py`` of the JAX package; not ported yet) can stitch
+fleet aggregator (``obs/agg.py``, ``cli obs-agg``) can stitch
 per-process Perfetto artifacts back into one causal story.
 
 The wire form is the W3C traceparent shape carried in the

@@ -432,12 +432,7 @@ class RowShardedOperator:
     def _sum(self, parts):
         """Σ over the members of their n-vector partials: one all-reduce
         over the axis, or on a local mesh the sum in member order."""
-        if self._group:
-            return self.mesh.all_reduce(parts[0], self.axis)
-        total = parts[0].to(self.device)
-        for p in parts[1:]:
-            total = total + p.to(self.device)
-        return total
+        return self.mesh.sum_parts(parts, self.axis)
 
     def _rows(self, parts):
         """The m-vector of the members' row blocks: this rank's rows in a

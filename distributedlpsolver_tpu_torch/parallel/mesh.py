@@ -46,11 +46,15 @@ surviving ranks — a collective of the whole world, so every rank enters
 it in the same order, the excluded ranks too (an excluded rank gets a
 mesh it is not a member of, and leaves).
 
-Not ported (ROADMAP Queue 1 item 13e): ``shard_map_compat`` — no path of
-the port runs per-shard programs. The row-sharded tier keeps its vectors
-replicated and calls ``all_reduce`` itself (``ops/sparse.py::
-RowShardedOperator``); the block tier's distributed Cholesky
-(``ops/dist_chol.py`` in the JAX package) is the one user left.
+No path of the port runs per-shard programs, so ``shard_map_compat`` has
+no counterpart: each path holds its members' blocks as tensors and calls
+the collectives itself, with the vectors replicated —
+``backends/sharded.py``, ``ops/sparse.py::RowShardedOperator``, and the
+block tier with its distributed linking factor (``ops/dist_chol.py``).
+:meth:`Mesh.sum_parts` is the sum of the latter two: the members'
+partials over an axis, an all-reduce on a process-group mesh and a sum
+in member order on a local mesh; :meth:`Mesh.axis_members` says which
+positions of an axis this process executes.
 """
 
 from __future__ import annotations
@@ -177,7 +181,31 @@ class Mesh:
         lo, hi = self.col_range(batch, name)
         return [(self.device, lo, hi)]
 
+    def axis_members(self, axis: Optional[str] = None) -> list:
+        """``[(i, device)]``: the positions along ``axis`` (default the
+        innermost) that THIS process executes, each with its device. On a
+        local mesh every position, on the device of the first member at it
+        (members are row-major, so a position's replicas along the other
+        axes are not run again); on a process-group mesh this rank's."""
+        axis = axis or self.axis_names[-1]
+        if not self.is_local:
+            return [(int(self.coords()[axis]), self.device)]
+        at = np.unravel_index(np.arange(self.size), self.shape_tuple)[self.axis_names.index(axis)]
+        return [(i, self.devices[int(np.flatnonzero(at == i)[0])])
+                for i in range(self.shape[axis])]
+
     # -- collectives --------------------------------------------------------
+    def sum_parts(self, parts: Sequence[torch.Tensor], axis: Optional[str] = None) -> torch.Tensor:
+        """The sum over ``axis``'s members of their partials, on this
+        process's device: on a process-group mesh this rank's one part
+        all-reduced (in place), on a local mesh the parts (one a position
+        of :meth:`axis_members`) added in member order. Either way one call
+        of :meth:`all_reduce`, the identity without a process group."""
+        total = parts[0].to(self.device).contiguous()
+        for p in parts[1:]:
+            total = total + p.to(self.device)
+        return self.all_reduce(total, axis)
+
     def _group(self, axis: Optional[str]):
         if axis is None or len(self.axis_names) == 1:
             return self.group
@@ -379,10 +407,25 @@ def reform_mesh(mesh: Mesh, exclude: Sequence = (), axis_name: Optional[str] = N
 
 def shard_map_compat(f, mesh: Mesh, in_specs, out_specs):
     raise NotImplementedError(
-        "shard_map_compat (per-shard programs) is not ported to the torch package: no "
-        "ported path runs one; the block tier's distributed Cholesky would (ROADMAP Queue 1 "
-        "item 13e)"
+        "shard_map_compat (per-shard programs) has no counterpart in the torch package: no "
+        "path of it runs one; each mesh path holds its members' blocks as tensors and calls "
+        "the collectives itself (Mesh.sum_parts), the block tier's distributed linking "
+        "Cholesky (ops/dist_chol.py) included"
     )
+
+
+def capture_off_reason(mesh: Optional[Mesh], device) -> Optional[str]:
+    """Why a fused loop whose step sums over ``mesh`` cannot be captured
+    into a CUDA graph on ``device``, or None when it can: gloo's
+    collectives cannot be captured, and a local mesh over several cards
+    copies between them inside the step."""
+    if mesh is None or torch.device(device).type != "cuda":
+        return None
+    if not mesh.is_local and mesh.pg_backend == "gloo":
+        return "gloo collectives cannot be captured into a CUDA graph"
+    if mesh.is_local and len(set(mesh.devices)) > 1:
+        return "a local mesh over several cards copies between them inside the step"
+    return None
 
 
 def is_multiprocess(mesh: Optional[Mesh]) -> bool:

@@ -6,10 +6,11 @@ recovery ladder; :class:`SupervisorConfig` tunes it; :class:`SolveFailure`
 is the structured terminal failure; :class:`AdaptiveDeadline` sizes
 watchdog deadlines from the trailing median step time; ``faults`` provides
 the deterministic injection harness (hangs, NaNs, crashes, device loss)
-that makes every recovery path CPU-testable. In the torch package the
-mesh-shrink rung and the shard-loss injections raise
-``NotImplementedError`` until the mesh is ported (ROADMAP Queue 1 item
-13).
+that makes every recovery path CPU-testable. The mesh-shrink rung
+re-forms a backend's mesh over the survivors (``parallel.mesh.
+reform_mesh``) and re-places it there (``reshard``: ``sharded``,
+``sparse-iterative`` and ``block`` on a mesh); the shard-loss injections
+name mesh members (``parallel.runtime``).
 """
 
 from distributedlpsolver_tpu_torch.ipm.state import FaultKind, FaultRecord

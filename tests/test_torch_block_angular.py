@@ -15,7 +15,8 @@
   feasibility; the segmented and host loops give the fused loop's x, and
   two solves the same bits.
 * The reference's refusals (missing hint, a column across two blocks) and
-  the port's own (mesh, pcg, reshard) raise; ``cli generate block`` writes
+  the port's own (pcg) raise; ``mesh=``, ``mesh_shape`` and ``reshard``
+  run; ``cli generate block`` writes
   a file that ``cli solve --backend block`` refuses for its missing hint,
   as the reference's CLI does, and ``auto`` solves; a supervised solve
   runs on the tier.
@@ -259,18 +260,33 @@ def test_names_and_device():
 
 @pytest.mark.parametrize("what", ["mesh", "mesh_shape", "pcg", "reshard"])
 def test_unported_modes_name_their_item(what):
-    item = "item 5b" if what == "pcg" else "item 13"
-    inf = to_interior_form(tgen.block_angular_lp(3, 6, 12, 3, seed=0, sparse=False))
+    """``pcg`` is still refused, naming item 5b. The mesh cases were
+    item 13e's refusals and now run (``test_torch_block_mesh.py`` holds them
+    against the JAX package): ``mesh=`` solves, ``mesh_shape`` runs
+    unsharded as the reference does, and ``reshard`` returns a fresh
+    backend on the given mesh."""
     from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
 
-    with pytest.raises(NotImplementedError, match=item):
-        if what == "mesh":
-            tba.BlockAngularBackend(device=CPU, mesh=object())
-        elif what == "reshard":
-            _block().reshard(object())
-        else:
-            cfg = SolverConfig(solve_mode="pcg") if what == "pcg" else SolverConfig(mesh_shape=(2,))
-            _block().setup(inf, cfg)
+    p = tgen.block_angular_lp(3, 6, 12, 3, seed=0, sparse=False)
+    inf = to_interior_form(p)
+    mesh = mesh_lib.make_mesh(axis_names=("blocks",), devices=[CPU] * 2)
+    if what == "pcg":
+        with pytest.raises(NotImplementedError, match="item 5b"):
+            _block().setup(inf, SolverConfig(solve_mode="pcg"))
+    elif what == "mesh":
+        be = tba.BlockAngularBackend(mesh=mesh)
+        r = solve(p, backend=be, tol=1e-8)
+        assert r.status == Status.OPTIMAL and be.mesh is mesh and be.layout.K == 4
+    elif what == "mesh_shape":
+        be = _block()
+        be.setup(inf, SolverConfig(mesh_shape=(2,)))
+        assert be.mesh is None and be.layout.K == 3
+    else:
+        be = _block()
+        new = be.reshard(mesh)
+        assert isinstance(new, tba.BlockAngularBackend) and new is not be
+        assert new.mesh is mesh and new.device.type == "cpu"
 
 
 def test_cli_generate_block_then_solve(tmp_path, capsys):

@@ -873,3 +873,73 @@ def test_rows_gloo_world_of_two_on_one_card(cuda, tmp_path):
         assert o["iterations"] == ref.iterations
         assert abs(o["objective"] - ref.objective) <= 1e-8 * (1 + abs(ref.objective))
         assert o["ell_launches"]["A·v"] > 0 and o["ell_launches"]["Aᵀ·v"] > 0
+
+
+def test_block_nccl_world_of_one_matches_a_local_mesh_of_one(cuda):
+    """The block tier on an NCCL world of one and on a local mesh of one on
+    the card run the same code (the sums are the identity all-reduce and a
+    one-part sum): x bit for bit, the fused loop captured with the
+    all-reduces in it, two K1 launches a factorization."""
+    from distributedlpsolver_tpu_torch.backends.block_angular import BlockAngularBackend
+    from distributedlpsolver_tpu_torch.models import block_angular_lp
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    p = block_angular_lp(8, 24, 60, 12, seed=1, sparse=True, density=0.05)
+    world = _nccl_world_of_one()
+    try:
+        be = BlockAngularBackend(mesh=world.mesh(axis="blocks"))
+        normal_eq.launches = normal_eq.launches_batched = 0
+        rw = solve(p, backend=be, tol=1e-8)
+        lw, lb = normal_eq.launches, normal_eq.launches_batched
+        row = be.phase_report[0]
+    finally:
+        world.close()
+    assert row["captured"] is True and lw == 2 * lb == 2 * (1 + row["bodies"])
+    local = BlockAngularBackend(mesh=mesh_lib.make_mesh(axis_names=("blocks",),
+                                                        devices=["cuda:0"]))
+    rl = solve(p, backend=local, tol=1e-8)
+    ref = solve(p, backend=get_backend("block", device="cpu"), tol=1e-8)
+    assert rw.status == rl.status == Status.OPTIMAL
+    assert rw.iterations == rl.iterations and np.array_equal(rw.x, rl.x)
+    assert abs(rw.objective - ref.objective) <= 1e-8 * (1 + abs(ref.objective))
+
+
+def test_block_gloo_world_of_two_on_one_card(cuda, tmp_path):
+    """Two ranks share the card over gloo on the block tier: both OPTIMAL
+    with the same x bits, each its half of the K axis, two K1 launches a
+    factorization, the loop uncaptured and saying why."""
+    from distributedlpsolver_tpu_torch.distributed.launcher import run_world
+    from distributedlpsolver_tpu_torch.models import block_angular_lp
+
+    spec = dict(backend="block", instance="block", blocks=8, block_m=24, block_n=60, link=12,
+                seed=1, sparse=True, density=0.05, tol=1e-8)
+    ref = solve(block_angular_lp(8, 24, 60, 12, seed=1, sparse=True, density=0.05),
+                backend="block", tol=1e-8)
+    res = run_world("sharded_solve", spec, world_size=2, workdir=str(tmp_path), retries=0,
+                    timeout=240, device="cuda", pg_backend="gloo")
+    assert len({o["x_sha256"] for o in res.values()}) == 1
+    for o in res.values():
+        assert o["status"] == "optimal" and o["pg_backend"] == "gloo"
+        assert abs(o["objective"] - ref.objective) <= 1e-8 * (1 + abs(ref.objective))
+        assert o["shard_shape"][0] == 4 and o["k1_launches"] == 2 * o["k1_launches_batched"] > 0
+        row = o["phase_report"][0]
+        assert row["captured"] is False and "gloo" in row["capture_off_reason"]
+
+
+@pytest.mark.parametrize("m,panel", [(800, 256), (130, 16)])
+def test_dist_chol_on_the_card(cuda, m, panel):
+    """``chol_tri_inv_mesh`` on the card (a local mesh of one) within
+    1e-12 of inv(cholesky) in f64, at pds-10's link order and a ragged
+    one."""
+    from distributedlpsolver_tpu_torch.ops import dist_chol
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(0)
+    G = rng.standard_normal((m, m))
+    Ms = G @ G.T + m * np.eye(m)
+    ref = np.linalg.inv(np.linalg.cholesky(Ms))
+    inv = dist_chol.chol_tri_inv_mesh(torch.as_tensor(Ms, device=cuda),
+                                      mesh_lib.make_mesh(axis_names=("cols",),
+                                                         devices=["cuda:0"]), panel=panel)
+    got = inv.slabs[0][:m, :m].cpu().numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-12

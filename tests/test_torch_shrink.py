@@ -9,7 +9,9 @@ world task), each rank with the same fault plan: the acceptance shrink
 (DEVICE_LOST of rank 3 at iteration 3, with the telemetry stream), the
 ``min_devices`` gate (degrade), and a persistent shard hang attributed
 by the probe and shrunk out. Every answer is held to the JAX package's
-fault-free sharded solve of the same problem. A second world of 4 runs
+fault-free sharded solve of the same problem; the block tier's case
+(``block`` over the world's mesh, K 8 -> 9 after the shrink) to its
+``mesh=None`` solve. A second world of 4 runs
 the same rung on the row-sharded tier (``sparse-iterative`` over the
 world's mesh) on a storm instance whose 175 rows split unevenly over 4
 and then over the 3 survivors. The building blocks —
@@ -35,6 +37,9 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _PROBLEM = dict(m=20, n=45, seed=3)
 _SUP = {"backoff_base": 0.001}
+# The block tier's case (the fourth of the world): K = 8 blocks, two a rank
+# over 4, then 3 a survivor over 3 with one dead block (K 8 -> 9).
+_BLOCK = dict(instance="block", blocks=8, block_m=10, block_n=24, link=6, seed=3, sparse=False)
 # Every rank hangs at iteration 4 while rank 3 is in the mesh; the nap
 # outlasts the world, so an abandoned step never wakes into a collective.
 _HANG = {"kind": "hang", "iteration": 4, "shard": 3, "times": None, "hang_seconds": 600.0}
@@ -66,6 +71,8 @@ def world4(tmp_path_factory):
         {**_PROBLEM, "faults": [_HANG],
          "supervisor": {**_SUP, "adaptive_timeout": True, "timeout_floor": 2.0,
                         "timeout_warmup": 3, "hang_shard_threshold": 2, "max_retries": 8}},
+        {**_BLOCK, "backend": "block", "supervisor": _SUP,
+         "faults": [{"kind": "device_lost", "iteration": 3, "device_ids": [3]}]},
     ]
     res = run_world("supervised_solve", {"cases": cases}, world_size=4, workdir=str(work),
                     device="cpu", timeout=300)
@@ -240,6 +247,29 @@ def test_fault_and_resume_events_in_jsonl(world4):
     assert [rec["iter"] for rec in iters][:2] == [1, 2]
     left = [json.loads(ln) for ln in open(log.format(rank=3)).read().splitlines()]
     assert [e["action"] for e in left if e.get("event") == "fault"] == ["shrink:4->3"]
+
+
+def test_block_device_loss_shrinks_blocks_and_converges(world4):
+    """The loss of rank 3 of 4 on ``block``: the survivors re-split the K
+    axis over 3 (``reshard``: 8 blocks padded to 9 with a dead one), resume
+    from rank 0's checkpoint and finish OPTIMAL on the tier with one x among
+    them, within 1e-8 of the JAX package's ``mesh=None`` objective; rank 3
+    entered the re-form and left."""
+    ref = jsolve(jgen.block_angular_lp(8, 10, 24, 6, seed=3, sparse=False), backend="block",
+                 tol=1e-8)
+    res, _ = world4
+    left = res[3][3]
+    assert left["left"] is True and left["faults"][0]["action"] == "shrink:4->3"
+    shas = set()
+    for rank in (0, 1, 2):
+        r = res[rank][3]
+        assert r["left"] is False and r["status"] == "optimal" and r["backend"] == "block"
+        (f,) = r["faults"]
+        assert f["kind"] == "device_lost" and f["action"] == "shrink:4->3"
+        assert f["devices"] == [3] and f["recovery_overhead_s"] > 0.0
+        assert _close(r["objective"], ref.objective, 1e-8)
+        shas.add(r["x_sha256"])
+    assert len(shas) == 1
 
 
 # -- the row-sharded tier (sparse-iterative) ---------------------------------------
