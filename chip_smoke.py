@@ -125,7 +125,11 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    backend="pdlp", tol=1e-4)``, fused: inner iterations, steps/s, status,
    the KKT errors on the host of the returned iterate mapped into the
    presolved, scaled form the verdict is taken on (an OPTIMAL verdict must
-   meet the tol there; the iteration limit is an allowed outcome);
+   meet the tol there; the iteration limit is an allowed outcome); then
+   its column mesh asked for by ``mesh_shape=(1,)`` on an NCCL world of
+   one in this process (``pdlp_mesh_nccl1``): x bit for bit and the inner
+   steps of that answer, the loop captured with its all-reduces inside,
+   ms a body beside the solo one's (the gloo world of 2 rides step 20's);
 15. no hidden fallback: any supervisor degradation (outside the ladder
    check of step 16), or a solo request served by another backend than its
    route names, fails the run;
@@ -254,7 +258,7 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    stormG2's blocks at K = 8 through ``scenario``
    (``storm_sparse_lp(8, 528, 1259, 121, seed=1, t_nnz_per_row=2,
    w_nnz_per_row=4)`` with a ``two_stage`` hint; the same checks, and the
-   ELL kernel on its operator), then K = 16 for its first 35 iterations,
+   ELL kernel on its operator), then K = 16 for its first 30 iterations,
    printed and not a gate; K1 at the main path's lanes (1024 × 24 × 36),
    at the K = 8 path's (8 × 528 × 1259) and over a full bucket at that
    width (1024 × 528 × 1259, which no path runs) against its plain
@@ -264,11 +268,23 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    then ``cli solve`` (no hint in the file: ``auto``'s detection,
    ``auto(scenario)``, the JAX CLI's verdict); a ``SolveService`` on the
    card with the reference's delta wave (median warm iterations below the
-   cold ones), a 64-scenario warm-up and K = 33, 37, ..., 61 (one bucket,
-   admission units ``ceil(K/16)`` off the tenant's tokens; every fourth K
+   cold ones), a 64-scenario warm-up and K = 33, 41, 49, 57 (one bucket,
+   admission units ``ceil(K/16)`` off the tenant's tokens; every eighth K
    of 33..64, to fit the script's time), a 64-scenario HTTP body
    (200 OPTIMAL), and ``stats()["scenario"]``, the metrics and ``cli
-   report``'s table over the log reconciled;
+   report``'s table over the log reconciled; the lane mesh
+   (``ScenarioBackend(mesh=)``): the main path through the
+   ``scenario_lanes`` task on an NCCL world of one in this process (the
+   problem handed over) and on a local mesh of one on ``cuda:0`` — x bit
+   for bit with the cold ``auto`` solve, its IPM and CG iterations and K1
+   launches, one ``Mesh.all_reduce`` a factorization and two an
+   application (every application counted), ms an iteration and the
+   member's bytes — and over a gloo world of 2 sharing the card (512 lanes
+   a rank; here with ``--scenario-only``, in a whole run a case of step
+   20's world): both ranks the same x bits, OPTIMAL, iterations within ±2
+   and the objective within 1e-8 of the cold solve's, each answer held by
+   ``sharded_answer_check``; K1 at rank 0's lanes (512 × 24 × 36) held and
+   timed as above;
 20. the column-sharded dense backend (``sharded_phase``;
    ``--sharded-only`` runs the build and this phase alone): the card
    count; K1 at the shard shapes of the gloo worlds below (f64 2048 ×
@@ -289,8 +305,15 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    every rank OPTIMAL with the same x bits, K1 at its shard's shape, the
    objective within 1e-8 of ``cuda``'s; every answer of the phase held
    to its problem (row violation ≤ 1e-7 × (1 + max |row bound|), rel_gap
-   ≤ 1e-8, host |cᵀx − bᵀy| ≤ 1e-7 relative); with two cards or more, an NCCL
-   world over the cards on the same problem;
+   ≤ 1e-8, host |cᵀx − bᵀy| ≤ 1e-7 relative); the world of 2 also
+   solves step 14's problem through pdlp with ``mesh_shape=(2,)`` (5,120
+   columns a rank, uncaptured: both ranks the same x bits, OPTIMAL, step
+   14's host KKT checks on the scaled form at the tol and
+   ``PDHG_REQUEST_KKT_BOUND`` on the given data, the objective within
+   2·tol·(1 + |obj|) of the solo answer's; with ``--sharded-only`` the
+   solo answer is solved here) and, in a whole run, steps 18 and 19's
+   gloo cases; with two cards or more, an NCCL world over the cards on
+   the same problem;
 21. the serving slice and the elastic shrink (``slice_phase``;
    ``--slice-only`` runs the build and this phase alone): K1 at a rank's
    lane block of the serve bucket over a world of 2 (f64 128 × 128 × 512)
@@ -2084,6 +2107,101 @@ def solo_pdhg_phase(card):
         fail(f"solo pdhg: OPTIMAL at host pinf/dinf/gap {e} > {PDHG_TOL:g} on the scaled form")
     if r.status.value not in ("optimal", "iteration_limit"):
         fail(f"solo pdhg: {r.status.value}")
+    return row, p, r
+
+
+def pdlp_mesh_case() -> dict:
+    """pdlp's column mesh as a case of the sharded phase's gloo world of 2:
+    the solo phase's problem through ``SolverConfig(mesh_shape=(2,))``."""
+    return {"backend": "pdlp", "mesh_shape": [2], "instance": "dense", **SHARDED_MAIN,
+            "tol": PDHG_TOL, "return_xy": True}
+
+
+def pdlp_mesh_nccl1(torch, card, p, r0, row0) -> dict:
+    """pdlp's column mesh on an NCCL world of one in this process, asked for
+    the way a config asks (``mesh_shape=(1,)``): x bit for bit with the solo
+    phase's ``mesh=None`` answer ``r0``, the same inner steps, the loop
+    captured with its all-reduces inside (``Mesh.all_reduce`` runs in
+    Python only in the eager body, the capture and outside the loop, far
+    fewer times than the replays' bodies hold). Returns its row."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+    from distributedlpsolver_tpu_torch.distributed.launcher import free_port
+    from distributedlpsolver_tpu_torch.ipm import solve
+
+    world = world_lib.init_world(world_lib.WorldConfig(
+        coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
+    calls, restore = counting_all_reduces()
+    try:
+        be = get_backend("pdlp")
+        t0 = time.perf_counter()
+        r = solve(p, backend=be, tol=PDHG_TOL, mesh_shape=(1,))
+        wall = time.perf_counter() - t0
+        pg = be.mesh.pg_backend if be.mesh is not None else None
+    finally:
+        restore()
+        world.close()
+    (rep,) = be.phase_report
+    body_ms = rep["replay_ms"] / max(rep["replays"], 1)
+    # Each body: 2 sums a step for CHECK_EVERY steps, 2 for each of two KKT errors.
+    per_body = 2 * 40 + 4
+    row = {"problem": p.name, "world": "nccl world of one (in this process)", "pg_backend": pg,
+           "status": r.status.value, "inner_iterations": r.iterations,
+           "mesh_none_inner_iterations": r0.iterations, "x_bits_equal_mesh_none": True,
+           "wall_s": wall, "solve_s": r.solve_time, "body_ms": body_ms,
+           "mesh_none_body_ms": row0["body_ms"], "python_all_reduce_calls": len(calls),
+           "all_reduces_in_replayed_bodies": per_body * rep["replays"], **rep}
+    print(f"pdlp_mesh_nccl1 {json.dumps(row)} [{card}]")
+    if pg != "nccl" or not np.array_equal(r.x, r0.x) or r.iterations != r0.iterations:
+        fail(f"pdlp mesh_shape=(1,) on {pg}: {r.status.value} {r.iterations} inner steps, x equal "
+             f"{np.array_equal(r.x, r0.x)}, against mesh=None's {r0.iterations}")
+    if not rep["captured"] or rep["replays"] <= 0 or not 0 < len(calls) < per_body * rep["replays"]:
+        fail(f"pdlp mesh_shape=(1,): captured {rep['captured']}, {rep['replays']} replays, "
+             f"{len(calls)} all-reduce calls in Python")
+    return row
+
+
+def pdlp_gloo2_check(p, r0, outs, wall, card) -> dict:
+    """pdlp over the gloo world of 2 (``outs``: each rank's case result):
+    both ranks the same x bits, OPTIMAL, the solo phase's host KKT checks
+    (the scaled form at the tol, ``PDHG_REQUEST_KKT_BOUND`` on the given
+    data) and the objective within 2·tol·(1 + |obj|) of mesh=None's."""
+    import types
+
+    import numpy as np
+
+    name = "pdlp gloo world of 2"
+    shas = {o["x_sha256"] for o in outs}
+    o = outs[0]
+    x, y = np.asarray(o["x"]), np.asarray(o["y"])
+    for rank, orank in enumerate(outs):
+        if orank["status"] != "optimal" or orank["pg_backend"] != "gloo":
+            fail(f"{name}: rank {rank} {orank['status']} on {orank['pg_backend']}")
+        if orank["phase_report"][0]["captured"]:
+            fail(f"{name}: rank {rank} captured the loop over gloo")
+    if len(shas) != 1:
+        fail(f"{name}: the ranks' x differ: {shas}")
+    inf_s, x_s, y_s = scaled_form_iterate(p, types.SimpleNamespace(x=x, y=y))
+    e = host_kkt(inf_s.c, inf_s.A, inf_s.b, x_s, y_s, inf_s.u)
+    e_given = host_kkt(p.c, p.A, p.rlb, x, y)
+    off = abs(o["objective"] - r0.objective)
+    if max(e) > PDHG_TOL or any(v > b for v, b in zip(e_given, PDHG_REQUEST_KKT_BOUND)):
+        fail(f"{name}: host pinf/dinf/gap {e} on the scaled form, {e_given} on the given data")
+    if not off <= 2 * PDHG_TOL * (1 + abs(r0.objective)):
+        fail(f"{name}: objective {o['objective']!r} against mesh=None's {r0.objective!r}")
+    rep = o["phase_report"][0]
+    row = {"problem": p.name, "world": name, "status": o["status"],
+           "inner_iterations": o["iterations"], "mesh_none_inner_iterations": r0.iterations,
+           "objective": o["objective"], "mesh_none_objective": r0.objective,
+           "x_bits_equal_across_ranks": True, "shard_shape": o["shard_shape"],
+           "host_pinf_dinf_gap_scaled": e, "host_pinf_dinf_gap_as_given": e_given,
+           "solve_s_rank0": o["solve_s"], "wall_s_rank0": o["wall_s"],
+           "body_ms_rank0": rep["eager_ms"] / max(rep["eager"], 1),
+           "captured": rep["captured"], "capture_off_reason": rep["capture_off_reason"],
+           "world_wall_s": wall}
+    print(f"pdlp_mesh_gloo2 {json.dumps(row)} [{card}]")
     return row
 
 
@@ -2729,22 +2847,33 @@ def mesh_none_check(name, o, ref_rows, iterations=True):
     return rel
 
 
-def allreduces_a_factorization(torch, be) -> int:
-    """``Mesh.all_reduce`` calls of one factorization on ``be``'s mesh (d = 1)."""
+def counting_all_reduces():
+    """``(calls, restore)``: ``Mesh.all_reduce`` wrapped to record each
+    call's tensor shape until ``restore()``."""
     from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
 
     calls, real = [], mesh_lib.Mesh.all_reduce
 
     def counted(self, t, axis=None):
-        calls.append(axis)
+        calls.append(tuple(t.shape))
         return real(self, t, axis)
 
     mesh_lib.Mesh.all_reduce = counted
+
+    def restore():
+        mesh_lib.Mesh.all_reduce = real
+
+    return calls, restore
+
+
+def allreduces_a_factorization(torch, be) -> int:
+    """``Mesh.all_reduce`` calls of one factorization on ``be``'s mesh (d = 1)."""
+    calls, restore = counting_all_reduces()
     try:
         be._ops().factorize(torch.ones(be.layout.n, dtype=torch.float64, device="cuda"))
         torch.cuda.synchronize()
     finally:
-        mesh_lib.Mesh.all_reduce = real
+        restore()
     return len(calls)
 
 
@@ -3074,10 +3203,11 @@ SCENARIO_MAIN = dict(num_scenarios=1024, block_m=24, block_n=36, first_stage_n=2
                      first_stage_m=2, seed=1)
 # stormG2's own blocks (STORM_FULL's shapes) at K = 8, with a two_stage hint:
 # 4,224 × 10,193, no first-stage rows. At K = 16 the reference's CG grinds at
-# its cap from iteration 29 on (ROADMAP Queue 3), so K = 16 is an observation.
+# its cap from iteration 29 on (ROADMAP Queue 3), so K = 16 is an observation,
+# run into its first steps at the cap (30 iterations).
 SCENARIO_STORM = dict(block_m=528, block_n=1259, first_stage_n=121, seed=1, t_nnz_per_row=2,
                       w_nnz_per_row=4)
-SCENARIO_K16_ITERS = 35
+SCENARIO_K16_ITERS = 30
 # K1 alone at the scenario lanes of stormG2's block width, a full bucket.
 SCENARIO_K1 = (1024, 528, 1259)
 # The JAX package's scenario backend on the CPU (tol 1e-8):
@@ -3094,9 +3224,9 @@ SCENARIO_JAX = {
     "cli_file": {"status": "optimal", "iterations": 18, "objective": 1922.6162423151154},
 }
 SCENARIO_OBJ_TOL = 1e-8
-# The K-mixed serve stream takes every fourth K of 33..64 (8 requests): its
+# The K-mixed serve stream takes every eighth K of 33..64 (4 requests): its
 # solo solves run one at a time at ~2 s each, and the script has a limit.
-SCENARIO_KMIXED_STEP = 4
+SCENARIO_KMIXED_STEP = 8
 
 
 def scenario_storm(K):
@@ -3178,10 +3308,170 @@ def scenario_solve(torch, ne, name, p, jax_ref, backend, **kw):
     return r, row
 
 
-def scenario_phase(torch, ne, card):
+def scenario_gloo2_case() -> dict:
+    """The scenario main path as a case of a gloo world of 2: the lanes
+    over the ranks (512 a rank), every rank generating the problem."""
+    return {"backend": "scenario", "instance": "two_stage",
+            "scenarios": SCENARIO_MAIN["num_scenarios"],
+            **{k: v for k, v in SCENARIO_MAIN.items() if k != "num_scenarios"},
+            "tol": 1e-8, "return_xy": True}
+
+
+def scenario_sums(name, calls, lay, rep) -> dict:
+    """Holds a scenario mesh solve's ``Mesh.all_reduce`` calls to one a
+    factorization (C, n0×n0; setup's unit-diagonal one included) and two an
+    application (t, n0; the dy rows, m), every application counted, the
+    masked CG iterations' included."""
+    n_c = calls.count((lay.n0, lay.n0))
+    n_t, n_dy = calls.count((lay.n0,)), calls.count((lay.m,))
+    apps = rep["solves"] + rep["cg_masked"]
+    if (n_c != 1 + rep["factorizations"] or n_t != apps or n_dy != apps
+            or n_c + n_t + n_dy != len(calls)):
+        fail(f"{name}: all-reduces C {n_c}, t {n_t}, dy {n_dy} of {len(calls)} for "
+             f"1 + {rep['factorizations']} factorizations and {apps} applications")
+    return {"factorizations": 1 + rep["factorizations"], "applications": apps,
+            "all_reduces_C": n_c, "all_reduces_t": n_t, "all_reduces_dy": n_dy}
+
+
+def scenario_mesh_legs(torch, ne, card, p, lay, x0, ref) -> int:
+    """The lane mesh at a mesh of one (step 19): the ``scenario_lanes``
+    task on an NCCL world of one in this process (the problem handed over
+    as an object), then a local mesh of one on ``cuda:0``; each x bit for
+    bit with the phase's ``mesh=None`` solve (``x0``, its row ``ref``), the
+    same IPM iterations, CG count and K1 launches, and one sum a
+    factorization and two an application. Returns the world's K1
+    launches."""
+    import hashlib
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import scenario as sc
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+    from distributedlpsolver_tpu_torch.distributed.launcher import free_port
+    from distributedlpsolver_tpu_torch.distributed.worker import TASKS
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    sha0 = hashlib.sha256(np.asarray(x0).tobytes()).hexdigest()
+    t0 = time.perf_counter()
+    world = world_lib.init_world(world_lib.WorldConfig(
+        coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
+    calls, restore = counting_all_reduces()
+    try:
+        if world.pg_backend != "nccl":
+            fail(f"scenario: the world of one runs {world.pg_backend}, not nccl")
+        o = {**TASKS["scenario_lanes"](world, {"problem": p, "tol": 1e-8}), **world.describe()}
+        rep = sc.last_solve_report()
+    finally:
+        restore()
+        world.close()
+    wall = time.perf_counter() - t0
+    name = "scenario main nccl world of one"
+    sums = scenario_sums(name, calls, lay, rep)
+    if (o["status"] != "optimal" or o["x_sha256"] != sha0 or o["iterations"] != ref["iterations"]
+            or o["cg_iters"] != ref["cg_iters"] or o["k1_launches"] != ref["k1_launches"]
+            or o["lanes"] != [[0, lay.k_pad]]):
+        fail(f"{name}: {o['status']} {o['iterations']} it cg {o['cg_iters']} K1 {o['k1_launches']} "
+             f"lanes {o['lanes']} x {o['x_sha256'][:12]} against mesh=None's {ref['iterations']} "
+             f"it cg {ref['cg_iters']} K1 {ref['k1_launches']} x {sha0[:12]}")
+    print(f"scenario_mesh_nccl1 {since()} " + json.dumps({
+        "problem": p.name, "world": "nccl world of one (in this process)",
+        "status": o["status"], "iterations": o["iterations"], "objective": o["objective"],
+        "x_bits_equal_mesh_none": True, "cg_iters": o["cg_iters"],
+        "mesh_none_cg_iters": ref["cg_iters"], "k1_launches": o["k1_launches"],
+        "lanes": o["lanes"], "member_bytes": o["member_bytes"],
+        "ms_per_iteration": 1e3 * o["solve_s"] / max(o["iterations"], 1),
+        "mesh_none_ms_per_iteration": ref["ms_per_iteration"], "solve_s": o["solve_s"],
+        "wall_s": o["wall_s"], "setup": o["setup"], **sums, "world_wall_s": wall}) + f" [{card}]")
+    be = sc.ScenarioBackend(mesh=mesh_lib.make_mesh(axis_names=("batch",), devices=["cuda:0"]))
+    block_counts_reset(ne)
+    calls, restore = counting_all_reduces()
+    try:
+        r = solve(p, backend=be, tol=1e-8)
+        rep = sc.last_solve_report()
+    finally:
+        restore()
+    name = "scenario main local mesh of one"
+    sums = scenario_sums(name, calls, lay, rep)
+    launches = ne.normal_eq.launches
+    if (not np.array_equal(r.x, x0) or r.iterations != ref["iterations"]
+            or be.cg_report()["cg_iters"] != ref["cg_iters"] or launches != ref["k1_launches"]):
+        fail(f"{name}: {r.iterations} it cg {be.cg_report()['cg_iters']} K1 {launches}, x equal "
+             f"{np.array_equal(r.x, x0)}")
+    print(f"scenario_mesh_local1 {since()} " + json.dumps({
+        "x_bits_equal_mesh_none": True, "iterations": r.iterations,
+        "cg_iters": be.cg_report()["cg_iters"], "k1_launches": launches,
+        "member_bytes": be.member_nbytes(),
+        "ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1), **sums}) + f" [{card}]")
+    return o["k1_launches"]
+
+
+def scenario_gloo2_rows(torch, ne, card, scen, outs, wall) -> list:
+    """The scenario main path over a gloo world of 2 sharing the card
+    (``outs``: each rank's case result; ``scen``: the phase's problem,
+    layout and mesh=None row): both ranks the same x bits, OPTIMAL, the
+    iterations within ±2 and the objective within 1e-8 of mesh=None's,
+    each answer held to the problem, 512 lanes a rank. Returns the
+    kernels-line row of K1 at rank 0's lanes (512 × 24 × 36)."""
+    p, ref, lay = scen["p"], scen["ref"], scen["lay"]
+    half = lay.k_pad // 2
+    name = "scenario gloo world of 2"
+    if len({o["x_sha256"] for o in outs}) != 1:
+        fail(f"{name}: the ranks' x differ: {[o['x_sha256'][:12] for o in outs]}")
+    for k, o in enumerate(outs):
+        rel = abs(o["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
+        if (o["status"] != "optimal" or abs(o["iterations"] - ref["iterations"]) > 2
+                or not rel <= SCENARIO_OBJ_TOL or o["pg_backend"] != "gloo"):
+            fail(f"{name}, rank {k}: {o['status']} {o['iterations']} it objective "
+                 f"{o['objective']!r} on {o['pg_backend']} against mesh=None's "
+                 f"{ref['iterations']} it {ref['objective']!r} ({rel:.3e})")
+        if o["lanes"] != [[k * half, (k + 1) * half]] or o["k1_launches"] <= 0:
+            fail(f"{name}, rank {k}: lanes {o['lanes']}, K1 launches {o['k1_launches']}")
+        o["answer"] = sharded_answer_check(f"{name}, rank {k}", p, o.pop("x"), o.pop("y"),
+                                           o["rel_gap"])
+    o = outs[0]
+    print(f"scenario_mesh_gloo2 {since()} " + json.dumps({
+        "problem": p.name, "world": name, "status": o["status"], "iterations": o["iterations"],
+        "mesh_none_iterations": ref["iterations"], "objective": o["objective"],
+        "objective_rel_mesh_none": abs(o["objective"] - ref["objective"]) / (
+            1.0 + abs(ref["objective"])),
+        "x_bits_equal_across_ranks": True, "cg_iters_by_rank": [x["cg_iters"] for x in outs],
+        "mesh_none_cg_iters": ref["cg_iters"],
+        "ms_per_iteration_rank0": 1e3 * o["solve_s"] / max(o["iterations"], 1),
+        "mesh_none_ms_per_iteration": ref["ms_per_iteration"],
+        "lanes_by_rank": [x["lanes"] for x in outs],
+        "member_bytes_by_rank": [x["member_bytes"] for x in outs],
+        "k1_launches_by_rank": [x["k1_launches"] for x in outs],
+        "answers": [x["answer"] for x in outs], "solve_s_rank0": o["solve_s"],
+        "wall_s_rank0": o["wall_s"], "setup_rank0": o["setup"], "world_wall_s": wall})
+        + f" [{card}; gloo through the host, not NCCL]")
+    rel_err, mx = kernel_parity(torch, ne, lay.mb, lay.nb, "float64", batch=half)
+    t = kernel_timing(torch, ne, lay.mb, lay.nb, "float64", iters=20, warm=3, batch=half)
+    print(f"scenario_k1 rank 0 of 2 {shape_name(lay.mb, lay.nb, half)}: rel_err {rel_err:.3e} "
+          f"max_abs_err {mx:.3e} (tol {TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise "
+          f"equal, each lane the unbatched kernel's bits; kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), share {t['bound_share']:.3f}; launches {o['k1_launches']} [{card}]")
+    return [{
+        "name": "normal_eq (scenario lanes, rank 0 of a gloo world of 2)", "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        "launches": o["k1_launches"],
+        "launches_path": "scenario main path over a gloo world of 2 on one card, rank 0",
+        "launches_by_rank": [x["k1_launches"] for x in outs],
+        "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+        "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
+    }]
+
+
+def scenario_phase(torch, ne, card, shared, defer=False):
     """The stochastic scenario tier on the card (module note, step 19).
     Returns the kernels-line rows of K1 over the scenario lanes and of the
-    ELL kernel on CG's operator."""
+    ELL kernel on CG's operator. With ``defer`` (a whole run) the lane
+    mesh's gloo world of 2 is left to the sharded phase's world:
+    ``shared["scenario"]`` hands it the problem, its layout and its
+    mesh=None row."""
     import math
 
     import numpy as np
@@ -3258,6 +3548,10 @@ def scenario_phase(torch, ne, card):
         fail("scenario main path: solve_scenario's x differs from auto's")
     print(f"scenario_main_solve_scenario {since()} x bit for bit with auto's (twice); "
           + json.dumps({"wall_s": wall, "iterations": r_entry.iterations}))
+    # The lane mesh at a mesh of one, against the cold auto solve; the
+    # world's K1 launches go to the main path's row.
+    mesh_launches = scenario_mesh_legs(torch, ne, card, p, lay, runs[0][0].x, runs[0][1])
+    scen = dict(p=p, ref=runs[0][1], lay=lay)
     main_launches = runs[0][1]["k1_launches"]
     main_ell = runs[0][1]["ell_launches"]
     del runs, r_sc, r_entry
@@ -3287,7 +3581,8 @@ def scenario_phase(torch, ne, card):
     # path runs (an observation: launches 0).
     rows = []
     for tag, (batch, m, n), launches, path in (
-            ("main path", (lay.k_pad, lay.mb, lay.nb), main_launches, "main path auto cold solve"),
+            ("main path", (lay.k_pad, lay.mb, lay.nb), main_launches + mesh_launches,
+             "main path auto cold solve, and the scenario_lanes task on an NCCL world of one"),
             ("stormG2 width, K=8 path", (lay8["k_pad"], lay8["mb"], lay8["nb"]), storm_launches,
              "stormG2 blocks K=8 scenario solve"),
             ("stormG2 width, full bucket", SCENARIO_K1, 0, None)):
@@ -3377,7 +3672,7 @@ def scenario_phase(torch, ne, card):
             "requests": len(wave), "wall_s": wave_s, "cold_iterations": cold,
             "warm_iterations": warm, "schur_ms_p50": float(np.median([r.schur_ms for r in wave])),
             "link_ms_p50": float(np.median([r.link_ms for r in wave]))}))
-        # K = 33, 37, ..., 61 (every fourth of 33..64, cut for the script's
+        # K = 33, 41, 49, 57 (every eighth of 33..64, cut for the script's
         # time): one bucket (64); units ceil(K/16) each.
         r64 = svc.submit(two_stage_storm(64, 24, 36, 24, 2, seed=64).to_block_angular(),
                          tol=1e-8).result(timeout=600)
@@ -3433,6 +3728,16 @@ def scenario_phase(torch, ne, card):
              f"report {rep['scenario']}")
     print(f"scenario_serve_reconcile {since()} " + json.dumps(
         {"solves": n, "stats": stats["scenario"], "metric_solves": solves}))
+
+    # 6. The lane mesh over a gloo world of 2 sharing the card: here with
+    # --scenario-only, in a whole run a case of the sharded phase's world.
+    if defer:
+        shared["scenario"] = scen
+    else:
+        res2, wall2 = card_world("sharded_cases", {"cases": [scenario_gloo2_case()]}, 2, "gloo",
+                                 "scenario_gloo2", SHARDED_WORLD_TIMEOUT_S)
+        rows += scenario_gloo2_rows(torch, ne, card, scen,
+                                    [case_results(res2[k])[0] for k in (0, 1)], wall2)
     print(f"scenario phase {since()}")
     return rows
 
@@ -3533,23 +3838,30 @@ def stage_parts(rep, wall_ms, iterations) -> dict:
             "wall_ms": per(wall_ms), "calls": rep["calls"]}
 
 
-def sharded_world(torch, n_ranks, pg_backend, p, ref, card, block=None) -> dict:
+def case_results(o) -> list:
+    """A ``sharded_cases`` rank result as one dict a case, each with the
+    world's fields (rank, world size, process-group backend)."""
+    world = {k: v for k, v in o.items() if k != "cases"}
+    return [{**world, **case} for case in o["cases"]]
+
+
+def sharded_world(torch, n_ranks, pg_backend, p, ref, card, extras=()) -> dict:
     """``run_world("sharded_solve", ...)`` on the main path's problem ``p``
     with ``n_ranks`` ranks on the cards; fails unless every rank is
     OPTIMAL with the same x bits and an answer that passes
     :func:`sharded_answer_check`, K1 ran at its shard's shape, and the
-    objective is within ``SHARDED_OBJ_TOL`` of ``ref``'s. With ``block``
-    (the block phase's pds-10) the block tier's gloo case rides the same
-    world (``sharded_cases``), its per-rank results left in
-    ``block["gloo2"]`` with the world's wall."""
+    objective is within ``SHARDED_OBJ_TOL`` of ``ref``'s. ``extras`` are
+    other phases' cases that ride the same world (``sharded_cases``): each
+    a dict with its ``case`` and a ``tag``, its per-rank results left in
+    its ``"gloo2"`` with the world's wall."""
     from distributedlpsolver_tpu_torch.distributed.launcher import run_world
 
     work = os.path.join(ROOT, "build", "dlps_torch", f"sharded_{pg_backend}{n_ranks}")
     spec = {**SHARDED_MAIN, "tol": 1e-8, "stage_clock": True, "return_xy": True}
     t0 = time.perf_counter()
     try:
-        if block is not None:
-            res = run_world("sharded_cases", {"cases": [spec, block_gloo2_case()]},
+        if extras:
+            res = run_world("sharded_cases", {"cases": [spec] + [e["case"] for e in extras]},
                             world_size=n_ranks, workdir=work, retries=0,
                             timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
         else:
@@ -3558,10 +3870,11 @@ def sharded_world(torch, n_ranks, pg_backend, p, ref, card, block=None) -> dict:
     except (RuntimeError, TimeoutError) as e:
         fail(f"{pg_backend} world of {n_ranks}: {e}")
     wall = time.perf_counter() - t0
-    if block is not None:  # its case's results, for the caller
-        block["gloo2"] = ([o["cases"][1] for _, o in sorted(res.items())], wall)
-        res = {rank: {**{k: v for k, v in o.items() if k != "cases"}, **o["cases"][0]}
-               for rank, o in res.items()}
+    if extras:  # each case's results with the world's fields, for its caller
+        res = {rank: case_results(o) for rank, o in res.items()}
+        for i, e in enumerate(extras, start=1):
+            e["gloo2"] = ([o[i] for _, o in sorted(res.items())], wall)
+        res = {rank: o[0] for rank, o in res.items()}
     name = f"{pg_backend} world of {n_ranks}"
     if sorted(res) != list(range(n_ranks)):
         fail(f"{name}: results from ranks {sorted(res)}")
@@ -3591,7 +3904,7 @@ def sharded_world(torch, n_ranks, pg_backend, p, ref, card, block=None) -> dict:
         "answer_by_rank": [res[r]["answer"] for r in sorted(res)],
         "rel_gap": o["rel_gap"], "pinf": o["pinf"],
         "rank0_wall_s": o["wall_s"], "world_wall_s": wall, "setup_parts_rank0": o["setup"],
-        "world_cases": ["dense"] + (["block pds-10"] if block is not None else []),
+        "world_cases": ["dense"] + [e["tag"] for e in extras],
         "captured": o["phase_report"][0].get("captured"),
         "capture_off_reason": o["phase_report"][0].get("capture_off_reason"),
         # The clock covers the starting point and the loop.
@@ -3679,14 +3992,28 @@ def sharded_phase(torch, ne, card, shared):
     ref = solve(p_main, backend="cuda", tol=1e-8)
     print(f"sharded_main_cuda {since()} {p_main.name}: {ref.status.value} {ref.iterations} it "
           f"objective {ref.objective!r}")
-    # In a whole run the block tier's gloo world of 2 rides this phase's.
-    block = shared.get("block")
-    worlds = {k: sharded_world(torch, k, "gloo", p_main, ref, card, block if k == 2 else None)
-              for k in SHARDED_WORLDS}
-    block_rows = []
+    # The world of 2 also carries pdlp's column mesh (the solo phase's
+    # problem; here with --sharded-only its mesh=None solve first) and, in
+    # a whole run, the block and scenario tiers' gloo cases.
+    pdlp = shared.get("pdlp")
+    if pdlp is None:
+        pdlp = dict(p=p_main, r=solve(p_main, backend="pdlp", tol=PDHG_TOL))
+    extras = [dict(tag="pdlp 2048x10240 mesh_shape=(2,)", case=pdlp_mesh_case())]
+    block, scen = shared.get("block"), shared.get("scenario")
     if block is not None:
-        counts = block_gloo2_check(block, *block.pop("gloo2"), card)
-        block_rows = block_rank_rows(torch, ne, card, block, "gloo2", counts)
+        extras.append(dict(block, tag="block pds-10", case=block_gloo2_case()))
+    if scen is not None:
+        extras.append(dict(scen, tag="scenario main path", case=scenario_gloo2_case()))
+    worlds = {k: sharded_world(torch, k, "gloo", p_main, ref, card, extras if k == 2 else ())
+              for k in SHARDED_WORLDS}
+    pdlp_gloo2_check(pdlp["p"], pdlp["r"], *extras[0]["gloo2"], card)
+    block_rows = []
+    for e in extras[1:]:
+        if e["tag"] == "block pds-10":
+            counts = block_gloo2_check(e, *e["gloo2"], card)
+            block_rows += block_rank_rows(torch, ne, card, e, "gloo2", counts)
+        else:
+            block_rows += scenario_gloo2_rows(torch, ne, card, e, *e["gloo2"])
     if cards >= 2:
         sharded_world(torch, min(cards, 4), "nccl", p_main, ref, card)
     else:
@@ -4388,12 +4715,12 @@ def main(only: str = "") -> int:
         for ln in mod.build_info.get("ptxas", []):
             print(f"  {ln}")
 
-    rows = [] if only else dense_phases(torch, ne, card)
-    # What a later phase takes from an earlier one in a whole run: the
-    # sparse phase's full-shape solve (the rows phase's mesh=None answer)
-    # and the block phase's pds-10 (cases of the sharded and rows phases'
-    # gloo worlds).
+    # What a later phase takes from an earlier one in a whole run: the solo
+    # PDHG answer (pdlp's mesh=None), the sparse phase's full-shape solve
+    # (the rows phase's mesh=None answer), the block phase's pds-10 and the
+    # scenario main path (cases of the sharded and rows phases' gloo worlds).
     shared = {}
+    rows = [] if only else dense_phases(torch, ne, card, shared)
     # 17. The network plane: its launches go to the serve bucket's K1 row,
     # which a --plane-only run times on its own.
     if only in ("", "plane"):
@@ -4413,7 +4740,7 @@ def main(only: str = "") -> int:
         rows += block_phase(torch, ne, card, shared, defer=not only)
     # 19. The stochastic scenario tier.
     if only in ("", "scenario"):
-        rows += scenario_phase(torch, ne, card)
+        rows += scenario_phase(torch, ne, card, shared, defer=not only)
     # 20. The column-sharded dense backend.
     if only in ("", "sharded"):
         rows += sharded_phase(torch, ne, card, shared)
@@ -4431,9 +4758,10 @@ def main(only: str = "") -> int:
     return 0
 
 
-def dense_phases(torch, ne, card):
+def dense_phases(torch, ne, card, shared):
     """Steps 1 (the SASS count) to 14 of the module note; returns the K1
-    rows of the kernels line."""
+    rows of the kernels line and leaves the solo PDHG answer in
+    ``shared["pdlp"]``."""
     from distributedlpsolver_tpu_torch import cli
     from distributedlpsolver_tpu_torch.io import read_mps
 
@@ -4534,8 +4862,11 @@ def dense_phases(torch, ne, card):
     # PDHG wave and both solo routes.
     s_parity, s_timing, s_rows = serve_phase(torch, ne, card)
 
-    # 14. The solo PDHG engine.
-    solo_pdhg_phase(card)
+    # 14. The solo PDHG engine, then its column mesh on an NCCL world of
+    # one (the gloo world of 2 rides the sharded phase's).
+    pdhg_row, p_pdhg, r_pdhg = solo_pdhg_phase(card)
+    pdlp_mesh_nccl1(torch, card, p_pdhg, r_pdhg, pdhg_row)
+    shared["pdlp"] = dict(p=p_pdhg, r=r_pdhg)
 
     main_t = timings[0]
     batched_t = b_timings[0]

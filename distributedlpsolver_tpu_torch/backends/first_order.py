@@ -35,8 +35,25 @@ step size — and its verdict — does not depend on the slot it lands in;
 a caller that passes no seeds gets each slot's own index.
 
 Working precision: off TPU the reference keeps ``config.dtype`` (f64);
-``factor_dtype="float32"`` gives f32. ``mesh=`` is not ported (ROADMAP
-Queue 1 item 13d).
+``factor_dtype="float32"`` gives f32.
+
+On a mesh (``FirstOrderBackend(mesh=)``, or ``SolverConfig.mesh_shape`` on
+a dense A: ``parallel.mesh.make_mesh`` over ``mesh_axis``, every rank of
+the ``torch.distributed`` world or a world of one) A's columns are split
+over the mesh's first axis, as the reference shards them: n pads with
+``(−n) mod R`` zero columns of cost 1 and no upper bound (PDHG's
+projection pins them at 0 from a zero start), each member holds its
+column block ``A_r`` (m × n/R), ``A·x`` is one all-reduce of the members'
+``A_r·x[cols_r]`` and ``Aᵀ·y`` one all-reduce of a zeroed (n + pad)
+vector holding each member's ``A_rᵀ·y`` in its slot
+(``Mesh.sum_parts``): two a PDHG step. x and y stay replicated (the
+reference shards x), so every rank holds the same iterate bits. The power
+iteration runs over the padded length, as there: its start vector's
+length sets η. ``to_host`` slices the pads off and ``from_host`` puts them
+back. A config-made mesh leaves a sparse A on the single-device path; an
+explicit one densifies it up to 2²⁶ entries. NCCL's all-reduces are
+recorded into the loop's CUDA graph; gloo's cannot be, so a gloo world
+runs the loop uncaptured (``phase_report`` says why).
 """
 
 from __future__ import annotations
@@ -58,6 +75,7 @@ from distributedlpsolver_tpu_torch.ipm import core, device_loop
 from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
 from distributedlpsolver_tpu_torch.ipm.state import IPMState, Status, StepStats
 from distributedlpsolver_tpu_torch.models.problem import InteriorForm
+from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
 from distributedlpsolver_tpu_torch.utils import threefry
 
 CHECK_EVERY = 40  # inner PDHG steps per loop body
@@ -70,11 +88,6 @@ def pdhg_seed(name: str, batch: int) -> int:
     """A bucket lane's start-vector index for the request ``name``: the
     solo backend's ``crc32(name)`` seed, modulo the bucket's ``batch``."""
     return (zlib.crc32(name.encode()) & 0x7FFFFFFF) % batch
-
-
-def _mesh_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP Queue 1 item 13d)")
 
 
 class PDHGState(NamedTuple):
@@ -127,7 +140,7 @@ def _err_of(matvec, rmatvec, data, x, y):
     return torch.maximum(pinf, torch.maximum(dinf, gap))
 
 
-def _pdhg_loop(matvec, rmatvec, data, eta, dtype, device):
+def _pdhg_loop(matvec, rmatvec, data, eta, dtype, device, capture: bool = True):
     """The restarted-PDHG loop of one problem as a :class:`DeviceLoop`
     over the carry ``(PDHGState, it, err)`` with inputs ``max_iter`` and
     ``tol``: one body is ``CHECK_EVERY`` inner steps plus the restart
@@ -197,7 +210,37 @@ def _pdhg_loop(matvec, rmatvec, data, eta, dtype, device):
         "max_iter": torch.zeros((), dtype=torch.int32, device=device),
         "tol": torch.zeros((), dtype=dtype, device=device),
     }
-    return device_loop.DeviceLoop(body, cond, meta, inputs)
+    return device_loop.DeviceLoop(body, cond, meta, inputs, capture=capture)
+
+
+def _column_ops(A, mesh, dtype):
+    """``(matvec, rmatvec, n_pad, blocks)`` of the (m, n) host matrix ``A``
+    with its columns split over ``mesh``'s first axis (the module note):
+    ``blocks`` are the ``(lo, hi, A_r)`` this process holds — every
+    member's on a local mesh, this rank's on a process-group mesh."""
+    axis = mesh.axis_names[0]
+    R = int(mesh.shape[axis])
+    m, n = A.shape
+    n_pad = (-n) % R
+    if n_pad:
+        A = np.hstack([A, np.zeros((m, n_pad))])
+    w = (n + n_pad) // R
+    blocks = [(i * w, (i + 1) * w,
+               torch.as_tensor(A[:, i * w:(i + 1) * w], device=dev).to(dtype).contiguous())
+              for i, dev in mesh.axis_members(axis)]
+
+    def matvec(v):
+        return mesh.sum_parts([A_r @ v[lo:hi].to(A_r.device) for lo, hi, A_r in blocks], axis)
+
+    def rmatvec(y):
+        parts = []
+        for lo, hi, A_r in blocks:
+            out = torch.zeros(n + n_pad, dtype=y.dtype, device=A_r.device)
+            out[lo:hi] = A_r.T @ y.to(A_r.device)
+            parts.append(out)
+        return mesh.sum_parts(parts, axis)
+
+    return matvec, rmatvec, n_pad, blocks
 
 
 def _pdhg_solve(loop, matvec, rmatvec, data, x0, y0, omega0, err_restart0, max_iter, tol):
@@ -245,16 +288,23 @@ class FirstOrderBackend(SolverBackend):
 
     def __init__(self, mesh=None, seed: Optional[int] = None, device=None):
         if mesh is not None:
-            raise _mesh_unported("mesh-sharded pdlp (mesh=)")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"mesh device {mesh.device} != backend device {device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self._mesh_arg = mesh
+        self._mesh = mesh
         self._sparse = False
         # Norm-estimate seed: explicit wins; else derived from the
         # problem name at setup (deterministic per request).
         self._seed = seed
 
+    @property
+    def mesh(self) -> Optional[mesh_lib.Mesh]:
+        """The mesh A's columns are split over, or None (one device)."""
+        return self._mesh
+
     def setup(self, inf: InteriorForm, config: SolverConfig) -> None:
-        if config.mesh_shape is not None and not sp.issparse(inf.A):
-            raise _mesh_unported("mesh-sharded pdlp (config.mesh_shape)")
         self._cfg = config
         # Working precision: the reference's off-TPU rule — config.dtype,
         # or f32 under an explicit factor_dtype="float32".
@@ -265,7 +315,27 @@ class FirstOrderBackend(SolverBackend):
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
         A = inf.A
+        mesh = self._mesh_arg
+        if mesh is None and config.mesh_shape is not None and not sp.issparse(A):
+            # A config-supplied mesh applies to dense operands only: a
+            # sparse A keeps the single-device CSR path.
+            mesh = mesh_lib.make_mesh(config.mesh_shape, axis_names=(config.mesh_axis,),
+                                      device=dev)
+        if mesh is not None and sp.issparse(A):
+            # Only an explicitly passed mesh reaches here: densify small
+            # sparse inputs, refuse ones where densification is the hazard.
+            if A.shape[0] * A.shape[1] > (1 << 26):
+                raise ValueError(
+                    "mesh-sharded pdlp supports dense operands; sparse input "
+                    f"of shape {A.shape} is too large to densify "
+                    "(drop the mesh to use the single-device BCOO path)"
+                )
+            A = np.asarray(A.todense())
+        self._mesh = mesh
+        reason = mesh_lib.capture_off_reason(mesh, dev)
+        self.capture, self.capture_off_reason = reason is None, reason
         self._sparse = sp.issparse(A)
+        self._n_pad = 0
         if self._sparse:
             def csr(M):
                 M = sp.csr_matrix(M)
@@ -282,19 +352,30 @@ class FirstOrderBackend(SolverBackend):
             A_, AT_ = self._A, self._AT
             self._matvec = lambda v: A_ @ v
             self._rmatvec = lambda v: AT_ @ v
+        elif mesh is not None:
+            self._matvec, self._rmatvec, self._n_pad, self._blocks = _column_ops(
+                np.asarray(A, dtype=np.float64), mesh, dtype)
+            self._A = self._blocks[0][2]  # this process's first column block
         else:
             self._A = torch.as_tensor(np.asarray(A, dtype=np.float64), device=dev).to(
                 dtype).contiguous()
             A_ = self._A
             self._matvec = lambda v: A_ @ v
             self._rmatvec = lambda v: A_.T @ v
+        self._n_orig = inf.n
+        c, u = np.asarray(inf.c, dtype=np.float64), np.asarray(inf.u, dtype=np.float64)
+        if self._n_pad:
+            # Padded zero columns: cost 1, no upper bound.
+            c = np.concatenate([c, np.ones(self._n_pad)])
+            u = np.concatenate([u, np.full(self._n_pad, np.inf)])
         # c, b and u cast to the working dtype on the host, as there.
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         host = lambda v: np.asarray(v, dtype=np.float64).astype(np_dtype)
-        self._data = core.make_problem_data(host(inf.c), host(inf.b), host(inf.u), dtype, dev)
+        self._data = core.make_problem_data(host(c), host(inf.b), host(u), dtype, dev)
         seed = int(self._seed) if self._seed is not None else (
             zlib.crc32(inf.name.encode()) & 0x7FFFFFFF)
-        nrm = _estimate_norm(self._matvec, self._rmatvec, inf.n, dtype, dev, seed=seed)
+        nrm = _estimate_norm(self._matvec, self._rmatvec, inf.n + self._n_pad, dtype, dev,
+                             seed=seed)
         self._eta = float(0.9 / max(float(nrm), 1e-12))
         self._reset_adaptive()
 
@@ -310,7 +391,7 @@ class FirstOrderBackend(SolverBackend):
         after), its accounting merged into ``report``."""
         eta = torch.tensor(self._eta, dtype=self._dtype, device=self.device)
         loop = _pdhg_loop(self._matvec, self._rmatvec, self._data, eta, self._dtype,
-                          self.device)
+                          self.device, capture=self.capture)
         try:
             out = _pdhg_solve(loop, self._matvec, self._rmatvec, self._data, x, y, omega,
                               err_restart, max_iter, self._cfg.tol)
@@ -401,7 +482,9 @@ class FirstOrderBackend(SolverBackend):
         status = np.asarray(core.STATUS_OPTIMAL if ok else core.STATUS_MAXITER)
         self.phase_report = [{
             "phase": 0, "engine": "pdhg", "iters": it,
-            "wall_s": round(time.perf_counter() - t0, 3), "mode": dense._mode(self._dtype), **acc,
+            "wall_s": round(time.perf_counter() - t0, 3), "mode": dense._mode(self._dtype),
+            "captured": self.capture and self.device.type == "cuda",
+            "capture_off_reason": self.capture_off_reason, **acc,
         }]
         # One summary stats record, but the REAL inner-iteration count —
         # floored at 1, so an immediately-optimal start still surfaces its
@@ -409,13 +492,19 @@ class FirstOrderBackend(SolverBackend):
         return self._wrap(x, y), torch.tensor(max(it, 1)), status, host[None, :]
 
     def to_host(self, state: IPMState) -> IPMState:
-        return IPMState(*(v.detach().to(torch.float64).cpu().numpy() for v in state))
+        n = self._n_orig
+        x, y, s, w, z = (v.detach().to(torch.float64).cpu().numpy() for v in state)
+        return IPMState(x=x[:n], y=y, s=s[:n], w=w[:n], z=z[:n])
 
     def from_host(self, state: IPMState) -> IPMState:
         # A restored iterate invalidates the burst-adaptive baselines.
         self._reset_adaptive()
-        return IPMState(*(torch.tensor(np.asarray(v, dtype=np.float64), device=self.device).to(
-            self._dtype) for v in state))
+        x, y, s, w, z = (np.asarray(v, dtype=np.float64) for v in state)
+        if self._n_pad:
+            pad = lambda v, fill: np.concatenate([v, np.full(self._n_pad, fill)])  # noqa: E731
+            x, s, w, z = pad(x, 0.0), pad(s, 1.0), pad(w, 1.0), pad(z, 0.0)
+        return IPMState(*(torch.tensor(v, device=self.device).to(self._dtype)
+                          for v in (x, y, s, w, z)))
 
     def block_until_ready(self, obj) -> None:
         if self.device.type == "cuda":

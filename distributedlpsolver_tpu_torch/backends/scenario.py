@@ -54,8 +54,22 @@ reference also adds every application's stages to ``schur_ms``/
 ``link_ms``; four events an application cost ~10% of a warm solve on the
 card (``scripts/port_time_stage_clock.py``), so the port does not.
 
-Not ported: the lane axis sharded over a mesh (``mesh=``; ROADMAP Queue 1
-item 13d).
+On a mesh (``ScenarioBackend(mesh=)``, ``parallel/mesh.py``) the padded
+lanes are split over the mesh's batch axis (its last when it has none)
+where the reference splits them, ``min(k_pad, SCENARIO_CHUNK) % R == 0``;
+otherwise every member holds every lane, as the reference's replicated
+placement does, and the solve is ``mesh=None``'s. The member at position
+i of the axis holds lanes ``[i·k_pad/R, (i+1)·k_pad/R)`` (the reference's
+blocks are per 128-lane chunk, which changes only C's summation order),
+scattered from its lanes' entries of A alone; A0 and
+CG's operator (the whole A) are replicated. A factorization runs K1 over
+the member's lanes and sums C over the members (one all-reduce); an
+application sums ``t`` (one) and the members' ``dy`` rows, each member
+writing its own rows of a zeroed m-vector through its inverse map (one).
+Every sum is ``Mesh.sum_parts``, so every rank ends each application with
+the same bits and CG takes the same exits everywhere. ``mesh=None`` is
+member 0 of 1 on the same code, so a mesh of one (local, or a world of
+one) gives its bits.
 """
 
 from __future__ import annotations
@@ -93,20 +107,52 @@ class ScenarioLayout(NamedTuple):
     n: int
 
 
-class ScenarioTensors(NamedTuple):
-    """The arrow-structured A on the device, with the maps the operators
-    gather through. Padded slots of ``rows_idx``/``cols_idx`` point at m/n
-    (a zero appended to the vector they index)."""
+# The reference's lane chunk (a TPU program-size cap): its lanes split
+# over a mesh only when the mesh divides a chunk.
+SCENARIO_CHUNK = 128
 
-    W: torch.Tensor  # (k_pad, mb, nb) recourse blocks
-    T: torch.Tensor  # (k_pad, mb, n0) first-stage coupling of each block
+
+class ScenarioTensors(NamedTuple):
+    """One member's share of the arrow-structured A on its device — the
+    lanes ``[lo, hi)`` of the padded stacks (all of them for one member),
+    the replicated first stage — with the maps the operators gather
+    through. Padded slots of ``rows_idx``/``cols_idx`` point at m/n (a
+    zero appended to the vector they index)."""
+
+    W: torch.Tensor  # (lanes, mb, nb) recourse blocks
+    T: torch.Tensor  # (lanes, mb, n0) first-stage coupling of each block
     A0: torch.Tensor  # (m0, n0) first-stage rows
     rows0: torch.Tensor  # (m0,) interior rows of the first stage
     cols0: torch.Tensor  # (n0,) interior columns of the first stage
-    rows_idx: torch.Tensor  # (k_pad, mb) interior row of each block row
-    cols_idx: torch.Tensor  # (k_pad, nb) interior column of each block column
-    pad_row: torch.Tensor  # (k_pad, mb) 1 on padded rows, else 0
-    row_pos: torch.Tensor  # (m,) slot of each row in cat([dy_K, dy_0])
+    rows_idx: torch.Tensor  # (lanes, mb) interior row of each block row
+    cols_idx: torch.Tensor  # (lanes, nb) interior column of each block column
+    pad_row: torch.Tensor  # (lanes, mb) 1 on padded rows, else 0
+    # (m,) slot of each row in cat([dy_K (lanes·mb), dy_0 (m0), 0]): the
+    # last, zero, for rows of other members' lanes and, on every member
+    # but the first, for the first stage's rows.
+    row_pos: torch.Tensor
+
+
+class _Arrow(NamedTuple):
+    """A's entries classified on the host against the ``two_stage``
+    layout: what every member's :func:`place_lanes` reads."""
+
+    lay: "ScenarioLayout"
+    A: sp.csr_matrix
+    er: np.ndarray  # row of each stored entry
+    ec: np.ndarray  # column of each stored entry
+    rk: np.ndarray  # scenario of each entry's row (-1: the first stage)
+    is_w: np.ndarray
+    is_t: np.ndarray
+    is_0: np.ndarray
+    lr: np.ndarray  # each row's rank in its block (or in the first stage)
+    lc: np.ndarray  # each column's rank in its block (or in the first stage)
+    rb: np.ndarray
+    cb: np.ndarray
+    rorder: np.ndarray  # block rows, by block
+    corder: np.ndarray  # block columns, by block
+    rows0: np.ndarray
+    cols0: np.ndarray
 
 
 def scenario_program_cache_size() -> int:
@@ -205,13 +251,13 @@ def _local_index(ids: np.ndarray, K: int):
     return local, counts, order
 
 
-def build_tensors(inf: InteriorForm, dtype, device) -> Tuple[ScenarioTensors, ScenarioLayout]:
-    """The layout from the ``two_stage`` hint, and the (W, T, A0) stacks
-    scattered on ``device`` from A's entries. Raises ValueError for a
-    missing or malformed hint, no first-stage columns, an empty scenario
-    block, or entries outside the arrow (a first-stage row touching a
-    scenario column, or coupling between scenarios): the supervisor then
-    degrades to the sparse tier on the assembled form."""
+def analyze_arrow(inf: InteriorForm) -> _Arrow:
+    """The layout from the ``two_stage`` hint and A's entries classified
+    against it. Raises ValueError for a missing or malformed hint, no
+    first-stage columns, an empty scenario block, or entries outside the
+    arrow (a first-stage row touching a scenario column, or coupling
+    between scenarios): the supervisor then degrades to the sparse tier
+    on the assembled form."""
     hint = inf.block_structure or {}
     if hint.get("kind") != "two_stage":
         raise ValueError(
@@ -231,8 +277,7 @@ def build_tensors(inf: InteriorForm, dtype, device) -> Tuple[ScenarioTensors, Sc
         raise ValueError("two_stage hint has an empty scenario block")
     mb, nb = int(rcount.max()), int(ccount.max())
     m0, n0 = len(rows0), len(cols0)
-    k_pad = scenario_k_bucket(K)
-    lay = ScenarioLayout(K=K, k_pad=k_pad, mb=mb, nb=nb, m0=m0, n0=n0, m=m, n=n)
+    lay = ScenarioLayout(K=K, k_pad=scenario_k_bucket(K), mb=mb, nb=nb, m0=m0, n0=n0, m=m, n=n)
     lr[rows0] = np.arange(m0)
     lc[cols0] = np.arange(n0)
 
@@ -252,37 +297,68 @@ def build_tensors(inf: InteriorForm, dtype, device) -> Tuple[ScenarioTensors, Sc
             f"A has {outside} entries outside the two_stage arrow pattern — "
             f"not scenario-decomposable"
         )
-    slot = rk * mb + lr[er]  # (lane, row) of a block entry
+    if rorder.size + m0 != m:
+        raise ValueError("two_stage hint leaves a row in no block and not in the first stage")
+    return _Arrow(lay=lay, A=A, er=er, ec=ec, rk=rk, is_w=is_w, is_t=is_t, is_0=is_0, lr=lr,
+                  lc=lc, rb=rb, cb=cb, rorder=rorder, corder=corder, rows0=rows0, cols0=cols0)
+
+
+def place_lanes(arrow: _Arrow, lo: int, hi: int, dtype, device) -> ScenarioTensors:
+    """The member holding lanes ``[lo, hi)``: its stacks scattered on
+    ``device`` from its lanes' entries of A alone (never a full stack
+    sliced), the replicated first stage, and its inverse map ``row_pos``
+    (the first stage's rows on the member with lane 0 only)."""
+    a, lay = arrow, arrow.lay
+    m, mb, nb, m0, n0 = lay.m, lay.mb, lay.nb, lay.m0, lay.n0
+    lanes = hi - lo
+    mine = (a.rk >= lo) & (a.rk < hi)
+    slot = (a.rk - lo) * mb + a.lr[a.er]  # (lane, row) of a block entry
 
     def scatter(size, sel, flat):
         out = torch.zeros(size, dtype=dtype, device=device)
-        out[torch.from_numpy(flat[sel]).to(device)] = torch.from_numpy(A.data[sel]).to(
+        out[torch.from_numpy(flat[sel]).to(device)] = torch.from_numpy(a.A.data[sel]).to(
             device=device, dtype=dtype)
         return out
 
-    W = scatter(k_pad * mb * nb, is_w, slot * nb + lc[ec]).view(k_pad, mb, nb)
-    T = scatter(k_pad * mb * n0, is_t, slot * n0 + lc[ec]).view(k_pad, mb, n0)
-    A0 = scatter(m0 * n0, is_0, lr[er] * n0 + lc[ec]).view(m0, n0)
+    W = scatter(lanes * mb * nb, a.is_w & mine, slot * nb + a.lc[a.ec]).view(lanes, mb, nb)
+    T = scatter(lanes * mb * n0, a.is_t & mine, slot * n0 + a.lc[a.ec]).view(lanes, mb, n0)
+    A0 = scatter(m0 * n0, a.is_0, a.lr[a.er] * n0 + a.lc[a.ec]).view(m0, n0)
 
-    rows_idx = np.full((k_pad, mb), m, dtype=np.int64)
-    rows_idx[rb[rorder], lr[rorder]] = rorder
-    cols_idx = np.full((k_pad, nb), n, dtype=np.int64)
-    cols_idx[cb[corder], lc[corder]] = corder
-    # Each interior row's slot in cat([dy_K (k_pad·mb), dy_0 (m0)]).
-    row_pos = np.empty(m, dtype=np.int64)
-    row_pos[rorder] = rb[rorder] * mb + lr[rorder]
-    row_pos[rows0] = k_pad * mb + np.arange(m0)
-    if rorder.size + m0 != m:
-        raise ValueError("two_stage hint leaves a row in no block and not in the first stage")
+    ro = a.rorder[(a.rb[a.rorder] >= lo) & (a.rb[a.rorder] < hi)]
+    co = a.corder[(a.cb[a.corder] >= lo) & (a.cb[a.corder] < hi)]
+    rows_idx = np.full((lanes, mb), m, dtype=np.int64)
+    rows_idx[a.rb[ro] - lo, a.lr[ro]] = ro
+    cols_idx = np.full((lanes, nb), lay.n, dtype=np.int64)
+    cols_idx[a.cb[co] - lo, a.lc[co]] = co
+    row_pos = np.full(m, lanes * mb + m0, dtype=np.int64)
+    row_pos[ro] = (a.rb[ro] - lo) * mb + a.lr[ro]
+    if lo == 0:
+        row_pos[a.rows0] = lanes * mb + np.arange(m0)
 
-    def put(a, dt=torch.int64):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+    def put(v, dt=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device=device, dtype=dt)
 
-    tensors = ScenarioTensors(
-        W=W, T=T, A0=A0, rows0=put(rows0), cols0=put(cols0), rows_idx=put(rows_idx),
+    return ScenarioTensors(
+        W=W, T=T, A0=A0, rows0=put(a.rows0), cols0=put(a.cols0), rows_idx=put(rows_idx),
         cols_idx=put(cols_idx), pad_row=put(rows_idx == m, dtype), row_pos=put(row_pos),
     )
-    return tensors, lay
+
+
+def build_tensors(inf: InteriorForm, dtype, device) -> Tuple[ScenarioTensors, ScenarioLayout]:
+    """The layout from the ``two_stage`` hint and every lane's stacks on
+    ``device`` as one member (:func:`analyze_arrow`'s errors)."""
+    arrow = analyze_arrow(inf)
+    return place_lanes(arrow, 0, arrow.lay.k_pad, dtype, device), arrow.lay
+
+
+def lane_split(mesh, k_pad: int):
+    """``(axis, R)``: the mesh axis the lanes split over and its width,
+    or ``(None, 1)`` where the reference keeps every lane on every member
+    (no mesh, or a chunk the mesh does not divide)."""
+    if mesh is None or min(k_pad, SCENARIO_CHUNK) % mesh.size:
+        return None, 1
+    axis = "batch" if "batch" in mesh.axis_names else mesh.axis_names[-1]
+    return axis, int(mesh.shape[axis])
 
 
 class _StageClock:
@@ -319,19 +395,22 @@ class _StageClock:
 @register_backend("scenario")
 class ScenarioBackend(SolverBackend):
     """Scenario-decomposed IPM over a lowered two-stage LP, on one CUDA
-    card (or the CPU when asked for with ``device="cpu"``).
+    card (or the CPU when asked for with ``device="cpu"``), or with
+    ``mesh`` over its members (the module note; the device defaults to the
+    mesh's).
 
     ``setup`` reads the ``two_stage`` hint, pads K up its bucket and
-    scatters the (W, T, A0) stacks on the device; the driver's host loop
-    then runs the Mehrotra core with ``factorize``/``solve`` as above."""
+    scatters the (W, T, A0) stacks of the lanes this process holds on
+    their devices; the driver's host loop then runs the Mehrotra core with
+    ``factorize``/``solve`` as above."""
 
     def __init__(self, device=None, mesh=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "the scenario tier on a mesh (mesh=) is not ported to the torch package yet "
-                "(ROADMAP Queue 1 item 13d)"
-            )
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"mesh device {mesh.device} != backend device {device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self._mesh = mesh
         self._reg = 0.0
         self._cfg: Optional[SolverConfig] = None
 
@@ -340,7 +419,17 @@ class ScenarioBackend(SolverBackend):
     def setup(self, inf: InteriorForm, config: SolverConfig) -> None:
         dtype = _torch_dtype(config.dtype)
         t0 = time.perf_counter()
-        self._t, self._lay = build_tensors(inf, dtype, self.device)
+        arrow = analyze_arrow(inf)
+        lay = self._lay = arrow.lay
+        mesh = self._mesh
+        self._axis, R = lane_split(mesh, lay.k_pad)
+        w = lay.k_pad // R
+        # (device, lo, hi) of each member this process executes.
+        members = ([(self.device, 0, lay.k_pad)] if self._axis is None else
+                   [(dev, i * w, (i + 1) * w) for i, dev in mesh.axis_members(self._axis)])
+        self._parts = [place_lanes(arrow, lo, hi, dtype, dev) for dev, lo, hi in members]
+        self.lane_ranges = [(lo, hi) for _, lo, hi in members]
+        del arrow
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
@@ -348,7 +437,6 @@ class ScenarioBackend(SolverBackend):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.setup_report = {"stacks_s": t1 - t0, "operator_s": time.perf_counter() - t1}
-        lay = self._lay
         self._cfg = config
         self._dtype = dtype
         self._reg = config.reg_dual
@@ -382,8 +470,20 @@ class ScenarioBackend(SolverBackend):
         self._acc = []  # CG counts of the current step's Newton solves
 
     @property
+    def mesh(self):
+        """The mesh the lanes are split over, or None."""
+        return self._mesh
+
+    @property
     def layout(self) -> ScenarioLayout:
         return self._lay
+
+    def _sum(self, parts):
+        """The members' partials summed: one ``Mesh.sum_parts`` when the
+        lanes are split, the one part itself otherwise."""
+        if self._axis is None:
+            return parts[0]
+        return self._mesh.sum_parts(parts, self._axis)
 
     def _primal_project(self, rv):
         """``rv ↦ Aᵀ(A·Aᵀ)⁻¹·rv`` through the unit-diagonal factors — corrects
@@ -399,14 +499,18 @@ class ScenarioBackend(SolverBackend):
         return elt * (lay.k_pad * per_lane + lay.n0 * lay.n0 + lay.n0 * lay.m0
                       + lay.m0 * lay.m0)
 
+    def member_nbytes(self) -> int:
+        """Bytes of the member tensors this process holds: its lanes'
+        stacks and maps, and the replicated first stage."""
+        return sum(v.numel() * v.element_size() for t in self._parts for v in t)
+
     # -- the LinOps seam --------------------------------------------------
 
-    def _schur_factor(self, dK, reg):
-        """The per-scenario Schur batch (the reference's
-        ``_schur_factor_jit`` over all lanes): ``(L, C)``, the factors of
-        ``S_k = W_k·D_k·W_kᵀ`` and the closure ``Σ_k Y_kᵀ·Y_k``."""
-        t = self._t
-        S = normal_eq(t.W, dK)  # all k_pad lanes in one launch
+    def _schur_factor(self, t, dK, reg):
+        """The per-scenario Schur batch of member ``t``'s lanes (the
+        reference's ``_schur_factor_jit``): ``(L, C_t)``, the factors of
+        ``S_k = W_k·D_k·W_kᵀ`` and the member's closure ``Σ_k Y_kᵀ·Y_k``."""
+        S = normal_eq(t.W, dK)  # the member's lanes in one launch
         # Padded rows of W are zero, so are their rows and columns of S: a
         # unit diagonal decouples them (the reference's mask, exactly).
         diag = S.diagonal(dim1=-2, dim2=-1)
@@ -420,7 +524,7 @@ class ScenarioBackend(SolverBackend):
         """The first-stage linking factor (the reference's
         ``_link_factor_jit``): ``(LH, G, LF)`` for ``H = C + D0⁻¹``,
         ``G = H⁻¹·A0ᵀ`` and ``F = A0·G``."""
-        A0 = self._t.A0
+        A0 = self._parts[0].A0
         H = C + torch.diag(1.0 / d0)
         hd = H.diagonal()
         hd.add_(reg * hd)
@@ -432,32 +536,45 @@ class ScenarioBackend(SolverBackend):
         return LH, G, _cholesky(F)
 
     def _factorize(self, d, reg):
-        t, clock = self._t, self._clock
+        clock = self._clock
         t0 = clock.mark()
-        # Padded columns gather 0 from the appended slot.
-        L, C = self._schur_factor(_pad(d)[t.cols_idx], reg)
+        Ls, Cs = [], []
+        for t in self._parts:
+            # Padded columns gather 0 from the appended slot.
+            L, C = self._schur_factor(t, _pad(d.to(t.W.device))[t.cols_idx], reg)
+            Ls.append(L)
+            Cs.append(C)
+        C = self._sum(Cs)  # one n0×n0 all-reduce over the members
         t1 = clock.mark()
-        LH, G, LF = self._link_factor(C, d[t.cols0], reg)
+        LH, G, LF = self._link_factor(C, d[self._parts[0].cols0], reg)
         t2 = clock.mark()
         clock.add("schur_ms", t0, t1)
         clock.add("link_ms", t1, t2)
         _REPORT.add("factorizations", 1)
-        return (L, LH, G, LF, d)
+        return (Ls, LH, G, LF, d)
 
     def _apply_decomp(self, factors, r):
         """One application of the decomposition: ``M⁻¹·r`` of the
-        regularized two-level elimination."""
-        L, LH, G, LF = factors[:4]
-        t = self._t
-        rK = _pad(r)[t.rows_idx]  # (k_pad, mb); padded slots read 0
-        u = _cho_solve(L, rK[..., None])
-        tv = t.T.view(-1, t.T.shape[-1]).mT @ u.view(-1)  # Σ_k T_kᵀ·S_k⁻¹·r_k
+        regularized two-level elimination, two sums over the members (t,
+        then the members' rows of dy)."""
+        Ls, LH, G, LF = factors[:4]
+        t0 = self._parts[0]
+        rKs, tvs = [], []
+        for t, L in zip(self._parts, Ls):
+            rK = _pad(r.to(t.W.device))[t.rows_idx]  # (lanes, mb); padded slots read 0
+            u = _cho_solve(L, rK[..., None])
+            tvs.append(t.T.view(-1, t.T.shape[-1]).mT @ u.view(-1))  # Σ_k T_kᵀ·S_k⁻¹·r_k
+            rKs.append(rK)
+        tv = self._sum(tvs)
         ht = _cho_solve(LH, tv[:, None])[:, 0]
-        dy0 = _cho_solve(LF, (r[t.rows0] - t.A0 @ ht)[:, None])[:, 0]
+        dy0 = _cho_solve(LF, (r[t0.rows0] - t0.A0 @ ht)[:, None])[:, 0]
         w0 = G @ dy0 + ht
-        dyK = _cho_solve(L, (rK - t.T @ w0)[..., None])
-        out = torch.cat([dyK.view(-1), dy0])[t.row_pos]
-        return out
+        outs = []
+        for t, L, rK in zip(self._parts, Ls, rKs):
+            dev = t.W.device
+            dyK = _cho_solve(L, (rK - t.T @ w0.to(dev))[..., None])
+            outs.append(torch.cat([dyK.view(-1), dy0.to(dev), dyK.new_zeros(1)])[t.row_pos])
+        return self._sum(outs)
 
     def _solve(self, factors, rhs):
         """M⁻¹·rhs: CG on the matrix-free operator ``v ↦ A·(d∘Aᵀv)``

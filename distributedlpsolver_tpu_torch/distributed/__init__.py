@@ -10,13 +10,12 @@ first-class citizens of the solver (the JAX package's ``distributed/``).
   recovery supervisor (a dead rank ends the world as a unit; recovery
   relaunches a SMALLER world that resumes from the checkpoint).
 - :mod:`distributed.worker` — ``python -m …distributed.worker`` rank
-  entry with a small registry of world tasks.
+  entry with a small registry of world tasks: every task of the JAX
+  package's worker, ``scenario_lanes`` (the scenario tier's lanes over the
+  world) among them.
 - :mod:`distributed.slice` — one SolveService per world: rank 0's HTTP
   front-end publishes each bucket dispatch to a file journal, every rank
   solves its lane block (``cli serve-slice``).
-
-Not ported yet: the scenario tier's world task (``scenario_lanes``;
-ROADMAP Queue 1 item 13d).
 """
 
 from distributedlpsolver_tpu_torch.distributed.world import (  # noqa: F401

@@ -23,8 +23,13 @@ Tasks:
     inner axis, replicated over the outer); ``backend: "block"`` runs
     the block tier with its K axis over the world's mesh (``instance:
     "block"``: ``block_angular_lp(blocks, block_m, block_n, link, seed,
-    sparse, density)``; a caller in this process may hand the problem
-    itself as ``problem``). The result carries
+    sparse, density)``), ``backend: "scenario"`` the scenario tier with
+    its lanes over it (``instance: "two_stage"``: ``two_stage_storm(
+    scenarios, block_m, block_n, first_stage_n, first_stage_m, seed)``
+    lowered), and ``backend: "pdlp"`` with ``mesh_shape: [R]`` the PDHG
+    engine with A's columns over it (a caller in this process may hand the
+    problem itself as ``problem``); ``mesh_shape``/``mesh_axis`` go into
+    the solve's ``SolverConfig``. The result carries
     the solve's verdict, a SHA-256 of x's bytes (ranks must agree bit for
     bit), K1's launches on this rank (the batched lanes' among them), the
     phase rows and the setup parts;
@@ -70,8 +75,16 @@ Tasks:
     and y's bytes (ranks must agree bit for bit); with ``return_xy`` also
     x and y.
 
-Not ported yet: ``scenario_lanes`` (the scenario tier's lane mesh,
-ROADMAP Queue 1 item 13d).
+``scenario_lanes``
+    ``two_stage_storm(scenarios, block_m=m, block_n=n, seed)`` (defaults
+    8, 6, 14, 3) lowered, through ``ScenarioBackend(mesh=world.mesh(axis=
+    "batch"))``: each rank holds its block of the padded lanes and runs K1
+    on it; the sums of C and t and the dy rows cross the process boundary.
+    A caller in this process may hand the problem itself as ``problem``.
+    The result carries the verdict, SHA-256s of x's and y's bytes (ranks
+    must agree bit for bit), the CG report, K1's launches on this rank, the
+    lanes this rank holds and their bytes, the setup by part and the wall;
+    with ``return_xy`` also x and y.
 """
 
 from __future__ import annotations
@@ -132,24 +145,35 @@ def _problem(spec: dict):
             t_nnz_per_row=int(spec.get("t_nnz_per_row", 4)),
             w_nnz_per_row=int(spec.get("w_nnz_per_row", 6)),
         )
+    if instance == "two_stage":
+        from distributedlpsolver_tpu_torch.models.scenario import two_stage_storm
+
+        return two_stage_storm(
+            int(spec.get("scenarios", 8)), block_m=int(spec.get("block_m", 8)),
+            block_n=int(spec.get("block_n", 12)), first_stage_n=int(spec.get("first_stage_n", 8)),
+            first_stage_m=int(spec.get("first_stage_m", 2)), seed=seed,
+        ).to_block_angular()
     if instance == "general":
         return random_general_lp(int(spec.get("m", 20)), int(spec.get("n", 40)), seed=seed)
     if instance != "dense":
-        raise ValueError(f"unknown instance {instance!r} (dense, general, storm or block)")
+        raise ValueError(
+            f"unknown instance {instance!r} (dense, general, storm, block or two_stage)")
     return random_dense_lp(int(spec.get("m", 48)), int(spec.get("n", 128)), seed=seed)
 
 
 def _world_mesh_kw(world: World, name: str) -> dict:
     """The mesh a backend takes at construction in a world: the row-sharded
-    tier's rows and the block tier's K axis ride the world's 1-D mesh (for
-    the block tier ``mesh=None`` means one device). The sharded backend
-    makes its own at setup."""
+    tier's rows, the scenario tier's lanes and the block tier's K axis ride
+    the world's 1-D mesh (for those tiers ``mesh=None`` means one device).
+    The sharded backend makes its own at setup, as pdlp does from a
+    ``mesh_shape``."""
     from distributedlpsolver_tpu_torch.backends.base import backend_class
     from distributedlpsolver_tpu_torch.backends.block_angular import BlockAngularBackend
+    from distributedlpsolver_tpu_torch.backends.scenario import ScenarioBackend
     from distributedlpsolver_tpu_torch.backends.sparse_iterative import SparseIterativeBackend
 
     cls = backend_class(name)
-    if issubclass(cls, SparseIterativeBackend):
+    if issubclass(cls, (SparseIterativeBackend, ScenarioBackend)):
         return {"mesh": world.mesh(axis="batch")}
     if issubclass(cls, BlockAngularBackend):
         return {"mesh": world.mesh(axis="blocks")}
@@ -173,6 +197,8 @@ def sharded_solve(world: World, spec: dict) -> dict:
         verbose=False,
         checkpoint_path=spec.get("checkpoint") or None,
         checkpoint_every=int(spec.get("checkpoint_every", 0)),
+        mesh_shape=tuple(spec["mesh_shape"]) if spec.get("mesh_shape") else None,
+        mesh_axis=spec.get("mesh_axis", "cols"),
     )
     name = spec.get("backend", "sharded")
     kw = {}
@@ -222,10 +248,12 @@ def sharded_solve(world: World, spec: dict) -> dict:
     if shard is not None:
         out["shard_shape"] = list(shard.shape)
     member = getattr(be, "_parts", None)  # the block tier: this rank's one member
-    if member:
+    if member and hasattr(member[0], "B_all"):
         out["shard_shape"] = list(member[0].B_all.shape)
         out["link_columns"] = int(member[0].L_cat.shape[1])
         out["layout"] = list(be.layout)
+    if hasattr(be, "lane_ranges"):  # the scenario tier
+        out.update(_scenario_fields(be, result))
     if getattr(be, "clock", None) is not None:
         out["stage_clock"] = be.clock.report()
     return out
@@ -300,6 +328,55 @@ def sparse_rows(world: World, spec: dict) -> dict:
                          "diag(A·D·Aᵀ)": ell_normal_diag.launches},
         "x_sha256": None if x is None else hashlib.sha256(x.tobytes()).hexdigest(),
         "y_sha256": None if x is None else hashlib.sha256(result.y.tobytes()).hexdigest(),
+    }
+    if spec.get("return_xy") and x is not None:
+        out["x"], out["y"] = x.tolist(), result.y.tolist()
+    return out
+
+
+def _scenario_fields(be, result) -> dict:
+    """A scenario solve's mesh fields: the lanes this rank holds and their
+    bytes, the CG report and a SHA-256 of y's bytes."""
+    rep = be.cg_report()
+    y = result.y
+    return {
+        "lanes": [list(r) for r in be.lane_ranges], "member_bytes": be.member_nbytes(),
+        "layout": dict(be.layout._asdict()), "cg_iters": rep["cg_iters"],
+        "cg_per_iteration": rep["cg_per_iteration"], "newton_solves": rep["newton_solves"],
+        "host_syncs": rep["host_syncs"],
+        "y_sha256": None if y is None else hashlib.sha256(y.tobytes()).hexdigest(),
+    }
+
+
+@task("scenario_lanes")
+def scenario_lanes(world: World, spec: dict) -> dict:
+    from distributedlpsolver_tpu_torch.backends.scenario import ScenarioBackend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+    from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq
+
+    spec = {"instance": "two_stage", "scenarios": 8, "block_m": spec.get("m", 6),
+            "block_n": spec.get("n", 14), "seed": 3, **spec}
+    t0 = time.perf_counter()
+    problem = _problem(spec)
+    t_gen = time.perf_counter() - t0
+    cfg = SolverConfig(tol=float(spec.get("tol", 1e-8)), max_iter=int(spec.get("max_iter", 200)),
+                       verbose=False)
+    # The lane axis over the world's mesh: each rank its block of lanes.
+    be = ScenarioBackend(mesh=world.mesh(axis="batch"))
+    launches0 = normal_eq.launches
+    t0 = time.perf_counter()
+    result = solve(problem, backend=be, config=cfg)
+    wall = time.perf_counter() - t0
+    x = result.x
+    out = {
+        "status": result.status.value, "objective": result.objective,
+        "iterations": result.iterations, "rel_gap": result.rel_gap, "pinf": result.pinf,
+        "dinf": result.dinf, "wall_s": wall, "setup_s": result.setup_time,
+        "solve_s": result.solve_time, "setup": dict(be.setup_report, generate_s=t_gen),
+        "k1_launches": normal_eq.launches - launches0,
+        "x_sha256": None if x is None else hashlib.sha256(x.tobytes()).hexdigest(),
+        **_scenario_fields(be, result),
     }
     if spec.get("return_xy") and x is not None:
         out["x"], out["y"] = x.tolist(), result.y.tolist()
@@ -432,19 +509,6 @@ def supervised_solve_task(world: World, spec: dict) -> dict:
         # next case starts on the whole world.
         world.barrier("case-done")
     return {"cases": out} if "cases" in spec else out[0]
-
-
-def _unported(name: str, item: str):
-    def run(world: World, spec: dict) -> dict:
-        raise NotImplementedError(
-            f"world task {name!r} is not ported to the torch package yet "
-            f"(ROADMAP Queue 1 item {item})"
-        )
-
-    return run
-
-
-task("scenario_lanes")(_unported("scenario_lanes", "13d"))
 
 
 def _write_result(out_dir: str, rank: int, payload: dict) -> None:

@@ -181,14 +181,17 @@ def test_solo_runs_are_bitwise_deterministic():
 
 
 def test_mesh_is_not_ported():
-    """The solo engine's column mesh is still refused (item 13d); the
-    bucket's lane mesh is ported (item 13b): over a local mesh of 2 the
-    lanes keep their unsharded bits (``test_torch_batch_mesh.py`` holds
-    the rest)."""
+    """The solo engine's column mesh solves (``test_torch_first_order_mesh.py``
+    holds it against the JAX package): over a local mesh of 2 at an odd n
+    the answer is OPTIMAL with x of the problem's width. The bucket's lane
+    mesh (item 13b): over a local mesh of 2 the lanes keep their unsharded
+    bits (``test_torch_batch_mesh.py`` holds the rest)."""
     from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
 
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        tfo.FirstOrderBackend(mesh=object(), device="cpu")
+    p = tgen.random_dense_lp(12, 31, seed=3)
+    be = tfo.FirstOrderBackend(mesh=mesh_lib.make_mesh(devices=["cpu"] * 2))
+    r = solve(p, backend=be, tol=1e-6)
+    assert r.status == Status.OPTIMAL and r.x.shape == (31,) and be._n_pad == 1
     batch, act = tgen.random_batched_lp(2, 4, 8), np.ones(2, bool)
     mesh = mesh_lib.make_mesh(axis_names=("batch",), devices=["cpu"] * 2)
     r = tfo.solve_pdhg_bucket(batch, act, mesh=mesh)

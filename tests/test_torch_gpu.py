@@ -10,7 +10,9 @@ count), and the batch mesh (K1 on a rank's lane block, a bucket over a
 gloo world of two sharing the card, ``mesh_devices`` beyond the card
 count refused), and the row-sharded tier (the ELL kernel on a rank's row
 block, an NCCL world of one against ``mesh=None`` bit for bit, a gloo world
-of two sharing the card), on the card.
+of two sharing the card), and the scenario tier's lane mesh and pdlp's
+column mesh (a mesh of one, local and an NCCL world, against ``mesh=None``
+bit for bit), on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -943,3 +945,54 @@ def test_dist_chol_on_the_card(cuda, m, panel):
                                                          devices=["cuda:0"]), panel=panel)
     got = inv.slabs[0][:m, :m].cpu().numpy()
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-12
+
+
+def test_scenario_mesh_of_one_matches_mesh_none_bit_for_bit(cuda):
+    """The scenario tier's lane mesh on a local mesh of one and on an NCCL
+    world of one on the card: mesh=None's x bit for bit, the same CG
+    count, one K1 launch a factorization over the member's lanes."""
+    from distributedlpsolver_tpu_torch.backends import scenario as tsc
+    from distributedlpsolver_tpu_torch.backends.scenario import ScenarioBackend
+    from distributedlpsolver_tpu_torch.models import two_stage_storm
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    p = two_stage_storm(32, 6, 10, 6, 2, seed=42).to_block_angular()
+    be0 = ScenarioBackend()
+    r0 = solve(p, backend=be0, tol=1e-8)
+    local = ScenarioBackend(mesh=mesh_lib.make_mesh(axis_names=("batch",), devices=["cuda:0"]))
+    rl = solve(p, backend=local, tol=1e-8)
+    world = _nccl_world_of_one()
+    try:
+        bw = ScenarioBackend(mesh=world.mesh(axis="batch"))
+        normal_eq.launches = 0
+        rw = solve(p, backend=bw, tol=1e-8)
+        launches = normal_eq.launches
+    finally:
+        world.close()
+    assert r0.status == Status.OPTIMAL
+    for r, be in ((rl, local), (rw, bw)):
+        assert np.array_equal(r.x, r0.x) and r.iterations == r0.iterations
+        assert be.cg_report()["cg_iters"] == be0.cg_report()["cg_iters"]
+        assert be.lane_ranges == [(0, 32)]
+    assert launches == 1 + tsc.last_solve_report()["factorizations"]
+
+
+def test_pdlp_mesh_shape_of_one_matches_mesh_none_bit_for_bit(cuda):
+    """pdlp with ``mesh_shape=(1,)`` on a dense A (a world of one, and an
+    NCCL world of one) on the card: mesh=None's x bit for bit and inner
+    steps, the loop captured with its all-reduces inside."""
+    p = random_dense_lp(64, 256, seed=4)
+    r0 = solve(p, backend="pdlp", tol=1e-4)
+    be = get_backend("pdlp")
+    r1 = solve(p, backend=be, tol=1e-4, mesh_shape=(1,))
+    world = _nccl_world_of_one()
+    try:
+        bw = get_backend("pdlp")
+        rw = solve(p, backend=bw, tol=1e-4, mesh_shape=(1,))
+    finally:
+        world.close()
+    for r, b in ((r1, be), (rw, bw)):
+        assert b.mesh is not None and b.phase_report[0]["captured"] is True
+        assert r.status == r0.status and r.iterations == r0.iterations
+        assert np.array_equal(r.x, r0.x)
+    assert bw.mesh.pg_backend == "nccl"

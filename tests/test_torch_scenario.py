@@ -207,9 +207,10 @@ def test_factors_and_one_application_match_through_interop(name, K):
     tens, lay = interop.scenario_tensors_from_arrays(**st, m=jinf.m, n=jinf.n, device=CPU)
     # The port's own stacks, scattered from A, are the reference's.
     assert tuple(lay) == tuple(tbe.layout) and lay.K == K
+    (own,) = tbe._parts
     for f in tens._fields:
-        assert torch.equal(getattr(tens, f), getattr(tbe._t, f)), f
-    tbe._t = tens
+        assert torch.equal(getattr(tens, f), getattr(own, f)), f
+    tbe._parts = [tens]
 
     rng = np.random.default_rng(3)
     d = rng.uniform(0.1, 10.0, jinf.n)
@@ -218,7 +219,7 @@ def test_factors_and_one_application_match_through_interop(name, K):
     Lj, Cj = jsc._schur_factor_jit(st["W"], st["T"], dK, st["rowmask"], reg,
                                    np.zeros((lay.n0, lay.n0)))
     dt = torch.tensor(d)
-    Lt, Ct = tbe._schur_factor(tsc._pad(dt)[tens.cols_idx], reg)
+    Lt, Ct = tbe._schur_factor(tens, tsc._pad(dt)[tens.cols_idx], reg)
     assert _close(Lt, Lj) and _close(Ct, Cj)
     LHj, Gj, LFj = jsc._link_factor_jit(Cj, d[st["cols0"]], st["A0"], reg)
     LHt, Gt, LFt = tbe._link_factor(Ct, dt[tens.cols0], reg)
@@ -275,8 +276,19 @@ def test_setup_errors_match_the_reference(name):
 
 
 def test_mesh_is_refused_naming_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_backend("scenario", device=CPU, mesh=object())
+    """The lane mesh solves: over a local mesh of 2 (the CPU twice) each
+    member holds its half of the padded lanes, and the answer is the
+    unsharded solve's (``test_torch_scenario_mesh.py`` holds the rest)."""
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    p = _small(tms, 4, 3).to_block_angular()
+    be = get_backend("scenario", mesh=mesh_lib.make_mesh(axis_names=("batch",),
+                                                         devices=[CPU] * 2))
+    r = solve(p, backend=be, tol=1e-8)
+    r0 = solve(p, backend=_scenario(), tol=1e-8)
+    assert be.lane_ranges == [(0, 2), (2, 4)]
+    assert r.status == Status.OPTIMAL and r.iterations == r0.iterations
+    assert _rel(r.objective, r0.objective) <= 1e-8
 
 
 # -- routes -------------------------------------------------------------------------
