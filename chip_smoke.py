@@ -10,7 +10,13 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    ``nvcc`` per source started together, prints nvcc's
    register/shared-memory report, and
    counts the ``DMMA`` (FP64 tensor-core) instructions in the f64
-   kernel's SASS (``cuobjdump -sass``); none is a failure;
+   kernel's SASS (``cuobjdump -sass``); none is a failure. From the build
+   on, the port's static-analysis gate (``python3 -m
+   distributedlpsolver_tpu_torch check --json`` over the package, in a
+   subprocess with a 120 s limit, host only) runs beside the build and
+   step 2's parity checks, and is awaited before any timed step; any
+   exit code but 0 fails the run, and a ``graftcheck`` line prints its
+   findings (0), the suppressed count and its seconds;
 2. holds the kernel's lower triangle against its plain PyTorch version's
    on the card (the kernel mirrors it into the upper half; Frobenius-relative
    error ≤ 1e-12 f64, ≤ 1e-5 f32, ≤ 1e-4 bf16, and in bf16 at most a
@@ -35,17 +41,18 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
 5. solves the main path with the host loop (``fused_loop=False``) and
    host-segmented (``segment_iters=4``): same status and iterations as
    the fused loop, objective within 1e-12 relative, launches equal to the
-   factorizations; prints whether x is bitwise equal. Cold solves (the
-   first in a process) of the fused and the host loop run in fresh
-   processes (``chip_smoke.py --one-solve``). The zero-row LP
+   factorizations; prints whether x is bitwise equal. A cold solve (the
+   first in a process) of the fused loop runs in a fresh process
+   (``chip_smoke.py --one-solve``). The zero-row LP
    (presolve off, no regularization) must end ``numerical_error`` at 0
    iterations through the fused loop;
 6. runs the CLI, ``cli solve tests/fixtures/maximize.mps --backend cuda``;
-7. profiles a warm main-path solve of the fused and of the host loop
-   with ``torch.profiler``: device busy ms, idle share, host-clock solve
-   s, device operations and host launch calls per solve, and the
-   device-time breakdown by kernel (Chrome traces written to
-   ``build/dlps_torch/main_path_{fused,host}_trace.json``);
+7. profiles a warm main-path solve of the fused loop with
+   ``torch.profiler`` (the host loop's profile was cut for the script's
+   time): device busy ms, idle share, host-clock solve s, device
+   operations and host launch calls per solve, and the device-time
+   breakdown by kernel (no Chrome trace is written: nothing read them,
+   and writing them cost the run's time);
 8. the batched solver (``backends/batched.py::solve_batched``), with
    vmap's per-sample fallback off: K1 with a lane axis at the full width
    (1024 lanes of 128×512, f64) and on a ragged batch of 3 lanes of
@@ -64,8 +71,7 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    iteration limit with its budget spent (the JAX package's verdict);
    every 32nd member, and any left unfinished, against HiGHS (1e-8) and
    the dense solo solve on the card (1e-8, both stopping at a 1e-8 gap);
-   and a profiled warm solve
-   (trace ``build/dlps_torch/batched_trace.json``);
+   and a profiled warm solve;
 9. the serve phase (``serve/service.py::SolveService`` over
    ``backends/batched.py::solve_bucket``) at the batched member width,
    every request padded into the bucket (128, 512, 256): K1 at the bucket
@@ -73,9 +79,9 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    ``torch.einsum``; then ``SolveService(ServiceConfig(batch=256,
    flush_s=0.02))`` on the card driven with three waves — a cold
    ``random_request_stream(1024, shapes=((96, 384), (128, 512)),
-   seed=21)``, a warm one (``seed=22``) and
-   ``correlated_request_stream(512, shapes=((128, 512),), n_models=4,
-   seed=23)`` — with the K1 count reset just before each wave and read
+   seed=21)``, a warm one of 512 (``seed=22``) and
+   the first 256 of ``correlated_request_stream(512, shapes=((128, 512),),
+   n_models=4, seed=23)`` — with the K1 count reset just before each wave and read
    just after: every request OPTIMAL, or at the iteration limit with its
    bucket's and its solo solve's budgets spent (the JAX package's verdict
    for such a request), every 32nd against HiGHS (1e-8; HiGHS at
@@ -85,10 +91,11 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    launches of each dispatch equal to its start + warm selection +
    bodies; printed per wave: requests/s, p50/p99 latency, pack / compile /
    solve / overlap ms, padding waste, bodies per dispatch, solo
-   fallbacks and peak device memory; then a fourth wave of 512 requests
-   under ``torch.profiler`` (device busy ms and idle share of its wall,
-   trace ``build/dlps_torch/serve_trace.json``). Then ``cli serve --requests`` on 8
-   requests of 128×512 in a subprocess, all ``optimal``;
+   fallbacks and peak device memory; then a fourth wave of 256 requests
+   under ``torch.profiler`` (device busy ms and idle share of its wall).
+   And ``cli serve --requests`` on 8 requests of 128×512 in a
+   subprocess, all ``optimal`` (started right after the build, beside the
+   gate, and awaited with it before step 3);
 10. the default backend of the CLI and the service, ``auto``:
    ``solve(random_dense_lp(2048, 10240, seed=0), backend="auto")`` must
    report ``auto(cuda)``, give x bit for bit equal to ``backend="cuda"``
@@ -101,16 +108,17 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    batched member 775) — ``cuda`` for each, where the JAX package's
    accelerator route sends the small ones to the host — the fixtures
    solved by ``auto`` to check that the route taken is the route printed;
-12. the solo cost on both routes: the serve streams' stragglers (cold
-   request 1007, correlated request 187) and member 775, each solved
-   alone by the supervised solo path on the ``cuda`` host loop and, asked
-   for by name, on ``cpu-native`` (CPU numbers, with the host's CPU model
-   and the native library's threads);
+12. the solo cost on both routes: the cold serve stream's straggler
+   (request 1007) solved alone by the supervised solo path on the
+   ``cuda`` host loop and, asked for by name, on ``cpu-native`` (CPU
+   numbers, with the host's CPU model and the native library's threads),
+   and each again unsupervised;
 13. in the serve phase (step 9), under the JAX package's default
    ``ServiceConfig(batch=256, flush_s=0.02)`` (solo ``auto``, PDHG
    routing on): the three waves' solo fallbacks on ``auto(cuda)``, the
-   cold wave again with ``solo_backend="cpu-native"`` (the host route,
-   asked for by name), and the PDHG wave —
+   cold wave's last 256 requests (its straggler among them) again with
+   ``solo_backend="cpu-native"`` (the host route, asked for by name), and
+   the PDHG wave —
    ``warm_buckets(..., tol=1e-4)``, then ``sparse_request_stream(1024,
    seed=25)`` at tol 1e-4 with ``random_request_stream(64, seed=26)`` at
    1e-8 interleaved: every loose request on engine ``pdhg`` and every
@@ -153,27 +161,29 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    operand near the m×m normal matrix), the kernel's launches counted per
    function and direction, CG iterations, host syncs per Newton solve,
    peak device memory and one step (iteration 10) under
-   ``torch.profiler``; then solved again, x bit for bit; the ILDL rung (``netlib_sparse_lp(120, 220,
+   ``torch.profiler`` (the rows phase's world of one is held to this
+   solve bit for bit); the ILDL rung (``netlib_sparse_lp(120, 220,
    seed=10)``, precond "auto"); the ladder (a supervised ``cuda`` solve
    whose injected crashes exhaust its rungs degrades to
    ``sparse-iterative`` on the card; a K1 that fails to load ends in
    ``KernelError``, not degraded); the reference's acceptance instance
-   ``storm_sparse_lp(**STORM_20K)`` solved twice (the JAX package's
-   iterations, preconditioner and objective from
+   ``storm_sparse_lp(**STORM_20K)`` (the JAX package's iterations,
+   preconditioner and objective from
    ``scripts/port_sparse_jax_verdicts.py``, HiGHS in a side process
-   within 1e-7, the memory guard, x bit for bit);
+   within 1e-7 (in a whole run started before step 17), the memory
+   guard; the rows phase's gloo worlds are held to this solve);
 17. the network plane (``plane_phase``; ``--plane-only`` runs the build
    and this phase alone), at the serve configuration's width (f64, tol
    1e-8, the bucket (128, 512, 256), ``ServiceConfig(batch=256,
    flush_s=0.02)``): (a) in process, two ``SolveService``s on the card,
    each after ``warm_buckets`` (IPM at 1e-8, PDHG at 1e-4), each behind a
    ``SolveHTTPServer``, and a ``Router`` + ``RouterHTTPServer`` over both;
-   64 client threads POST to the router the first 256 of the serve
+   64 client threads POST to the router the first 128 of the serve
    phase's cold stream as generated specs, 16 inline ``c/A/b`` bodies and
    4 ``mps_text`` bodies (``random_request_stream(20, seed=26)``), and the
-   PDHG wave's first 32 loose requests at tol 1e-4, interleaved (308
-   requests: the wave's depth is cut from 1,232 to keep the whole script
-   inside its limit; the widths are the serve cell's); every answer OPTIMAL
+   PDHG wave's first 16 loose requests at tol 1e-4, interleaved (164
+   requests: the wave's depth is cut from 1,232, then 308, to keep the
+   whole script within half its limit; the widths are the serve cell's); every answer OPTIMAL
    or the JAX package's verdict, every 32nd IPM answer against HiGHS
    (1e-8), every OPTIMAL PDHG answer within the tol on its padded problem
    and ``PDHG_REQUEST_KKT_BOUND`` on its own data, K1's launches (reset
@@ -181,7 +191,7 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    selection + bodies, no program built and no graph captured, and
    ``/healthz`` ``devices_healthy: 1`` from the torch probe on each
    backend; printed: requests/s, p50/p99 through HTTP, the routed counts,
-   and the same 256 generated requests through ``svc.submit`` on a fresh
+   and the same 128 generated requests through ``svc.submit`` on a fresh
    service. (b) As processes: two ``cli serve-http`` backends (``--device``
    defaulting to the card, ``--buckets`` + ``--warm-buckets``,
    ``--registry``, journals) and ``cli route --registry``; 32 async
@@ -193,8 +203,12 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    once the records be-a lost with its process are counted from its
    journal; consistent exactly when it lost none); then each backend's
    ``/statusz`` K1 launches > 0, a drain by ``/quitquitquit``, ``cli
-   report`` over the backends' logs; then ``cli elastic --min-backends 1 --max-backends 2`` scales out
-   under a burst and back in after it;
+   report`` over the backends' logs; and ``cli elastic --min-backends 1
+   --max-backends 2`` (started beside the two backends, so that its first
+   backend comes up with theirs, and driven beside the steps after them)
+   scales out under a burst and back in after it. In a whole run step
+   21's ``cli serve-slice`` leg runs beside (b), and HiGHS's side process
+   for step 16 starts before this step;
 18. the block-angular tier (``block_phase``; ``--block-only`` runs the
    build and this phase alone), the pds family's classes at full width,
    ``block_angular_lp(K, 432, 1400, link, seed=0, sparse=True,
@@ -234,8 +248,9 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    and ``supervised_solve`` on ``block`` over a gloo world of 4 with
    DEVICE_LOST of rank 3 at iteration 3 (``shrink:4->3``, K 32 -> 33 over
    3 survivors, their x bits equal, within 1e-8 of mesh=None's objective,
-   ``recovery_overhead_s`` printed), both gloo legs as second cases of
-   the worlds of steps 20 and 22 in a whole run; and K1 at rank 0's
+   ``recovery_overhead_s`` printed), in a whole run the world of 2 as a
+   world of step 20 and the shrink as a case of step 21's world of 4;
+   and K1 at rank 0's
    shares on those worlds (16, 8 and 11 lanes of 432 × 1263; 800 ×
    (K_r·1263 + 5831) linking columns) held and timed as above;
 19. the stochastic scenario tier (``scenario_phase``; ``--scenario-only``
@@ -258,8 +273,7 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    stormG2's blocks at K = 8 through ``scenario``
    (``storm_sparse_lp(8, 528, 1259, 121, seed=1, t_nnz_per_row=2,
    w_nnz_per_row=4)`` with a ``two_stage`` hint; the same checks, and the
-   ELL kernel on its operator), then K = 16 for its first 30 iterations,
-   printed and not a gate; K1 at the main path's lanes (1024 × 24 × 36),
+   ELL kernel on its operator); K1 at the main path's lanes (1024 × 24 × 36),
    at the K = 8 path's (8 × 528 × 1259) and over a full bucket at that
    width (1024 × 528 × 1259, which no path runs) against its plain
    version (lower triangles ≤ 1e-12, M = Mᵀ and two launches bit for bit,
@@ -268,9 +282,9 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    then ``cli solve`` (no hint in the file: ``auto``'s detection,
    ``auto(scenario)``, the JAX CLI's verdict); a ``SolveService`` on the
    card with the reference's delta wave (median warm iterations below the
-   cold ones), a 64-scenario warm-up and K = 33, 41, 49, 57 (one bucket,
-   admission units ``ceil(K/16)`` off the tenant's tokens; every eighth K
-   of 33..64, to fit the script's time), a 64-scenario HTTP body
+   cold ones), a 64-scenario warm-up and K = 33, 49 (one bucket,
+   admission units ``ceil(K/16)`` off the tenant's tokens; every
+   sixteenth K of 33..64, to fit the script's time), a 64-scenario HTTP body
    (200 OPTIMAL), and ``stats()["scenario"]``, the metrics and ``cli
    report``'s table over the log reconciled; the lane mesh
    (``ScenarioBackend(mesh=)``): the main path through the
@@ -287,33 +301,36 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    timed as above;
 20. the column-sharded dense backend (``sharded_phase``;
    ``--sharded-only`` runs the build and this phase alone): the card
-   count; K1 at the shard shapes of the gloo worlds below (f64 2048 ×
-   5,120 and 2048 × 2,560) and at 10000 × 50000 against its plain
-   version (lower triangles ≤ 1e-12, M = Mᵀ and two launches bit for
-   bit), timed beside ``torch.einsum`` and its bound; ``BASELINE.json``
-   config 3, ``random_dense_lp(10000, 50000, seed=2)`` at tol 1e-8,
-   generated once and solved through ``sharded`` on an NCCL world of one
-   formed in this process and through ``cuda`` — both OPTIMAL, the same
+   count; K1 at the shard shape of the gloo world of 2 below (f64 2048 ×
+   5,120) against its plain version (lower triangle ≤ 1e-12, M = Mᵀ and
+   two launches bit for bit), timed beside ``torch.einsum`` and its
+   bound; the main path's problem, ``random_dense_lp(2048, 10240,
+   seed=0)`` at tol 1e-8, through ``cuda`` and through ``sharded`` on an
+   NCCL world of one formed in this process — both OPTIMAL, the same
    iterations and K1 launches (each reset before, read after), x bit for
-   bit — with each solve's host setup by part (generation, presolve,
-   scaling, the transfer, the starting point), wall and ms an iteration,
+   bit — with each solve's host setup by part, wall and ms an iteration,
    then three clocked iterations of the sharded step (K1 on the shard,
-   the all-reduces, the Cholesky, the rest); then gloo worlds of 2 and 4
-   ranks sharing the card (``run_world("sharded_solve", ...)``,
-   subprocesses waited on with a deadline; any rank's failure fails the
-   run) on ``random_dense_lp(2048, 10240, seed=0)`` with the stage clock:
-   every rank OPTIMAL with the same x bits, K1 at its shard's shape, the
-   objective within 1e-8 of ``cuda``'s; every answer of the phase held
-   to its problem (row violation ≤ 1e-7 × (1 + max |row bound|), rel_gap
-   ≤ 1e-8, host |cᵀx − bᵀy| ≤ 1e-7 relative); the world of 2 also
+   the all-reduces, the Cholesky, the rest); then a gloo world of 2 ranks
+   sharing the card (``run_world("sharded_cases", ...)``, subprocesses
+   waited on with a deadline; any rank's failure fails the run) on the
+   same problem with the stage clock: every rank OPTIMAL with the same x
+   bits, K1 at its shard's shape, the objective within 1e-8 of
+   ``cuda``'s; every answer of the phase held to its problem (row
+   violation ≤ 1e-7 × (1 + max |row bound|), rel_gap ≤ 1e-8, host |cᵀx −
+   bᵀy| ≤ 1e-7 relative); at the same time a second gloo world of 2
    solves step 14's problem through pdlp with ``mesh_shape=(2,)`` (5,120
-   columns a rank, uncaptured: both ranks the same x bits, OPTIMAL, step
-   14's host KKT checks on the scaled form at the tol and
-   ``PDHG_REQUEST_KKT_BOUND`` on the given data, the objective within
-   2·tol·(1 + |obj|) of the solo answer's; with ``--sharded-only`` the
-   solo answer is solved here) and, in a whole run, steps 18 and 19's
-   gloo cases; with two cards or more, an NCCL world over the cards on
-   the same problem;
+   columns a rank,
+   uncaptured: both ranks the same x bits, OPTIMAL, step 14's host KKT
+   checks on the scaled form at the tol and ``PDHG_REQUEST_KKT_BOUND`` on
+   the given data, the objective within 2·tol·(1 + |obj|) of the solo
+   answer's; with ``--sharded-only`` the solo answer is solved here) and,
+   in a whole run, a third runs steps 18 and 19's gloo cases; with two
+   cards or more, an NCCL world over the cards on the same problem.
+   (``BASELINE.json`` config 3, 10000 × 50000, is not solved here: K1 at
+   that shape is held and timed in steps 2–3; its solve, host presolve
+   and scaling ~25 s of a ~30 s wall, and the world of 4, the shrink's in
+   step 21 runs that split, were cut to keep the script within its time
+   limit on a slower host);
 21. the serving slice and the elastic shrink (``slice_phase``;
    ``--slice-only`` runs the build and this phase alone): K1 at a rank's
    lane block of the serve bucket over a world of 2 (f64 128 × 128 × 512)
@@ -327,18 +344,21 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    rank's bodies, lane by lane the one-process dispatch's status and
    iterations with objectives within 1e-8 (the world of one x bit for
    bit), the gathered x equal on both gloo ranks (the lanes bit for bit
-   with the one-process dispatch counted); ``cli serve-slice --world-size
-   2 --pg-backend gloo`` behind its HTTP front-end with a registry: the
-   first 96 of the serve phase's cold stream through 64 clients (every
-   answer OPTIMAL, every 32nd against HiGHS), then 32 async requests and
-   a SIGKILL of rank 1 — the world dies as a unit, the supervisor
-   relaunches a world of one on the same port and journal
-   (``world_reinit`` with ``recovery_overhead_s``), every acknowledged
-   id resolves, no duplicate solve; the SHRINK rung on ``sharded`` over a
-   gloo world of 4 (``random_dense_lp(2048, 10240, seed=0)``, DEVICE_LOST
-   of rank 3 at iteration 3: ``shrink:4->3``, OPTIMAL within 1e-8 of
-   ``cuda``'s objective, the survivors' x bits equal, each survivor's
-   answer held to the problem; with ``min_devices=4``: ``degrade:cuda``);
+   with the one-process dispatch counted); at the same time as those two
+   worlds, the SHRINK rung on ``sharded`` over a gloo world of 4
+   (``random_dense_lp(2048, 10240, seed=0)``, DEVICE_LOST of rank 3 at
+   iteration 3: ``shrink:4->3``, OPTIMAL within 1e-8 of ``cuda``'s
+   objective, the survivors' x bits equal, each survivor's answer held to
+   the problem; with ``min_devices=4``: ``degrade:cuda``; in a whole run
+   step 18's block shrink is its third case) and (with ``--slice-only``;
+   in a whole run beside step 17's ``cli`` processes) ``cli
+   serve-slice --world-size 2 --pg-backend gloo`` behind its HTTP
+   front-end with a registry: the first 48 of the serve phase's cold
+   stream through 64 clients (every answer OPTIMAL, every 32nd against
+   HiGHS), then 32 async requests and a SIGKILL of rank 1 — the world
+   dies as a unit, the supervisor relaunches a world of one on the same
+   port and journal (``world_reinit`` with ``recovery_overhead_s``),
+   every acknowledged id resolves, no duplicate solve;
    ``ServiceConfig(mesh_devices=cards + 1)`` raises naming the card count;
 22. the row-sharded matrix-free tier (``rows_phase``; ``--rows-only``
    runs the build and this phase alone): the ``sparse_rows`` task on
@@ -356,8 +376,9 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    full-shape A (A_r·v, A_rᵀ·v and the diagonal against their plain
    versions at ``ELL_TOL``, every empty row of A_rᵀ·w an exact +0, timed
    paced and L2-cold beside cuSPARSE and the bound) and the block's
-   memory against the whole operator's; then gloo worlds sharing the
-   card at the 20,480-row acceptance instance: ``sparse_rows`` over 2
+   memory against the whole operator's; then two gloo worlds at once,
+   sharing the card, at the 20,480-row acceptance instance (held to step
+   16's ``mesh=None`` solve of it): ``sparse_rows`` over 2
    ranks (every rank OPTIMAL at the ``mesh=None`` solve's IPM iterations
    and objective within 1e-8, the same x bits and CG iterations on both,
    each answer held to the problem) and ``supervised_solve`` on
@@ -375,6 +396,7 @@ result line.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import importlib
 import importlib.util
@@ -385,6 +407,7 @@ import signal
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -406,6 +429,47 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+GRAFTCHECK_TIMEOUT_S = 120.0
+
+
+def start_graftcheck():
+    """Start ``python3 -m distributedlpsolver_tpu_torch check --json`` over
+    the package in a subprocess; returns (process, start time, output file)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = open(os.path.join(ROOT, "build", "graftcheck.json"), "w+")
+    cmd = [sys.executable, "-m", "distributedlpsolver_tpu_torch", "check", "--json",
+           os.path.join(ROOT, "distributedlpsolver_tpu_torch")]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.PIPE, text=True)
+    atexit.register(_stop, proc)  # a run that fails first leaves no gate behind
+    return proc, time.perf_counter(), out
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def finish_graftcheck(proc, t0, out):
+    """Wait for the gate within its limit; any exit code but 0 fails the run."""
+    try:
+        _, err = proc.communicate(timeout=max(1.0, GRAFTCHECK_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        out.close()
+        fail(f"graftcheck did not finish within {GRAFTCHECK_TIMEOUT_S:.0f} s")
+    secs = time.perf_counter() - t0
+    out.seek(0)
+    text = out.read()
+    out.close()
+    if proc.returncode != 0:
+        fail(f"graftcheck exited {proc.returncode}: {text[-2000:]} {err[-2000:]}")
+    counts = json.loads(text)["counts"]
+    print(f"graftcheck: {counts['findings']} finding(s), {counts['suppressed']} suppressed, "
+          f"{secs:.2f} s (python3 -m distributedlpsolver_tpu_torch check --json, exit 0)")
 
 
 def cuda_ms(torch, fn, iters: int, warm: int) -> float:
@@ -736,11 +800,10 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMe
                 "cudaMemsetAsync")
 
 
-def device_profile(torch, run, tag):
+def device_profile(torch, run):
     """``run()`` under ``torch.profiler``: its result, and the kernel
     time by category and by kernel, device busy time, the operations on
-    the card and the host calls that launched them. The Chrome trace goes
-    to ``build/dlps_torch/{tag}_trace.json``."""
+    the card and the host calls that launched them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -772,9 +835,6 @@ def device_profile(torch, run, tag):
         ) if any(w in k for w in words)), "elementwise_reduce_other")
         categories[cat] = categories.get(cat, 0.0) + ms
         names.setdefault(cat, []).append(key[:80])
-    out_dir = os.path.join(ROOT, "build", "dlps_torch")
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
     return r, {
         "device_busy_ms": sum(t[1] for t in kernels),
         "device_ops": sum(t[2] for t in kernels), "host_launch_calls": calls,
@@ -792,8 +852,7 @@ def profile_main_path(torch, m, n, seed, tag, **loop_kw):
     from distributedlpsolver_tpu_torch.models import random_dense_lp
 
     p = random_dense_lp(m, n, seed=seed)
-    r, prof = device_profile(torch, lambda: solve(p, backend="cuda", tol=1e-8, **loop_kw),
-                             f"main_path_{tag}")
+    r, prof = device_profile(torch, lambda: solve(p, backend="cuda", tol=1e-8, **loop_kw))
     return {
         "loop": tag, "iterations": r.iterations, "solve_s_profiled": r.solve_time,
         "setup_s_profiled": r.setup_time, "device_busy_ms": prof["device_busy_ms"],
@@ -972,7 +1031,7 @@ def batched_phase(torch, ne, card):
     # Where a warm batched solve's device time goes.
     from distributedlpsolver_tpu_torch.backends.batched import solve_batched
 
-    r, prof = device_profile(torch, lambda: solve_batched(batch, tol=1e-8), "batched")
+    r, prof = device_profile(torch, lambda: solve_batched(batch, tol=1e-8))
     prof_row = {
         "solve_s_profiled": r.solve_time, "setup_s_profiled": r.setup_time,
         "device_busy_ms": prof["device_busy_ms"],
@@ -1105,11 +1164,43 @@ def serve_wave(torch, ne, svc, tag, problems, card, tols=None):
     return row, results
 
 
+def start_cli_serve():
+    """Step 9's ``cli serve --requests`` on 8 requests of 128×512, in a
+    fresh process (started beside the gate, before any timed step)."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="dlps-cli-serve-")
+    req = os.path.join(d, "requests.jsonl")
+    with open(req, "w") as fh:
+        for k in range(8):
+            fh.write(json.dumps({"m": BM, "n": BN, "seed": k}) + "\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributedlpsolver_tpu_torch.cli", "serve", "--requests", req],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    atexit.register(_stop, proc)
+    return proc, d
+
+
+def finish_cli_serve(proc, d):
+    """Wait for :func:`start_cli_serve`'s process: every request optimal."""
+    import shutil
+
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("cli serve: no answer within 600 s")
+    shutil.rmtree(d, ignore_errors=True)
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(recs) != 8 or any(r["status"] != "optimal" for r in recs):
+        fail(f"cli serve: rc {proc.returncode}, {[r.get('status') for r in recs]}\n{err[-3000:]}")
+    print(f"cli serve: 8 requests of {BM}x{BN}, all optimal, iterations {[r['iterations'] for r in recs]}")
+
+
 def serve_phase(torch, ne, card):
     """The serve phase (see the module note, step 9). Returns K1's parity
     and timing at the bucket shape and the waves' rows."""
-    import tempfile
-
     from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
     from distributedlpsolver_tpu_torch.models import (
         correlated_request_stream,
@@ -1128,8 +1219,9 @@ def serve_phase(torch, ne, card):
 
     waves = [
         ("cold", list(random_request_stream(1024, shapes=((96, 384), (BM, BN)), seed=21))),
-        ("warm", list(random_request_stream(1024, shapes=((96, 384), (BM, BN)), seed=22))),
-        ("correlated", list(correlated_request_stream(512, shapes=((BM, BN),), n_models=4, seed=23))),
+        ("warm", list(random_request_stream(512, shapes=((96, 384), (BM, BN)), seed=22))),
+        ("correlated", list(correlated_request_stream(512, shapes=((BM, BN),), n_models=4,
+                                                      seed=23))[:256]),
     ]
     rows = {}
     max_iter = SolverConfig().max_iter
@@ -1177,9 +1269,9 @@ def serve_phase(torch, ne, card):
         for tag, problems in waves:
             ipm_wave(svc, tag, problems)
         # Where a warm wave's time goes: one more wave under the profiler.
-        extra = list(random_request_stream(512, shapes=((96, 384), (BM, BN)), seed=24))
+        extra = list(random_request_stream(256, shapes=((96, 384), (BM, BN)), seed=24))
         (prow, _), prof = device_profile(
-            torch, lambda: serve_wave(torch, ne, svc, "profiled", extra, card), "serve")
+            torch, lambda: serve_wave(torch, ne, svc, "profiled", extra, card))
         print("profile_serve " + json.dumps({
             "wall_s": prow["wall_s"], "device_busy_ms": prof["device_busy_ms"],
             "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * prow["wall_s"]),
@@ -1187,11 +1279,12 @@ def serve_phase(torch, ne, card):
         }) + f" [{card}]")
         rows["pdhg"] = pdhg_wave(torch, ne, svc, card)
         stats = svc.stats()
-    # Both solo routes on the same requests: the cold wave again, its solo
-    # fallbacks on the host's cpu-native, asked for by name.
+    # Both solo routes on the same requests: the cold wave's last 256
+    # again (its straggler, 1007, among them), their solo fallbacks on the
+    # host's cpu-native, asked for by name.
     with SolveService(ServiceConfig(batch=SERVE_BATCH, flush_s=0.02,
                                     solo_backend="cpu-native")) as svc:
-        ipm_wave(svc, "cold_host_solo", waves[0][1])
+        ipm_wave(svc, "cold_host_solo", waves[0][1][-SERVE_BATCH:])
     if rows["cold_host_solo"]["graphs_captured"] or rows["cold_host_solo"]["programs_built"]:
         fail("serve cold_host_solo: a bucket program was built or captured")
     print(f"serve solo routes on the cold wave: auto {rows['cold']['solo_backends']} "
@@ -1212,20 +1305,6 @@ def serve_phase(torch, ne, card):
         "requests", "dispatches", "programs_compiled", "pack_ms_total", "overlap_ms_total",
         "warm_cache", "buckets")}) + f" [{card}]")
 
-    # The CLI, in a fresh process: 8 requests of 128×512.
-    with tempfile.TemporaryDirectory() as d:
-        req = os.path.join(d, "requests.jsonl")
-        with open(req, "w") as fh:
-            for k in range(8):
-                fh.write(json.dumps({"m": BM, "n": BN, "seed": k}) + "\n")
-        proc = subprocess.run(
-            [sys.executable, "-m", "distributedlpsolver_tpu_torch.cli", "serve", "--requests", req],
-            capture_output=True, text=True, timeout=600, cwd=ROOT,
-        )
-    recs = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    if proc.returncode != 0 or len(recs) != 8 or any(r["status"] != "optimal" for r in recs):
-        fail(f"cli serve: rc {proc.returncode}, {[r.get('status') for r in recs]}\n{proc.stderr[-3000:]}")
-    print(f"cli serve: 8 requests of {BM}x{BN}, all optimal, iterations {[r['iterations'] for r in recs]}")
     return parity, timing, rows
 
 
@@ -1346,9 +1425,9 @@ PLANE_CLIENTS = 64
 # draws run in order). The JAX package's verdict that is not OPTIMAL in the
 # whole stream: request 1007 stops at the iteration limit in its bucket and
 # its solo solve (scripts/port_serve_jax_verdicts.py).
-PLANE_GEN = 256
+PLANE_GEN = 128
 PLANE_GEN_JAX_NOT_OPTIMAL = {1007: ["iteration_limit"]}
-PLANE_LOOSE = 32  # the first loose requests of the PDHG wave's stream
+PLANE_LOOSE = 16  # the first loose requests of the PDHG wave's stream
 PLANE_INLINE, PLANE_MPS = 16, 4  # requests 0-15 / 16-19 of the tight stream
 
 
@@ -1614,7 +1693,7 @@ def plane_inprocess(torch, ne, card):
                      for s in sorted({a[1].get("status") for a in answers})},
     }
     print("plane_http " + json.dumps(row) + f" [{card}]")
-    # The same 1024 IPM requests through svc.submit, on a fresh service
+    # The same generated IPM requests through svc.submit, on a fresh service
     # (its warm cache empty, as the HTTP wave's was).
     gen = [r[4] for r in reqs if r[0] == "generated"]
     with SolveService(ServiceConfig(batch=SERVE_BATCH, flush_s=0.02)) as svc:
@@ -1694,8 +1773,13 @@ def plane_cli(card):
         json.dump([{"m": BM, "n": BN, "batch": SERVE_BATCH}], fh)
     reg = os.path.join(work, "registry.json")
     logs = {n: os.path.join(work, f"{n}.serve.jsonl") for n in ("be-a", "be-b")}
+    pool = None
     t0 = time.perf_counter()
     try:
+        # The elastic controller's first backend comes up beside the two
+        # served below; its burst runs beside the steps after them (its
+        # fleet shares nothing with theirs but the card).
+        elastic = plane_elastic_start(plane, work, ladder)
         bes = {}
         for name in ("be-a", "be-b"):
             bes[name] = plane.spawn_backend(
@@ -1711,13 +1795,13 @@ def plane_cli(card):
         if not plane.wait_ready(router, 60):
             fail("plane cli: the router did not come up")
         out["up_s"] = time.perf_counter() - t0
+        pool = ThreadPoolExecutor(1)
+        fut_elastic = pool.submit(plane_elastic, plane, *elastic)
         _wait(lambda: sum(b["healthy"] for b in _http_json(router.url + "/statusz")[1]
                           .get("backends", [])) == 2, 60, "the router never saw both backends")
         # A routed wave on the healthy fleet; once it is drained, cli
         # obs-agg must reconcile the router's ledger with the backends'
         # records and journals, every check "ok".
-        from concurrent.futures import ThreadPoolExecutor
-
         with ThreadPoolExecutor(16) as ex:
             answers = list(ex.map(lambda k: _http_json(
                 router.url + "/v1/solve", {"m": BM, "n": BN, "seed": 6900 + k}), range(16)))
@@ -1822,8 +1906,10 @@ def plane_cli(card):
             fail(f"plane cli: report rc {rep.returncode}: {rep.stderr[-2000:]}")
         report = json.loads(rep.stdout)
         out["report_keys"] = sorted(report)[:12]
-        out["elastic"] = plane_elastic(plane, work, ladder)
+        out["elastic"] = fut_elastic.result()
     finally:
+        if pool is not None:
+            pool.shutdown(wait=False)  # its result is in hand, or the run has failed
         plane.shutdown_all()
     out["wall_s"] = time.perf_counter() - t0
     print("plane_cli " + json.dumps(out) + f" [{card}]")
@@ -1831,11 +1917,9 @@ def plane_cli(card):
     return out
 
 
-def plane_elastic(plane, work, ladder):
-    """``cli elastic --min-backends 1 --max-backends 2``: scale out under a
-    burst of async requests, back in when it ends."""
-    import threading
-
+def plane_elastic_start(plane, work, ladder):
+    """Start ``cli elastic --min-backends 1 --max-backends 2``; returns its
+    registry and log paths."""
     reg = os.path.join(work, "elastic-registry.json")
     log = os.path.join(work, "elastic.jsonl")
     plane.spawn_controller("elastic", reg, min_backends=1, max_backends=2, buckets_json=ladder,
@@ -1843,6 +1927,13 @@ def plane_elastic(plane, work, ladder):
                                         "--out-sustain-s", "0.5", "--in-sustain-s", "2",
                                         "--cooldown-s", "1", "--log-jsonl", log,
                                         "--backend-flag", f"--flush-ms 20 --batch {SERVE_BATCH}"])
+    return reg, log
+
+
+def plane_elastic(plane, reg, log):
+    """The controller of :func:`plane_elastic_start` scales out under a
+    burst of async requests, and back in when it ends."""
+    import threading
 
     def events():
         try:
@@ -1911,11 +2002,18 @@ def plane_elastic(plane, work, ladder):
             "burst_requests": sent[0], "to_scale_out_s": t_out, "to_scale_in_s": t_in}
 
 
-def plane_phase(torch, ne, card) -> int:
-    """Step 17 of the module note. Returns the HTTP wave's K1 launches."""
-    t0 = time.perf_counter()
+def plane_phase(torch, ne, card, shared=None) -> int:
+    """Step 17 of the module note. Returns the HTTP wave's K1 launches.
+    With ``shared`` (a whole run) step 21's ``cli serve-slice`` leg runs
+    beside the plane's processes, after the timed in-process wave; its
+    row is left in ``shared["slice_cli"]``."""
+    _T0[0] = t0 = time.perf_counter()
     http = plane_inprocess(torch, ne, card)
-    plane_cli(card)
+    with ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(slice_cli, card) if shared is not None else None
+        plane_cli(card)
+        if fut is not None:
+            shared["slice_cli"] = fut.result()
     print(f"plane phase: {time.perf_counter() - t0:.1f} s")
     return http["normal_eq_launches"]
 
@@ -2030,7 +2128,9 @@ def route_and_solo_phase(card):
         print(f"route {name} ({p.m}x{p.n}, {p.m * p.n} entries): {route}"
               + (f"; solved by {taken}" if taken else ""))
     cpu = host_cpu()
-    for name, p in inputs[-3:]:
+    # The cold wave's straggler alone (its 200 iterations are the solo
+    # ladder's whole budget; the other two were cut for the script's time).
+    for name, p in inputs[-3:-2]:
         for backend in ("cpu-native", "cuda"):
             be = get_backend(backend)
             t0 = time.perf_counter()
@@ -2417,7 +2517,7 @@ def sparse_verdict(name, r, rep, jax_ref=None, iterations=True):
              f"({rel:.3e})")
 
 
-def profile_one_step(torch, at: int, tag: str):
+def profile_one_step(torch, at: int):
     """Solve hooks (``ipm/driver.py::SolveHooks``) that run IPM step ``at``
     under ``torch.profiler`` (``device_profile``) and time every step."""
     from distributedlpsolver_tpu_torch.ipm.driver import SolveHooks
@@ -2429,7 +2529,7 @@ def profile_one_step(torch, at: int, tag: str):
         def run_step(self, step_fn, iteration):
             t0 = time.perf_counter()
             if iteration == at:
-                out, self.prof = device_profile(torch, step_fn, tag)
+                out, self.prof = device_profile(torch, step_fn)
             else:
                 out = step_fn()
             self.step_s[iteration] = time.perf_counter() - t0
@@ -2457,13 +2557,22 @@ def highs_storm20k() -> int:
     return 0
 
 
+def start_highs_storm20k():
+    """HiGHS on the acceptance instance in a second process (one core, no
+    device); the sparse phase waits for it at its end."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--highs-storm20k"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    atexit.register(_stop, proc)
+    return proc
+
+
 def sparse_phase(torch, card, shared):
     """The matrix-free sparse tier on the card (module note, step 16).
     Returns the kernels-line rows of the sliced-ELL kernel. HiGHS's answer
     for the acceptance instance is computed meanwhile in a second
-    process, started first and waited for at the end."""
-    highs = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--highs-storm20k"],
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    process (in a whole run started before the plane phase,
+    ``shared["highs"]``; else here) and waited for at the end."""
+    highs = shared.pop("highs", None) or start_highs_storm20k()
     try:
         return _sparse_phase(torch, card, highs, shared)
     finally:
@@ -2538,7 +2647,7 @@ def _sparse_phase(torch, card, highs, shared):
     route = route_of(p_full)
     if route != "sparse-iterative":
         fail(f"storm full shape routes to {route}")
-    hooks = profile_one_step(torch, at=10, tag="sparse_step")
+    hooks = profile_one_step(torch, at=10)
     be = get_backend("auto")
     torch.cuda.reset_peak_memory_stats()
     ell_counts_reset()
@@ -2580,23 +2689,13 @@ def _sparse_phase(torch, card, highs, shared):
     print("sparse_full_profile " + json.dumps({
         "iteration": hooks.at, "cg_iters": rep["cg_per_iteration"][hooks.at]
         if len(rep["cg_per_iteration"]) > hooks.at else None, **prof}))
-    del r, be, inner, y
-    torch.cuda.empty_cache()
-    # ... and again, unprofiled: the same x bit for bit.
-    be = get_backend("auto")
-    t0 = time.perf_counter()
-    r = solve(p_full, backend=be, tol=1e-8)
-    wall2 = time.perf_counter() - t0
-    if not np.array_equal(np.asarray(r.x), x):
-        fail("storm full shape: x differs between two solves")
-    print(f"sparse_full_repeat {since()} x bit for bit; {r.iterations} it, cg "
-          f"{be.inner.cg_report()['cg_iters']}, wall {wall2:.2f} s, solve {r.solve_time:.2f} s")
     # The rows phase holds its world of one to this solve (auto routes to
-    # sparse-iterative, the same code bit for bit) instead of solving again.
-    shared["sparse_full"] = dict(x=x, y=np.asarray(r.y), iterations=r.iterations, wall_s=wall2,
-                                 cg_iters=be.inner.cg_report()["cg_iters"], setup_s=r.setup_time,
+    # sparse-iterative, the same code bit for bit) instead of solving again;
+    # its wall and solve times include the profiled step's.
+    shared["sparse_full"] = dict(x=x, y=np.asarray(r.y), iterations=r.iterations, wall_s=wall,
+                                 cg_iters=rep["cg_iters"], setup_s=r.setup_time,
                                  solve_s=r.solve_time, setup_parts=be.setup_report)
-    del r, be, x
+    del r, be, inner, x, y
     torch.cuda.empty_cache()
 
     # 4. The ILDL rung: precond "auto" escalates Jacobi → ILDL and finishes
@@ -2647,24 +2746,21 @@ def _sparse_phase(torch, card, highs, shared):
     finally:
         ne._lib, ne._nvcc, ne.BUILD_DIR = saved
 
-    # 6. The reference's acceptance instance, twice: the JAX package's
-    # verdict, HiGHS, the memory guard, x bit for bit.
+    # 6. The reference's acceptance instance: the JAX package's verdict,
+    # HiGHS, the memory guard.
     p20 = storm_sparse_lp(**STORM_20K)
-    runs = []
-    for _ in range(2):
-        be = get_backend("sparse-iterative")
-        ell_counts_reset()
-        t0 = time.perf_counter()
-        r = solve(p20, backend=be, tol=1e-8, max_iter=200)
-        wall = time.perf_counter() - t0
-        counts = ell_counts()
-        rep = be.cg_report()
-        sparse_verdict("storm 20k", r, rep, SPARSE_JAX["acceptance_20k"])
-        max_op = memory_guard("storm 20k", be, p20.A.shape[0])
-        runs.append((r, counts, rep, wall, max_op))
-    (r20, c20, rep20, wall20, max20), (r20b, _, _, wall20b, _) = runs
-    if not np.array_equal(r20.x, r20b.x):
-        fail("storm 20k: x differs between two solves")
+    be = get_backend("sparse-iterative")
+    ell_counts_reset()
+    t0 = time.perf_counter()
+    r20 = solve(p20, backend=be, tol=1e-8, max_iter=200)
+    wall20 = time.perf_counter() - t0
+    c20 = ell_counts()
+    rep20 = be.cg_report()
+    sparse_verdict("storm 20k", r20, rep20, SPARSE_JAX["acceptance_20k"])
+    max20 = memory_guard("storm 20k", be, p20.A.shape[0])
+    # The rows phase's gloo worlds are held to this mesh=None solve.
+    shared["storm20k"] = dict(objective=r20.objective, iterations=r20.iterations,
+                              cg_iters=rep20["cg_iters"], solve_s=r20.solve_time)
     out, err = highs.communicate(timeout=1200)
     if highs.returncode != 0:
         fail(f"HiGHS on storm 20k: exit {highs.returncode}\n{err[-3000:]}")
@@ -2683,8 +2779,8 @@ def _sparse_phase(torch, card, highs, shared):
         "highs_rel": rel_h, "highs_s": h["seconds"], "cg_iters": rep20["cg_iters"],
         "jax_cg_iters": SPARSE_JAX["acceptance_20k"]["cg_iters"], "precond": rep20["precond"],
         "newton_solves": rep20["newton_solves"], "host_syncs": rep20["host_syncs"],
-        "wall_s": [wall20, wall20b], "setup_s": r20.setup_time, "solve_s": r20.solve_time,
-        "launches": c20, "max_operand_bytes": max20, "x_bitwise_equal": True,
+        "wall_s": wall20, "setup_s": r20.setup_time, "solve_s": r20.solve_time,
+        "launches": c20, "max_operand_bytes": max20,
     }))
 
     rows = []
@@ -2711,6 +2807,7 @@ def _sparse_phase(torch, card, highs, shared):
             "layout_bytes": t["layout_bytes"], "slices": t["slices"],
             "heavy_chunks": t["heavy_chunks"], "dtypes": ["float64"], "shape": [m_full, n_full],
         })
+    print(f"sparse phase {since()}")
     return rows
 
 
@@ -3061,8 +3158,8 @@ def block_phase(torch, ne, card, shared, defer=False):
     """The block-angular tier on the card (module note, step 18). Returns
     the kernels-line rows of K1 at the tier's shapes. With ``defer`` (a
     whole run) the gloo legs of the tier on a mesh are left to the
-    sharded and rows phases' worlds: ``shared["block"]`` hands them pds-10,
-    its mesh=None rows and its layout."""
+    sharded and slice phases' worlds: ``shared["block"]`` hands them
+    pds-10, its mesh=None rows and its layout."""
     import numpy as np
 
     from distributedlpsolver_tpu_torch import cli
@@ -3102,8 +3199,7 @@ def block_phase(torch, ne, card, shared, defer=False):
     print("block_pds10 x bit for bit across two solves")
     # Where a warm solve's device time goes.
     r, prof = device_profile(torch, lambda: block_solve(
-        torch, ne, "pds-10 auto (profiled)", p10, BLOCK_JAX["pds10"], PDS10_CPU_SPARSE, "auto")[0],
-        "block_pds10")
+        torch, ne, "pds-10 auto (profiled)", p10, BLOCK_JAX["pds10"], PDS10_CPU_SPARSE, "auto")[0])
     print("block_pds10_profile " + json.dumps({
         "iterations": r.iterations, "solve_s_profiled": r.solve_time,
         "device_idle_share": 1.0 - prof["device_busy_ms"] / (1e3 * (r.setup_time + r.solve_time)),
@@ -3177,8 +3273,8 @@ def block_phase(torch, ne, card, shared, defer=False):
             rows.append(row)
 
     # 6. pds-10 over gloo worlds of 2 and 4 sharing the card: here with
-    # --block-only, and in a whole run as cases of the sharded phase's
-    # world of 2 and the rows phase's world of 4.
+    # --block-only, and in a whole run as a case of the sharded phase's
+    # second world of 2 and of the slice phase's world of 4.
     block = dict(p10=p10, ref10=ref10, lay10=lay10)
     if defer:
         shared["block"] = block
@@ -3202,12 +3298,10 @@ def block_phase(torch, ne, card, shared, defer=False):
 SCENARIO_MAIN = dict(num_scenarios=1024, block_m=24, block_n=36, first_stage_n=24,
                      first_stage_m=2, seed=1)
 # stormG2's own blocks (STORM_FULL's shapes) at K = 8, with a two_stage hint:
-# 4,224 × 10,193, no first-stage rows. At K = 16 the reference's CG grinds at
-# its cap from iteration 29 on (ROADMAP Queue 3), so K = 16 is an observation,
-# run into its first steps at the cap (30 iterations).
+# 4,224 × 10,193, no first-stage rows. (At K = 16 the reference's CG grinds
+# at its cap from iteration 29 on: ROADMAP Queue 3.)
 SCENARIO_STORM = dict(block_m=528, block_n=1259, first_stage_n=121, seed=1, t_nnz_per_row=2,
                       w_nnz_per_row=4)
-SCENARIO_K16_ITERS = 30
 # K1 alone at the scenario lanes of stormG2's block width, a full bucket.
 SCENARIO_K1 = (1024, 528, 1259)
 # The JAX package's scenario backend on the CPU (tol 1e-8):
@@ -3224,9 +3318,9 @@ SCENARIO_JAX = {
     "cli_file": {"status": "optimal", "iterations": 18, "objective": 1922.6162423151154},
 }
 SCENARIO_OBJ_TOL = 1e-8
-# The K-mixed serve stream takes every eighth K of 33..64 (4 requests): its
-# solo solves run one at a time at ~2 s each, and the script has a limit.
-SCENARIO_KMIXED_STEP = 8
+# The K-mixed serve stream takes every sixteenth K of 33..64 (2 requests):
+# its solo solves run one at a time at ~2 s each, and the script has a limit.
+SCENARIO_KMIXED_STEP = 16
 
 
 def scenario_storm(K):
@@ -3478,7 +3572,6 @@ def scenario_phase(torch, ne, card, shared, defer=False):
 
     from distributedlpsolver_tpu_torch import cli
     from distributedlpsolver_tpu_torch.backends import scenario as sc
-    from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
     from distributedlpsolver_tpu_torch.models import scenario_delta_stream, two_stage_storm
     from distributedlpsolver_tpu_torch.models.problem import to_interior_form
     from distributedlpsolver_tpu_torch.net.admission import AdmissionConfig, TenantQuota
@@ -3533,7 +3626,7 @@ def scenario_phase(torch, ne, card, shared, defer=False):
     # profiler, its neighbours' unprofiled walls for the idle share (a whole
     # solve's ~120k device ops take a minute to post-process).
     at = 10
-    hooks = profile_one_step(torch, at=at, tag="scenario_step")
+    hooks = profile_one_step(torch, at=at)
     _, row_p = scenario_solve(torch, ne, "scenario main auto (step profiled)", p,
                               SCENARIO_JAX["main"], "auto", hooks=hooks)
     wall_ms = 1e3 * (hooks.step_s[at - 1] + hooks.step_s[at + 1]) / 2
@@ -3557,7 +3650,7 @@ def scenario_phase(torch, ne, card, shared, defer=False):
     del runs, r_sc, r_entry
     torch.cuda.empty_cache()
 
-    # 2. stormG2's block width at K = 8 through scenario, then K = 16 observed.
+    # 2. stormG2's block width at K = 8 through scenario.
     p8 = scenario_storm(8)
     r8, row8 = scenario_solve(torch, ne, "stormG2 blocks K=8", p8, SCENARIO_JAX["storm8"], "scenario")
     print(f"scenario_storm8 {since()} " + json.dumps(row8))
@@ -3565,14 +3658,6 @@ def scenario_phase(torch, ne, card, shared, defer=False):
     op8 = sparse_ops.from_scipy(to_interior_form(p8).A, device="cuda")
     ell_rows["storm8"] = ell_phase(torch, op8, "stormG2 blocks K=8", card)
     del op8
-    t0 = time.perf_counter()
-    _, row16 = scenario_solve(torch, ne, "stormG2 blocks K=16", scenario_storm(16), None, "scenario",
-                              max_iter=SCENARIO_K16_ITERS)
-    print(f"scenario_storm16_observed {since()} (first {SCENARIO_K16_ITERS} iterations, not a gate; "
-          f"cap {SolverConfig().cg_iters} CG iterations a Newton solve) " + json.dumps(
-              {k: row16[k] for k in ("status", "iterations", "objective", "rel_gap", "pinf", "dinf",
-                                     "cg_iters", "cg_per_iteration", "newton_solves", "solve_s",
-                                     "ms_per_iteration")} | {"wall_s": time.perf_counter() - t0}))
     del r8
     torch.cuda.empty_cache()
 
@@ -3672,7 +3757,7 @@ def scenario_phase(torch, ne, card, shared, defer=False):
             "requests": len(wave), "wall_s": wave_s, "cold_iterations": cold,
             "warm_iterations": warm, "schur_ms_p50": float(np.median([r.schur_ms for r in wave])),
             "link_ms_p50": float(np.median([r.link_ms for r in wave]))}))
-        # K = 33, 41, 49, 57 (every eighth of 33..64, cut for the script's
+        # K = 33, 49 (every sixteenth of 33..64, cut for the script's
         # time): one bucket (64); units ceil(K/16) each.
         r64 = svc.submit(two_stage_storm(64, 24, 36, 24, 2, seed=64).to_block_angular(),
                          tol=1e-8).result(timeout=600)
@@ -3743,9 +3828,8 @@ def scenario_phase(torch, ne, card, shared, defer=False):
 
 # The column-sharded dense backend (step 20): BASELINE.json config 3 at
 # full width, and the main path's problem over gloo worlds on the card.
-SHARDED_FULL = dict(m=10000, n=50000, seed=2)
 SHARDED_MAIN = dict(m=2048, n=10240, seed=0)
-SHARDED_WORLDS = (2, 4)
+SHARDED_RANKS = 2  # the gloo world's ranks (the shrink's world of 4 is step 21's)
 SHARDED_OBJ_TOL = 1e-8
 SHARDED_WORLD_TIMEOUT_S = 300.0
 
@@ -3754,8 +3838,6 @@ def sharded_solve_counted(ne, p, be, **kw):
     """``solve(p, backend=be, tol=1e-8, **kw)`` with K1's launch count
     reset just before and read just after; returns the result, a row and
     the launch accounting against the fused loop's bodies."""
-    import numpy as np
-
     from distributedlpsolver_tpu_torch.ipm import Status, solve
 
     ne.normal_eq.launches = 0
@@ -3845,36 +3927,35 @@ def case_results(o) -> list:
     return [{**world, **case} for case in o["cases"]]
 
 
-def sharded_world(torch, n_ranks, pg_backend, p, ref, card, extras=()) -> dict:
+def side_world(extras, tag, n_ranks=2):
+    """``run_world("sharded_cases", ...)`` on a gloo world: ``extras`` are
+    cases, each a dict with its ``case`` and a ``tag``, its per-rank
+    results (with the world's fields) left in its ``"gloo2"`` with the
+    world's wall."""
+    res, wall = card_world("sharded_cases", {"cases": [e["case"] for e in extras]}, n_ranks,
+                           "gloo", tag)
+    res = {rank: case_results(o) for rank, o in res.items()}
+    for i, e in enumerate(extras):
+        e["gloo2"] = ([o[i] for _, o in sorted(res.items())], wall)
+
+
+def sharded_world(torch, n_ranks, pg_backend, p, ref, card) -> dict:
     """``run_world("sharded_solve", ...)`` on the main path's problem ``p``
     with ``n_ranks`` ranks on the cards; fails unless every rank is
     OPTIMAL with the same x bits and an answer that passes
     :func:`sharded_answer_check`, K1 ran at its shard's shape, and the
-    objective is within ``SHARDED_OBJ_TOL`` of ``ref``'s. ``extras`` are
-    other phases' cases that ride the same world (``sharded_cases``): each
-    a dict with its ``case`` and a ``tag``, its per-rank results left in
-    its ``"gloo2"`` with the world's wall."""
+    objective is within ``SHARDED_OBJ_TOL`` of ``ref``'s."""
     from distributedlpsolver_tpu_torch.distributed.launcher import run_world
 
     work = os.path.join(ROOT, "build", "dlps_torch", f"sharded_{pg_backend}{n_ranks}")
     spec = {**SHARDED_MAIN, "tol": 1e-8, "stage_clock": True, "return_xy": True}
     t0 = time.perf_counter()
     try:
-        if extras:
-            res = run_world("sharded_cases", {"cases": [spec] + [e["case"] for e in extras]},
-                            world_size=n_ranks, workdir=work, retries=0,
-                            timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
-        else:
-            res = run_world("sharded_solve", spec, world_size=n_ranks, workdir=work, retries=0,
-                            timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
+        res = run_world("sharded_solve", spec, world_size=n_ranks, workdir=work, retries=0,
+                        timeout=SHARDED_WORLD_TIMEOUT_S, device="cuda", pg_backend=pg_backend)
     except (RuntimeError, TimeoutError) as e:
         fail(f"{pg_backend} world of {n_ranks}: {e}")
     wall = time.perf_counter() - t0
-    if extras:  # each case's results with the world's fields, for its caller
-        res = {rank: case_results(o) for rank, o in res.items()}
-        for i, e in enumerate(extras, start=1):
-            e["gloo2"] = ([o[i] for _, o in sorted(res.items())], wall)
-        res = {rank: o[0] for rank, o in res.items()}
     name = f"{pg_backend} world of {n_ranks}"
     if sorted(res) != list(range(n_ranks)):
         fail(f"{name}: results from ranks {sorted(res)}")
@@ -3904,7 +3985,6 @@ def sharded_world(torch, n_ranks, pg_backend, p, ref, card, extras=()) -> dict:
         "answer_by_rank": [res[r]["answer"] for r in sorted(res)],
         "rel_gap": o["rel_gap"], "pinf": o["pinf"],
         "rank0_wall_s": o["wall_s"], "world_wall_s": wall, "setup_parts_rank0": o["setup"],
-        "world_cases": ["dense"] + [e["tag"] for e in extras],
         "captured": o["phase_report"][0].get("captured"),
         "capture_off_reason": o["phase_report"][0].get("capture_off_reason"),
         # The clock covers the starting point and the loop.
@@ -3934,81 +4014,72 @@ def sharded_phase(torch, ne, card, shared):
     cards = torch.cuda.device_count()
     print(f"sharded_devices torch.cuda.device_count() = {cards}")
 
-    # 1. K1 at the path's shapes: parity and timing.
-    kshapes = [(SHARDED_MAIN["m"], SHARDED_MAIN["n"] // k) for k in SHARDED_WORLDS]
-    kshapes.append((SHARDED_FULL["m"], SHARDED_FULL["n"]))
-    k1 = {}
-    for (m, n) in kshapes:
-        rel_err, mx = kernel_parity(torch, ne, m, n, "float64")
-        big = m * n > 10**8
-        t = kernel_timing(torch, ne, m, n, "float64", iters=3 if big else 20, warm=1 if big else 3)
-        k1[(m, n)] = (mx, t)
-        print(f"sharded_k1 {since()} {m}x{n}: rel_err {rel_err:.3e} max_abs_err {mx:.3e} (tol "
-              f"{TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise equal; kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_share']:.3f} [{card}]")
+    # 1. K1 at the shard shape of the gloo world of 2: parity and timing.
+    m, n = SHARDED_MAIN["m"], SHARDED_MAIN["n"] // SHARDED_RANKS
+    rel_err, mx = kernel_parity(torch, ne, m, n, "float64")
+    t = kernel_timing(torch, ne, m, n, "float64", iters=20, warm=3)
+    print(f"sharded_k1 {since()} {m}x{n}: rel_err {rel_err:.3e} max_abs_err {mx:.3e} (tol "
+          f"{TOL['float64']:.0e}), M = Mᵀ bitwise, two launches bitwise equal; kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_share']:.3f} [{card}]")
 
-    # 2. BASELINE.json config 3 at full width: generated once, solved
-    # through sharded on an NCCL world of one and through cuda.
-    t0 = time.perf_counter()
-    p = random_dense_lp(SHARDED_FULL["m"], SHARDED_FULL["n"], seed=SHARDED_FULL["seed"])
-    gen_s = time.perf_counter() - t0
-    print(f"sharded_full_generate {since()} {p.name}: {gen_s:.3f} s")
+    # 2. The main path's problem through sharded on an NCCL world of one
+    # formed in this process and through cuda, then three clocked
+    # iterations of the sharded step.
+    p_main = random_dense_lp(SHARDED_MAIN["m"], SHARDED_MAIN["n"], seed=SHARDED_MAIN["seed"])
+    ref, row_cu = sharded_solve_counted(ne, p_main, get_backend("cuda"))
+    print(f"sharded_main_cuda {since()} " + json.dumps(row_cu) + f" [{card}]")
     world = world_lib.init_world(world_lib.WorldConfig(
         coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
     try:
         if world.pg_backend != "nccl":
             fail(f"the world of one runs {world.pg_backend}, not nccl")
         be = ShardedTorchBackend()
-        r_sh, row_sh = sharded_solve_counted(ne, p, be)
-        row_sh["generate_s"] = gen_s
+        r_sh, row_sh = sharded_solve_counted(ne, p_main, be)
         row_sh["world"] = world.describe()
-        print(f"sharded_full_sharded {since()} " + json.dumps(row_sh) + f" [{card}]")
+        print(f"sharded_main_nccl1 {since()} " + json.dumps(row_sh) + f" [{card}]")
         parts = clocked_steps(torch, be)
-        print(f"sharded_full_parts {since()} " + json.dumps(parts) + f" [{card}]")
+        print(f"sharded_main_parts {since()} " + json.dumps(parts) + f" [{card}]")
         del be
         torch.cuda.empty_cache()
     finally:
         world.close()
-    be = get_backend("cuda")
-    r_cu, row_cu = sharded_solve_counted(ne, p, be)
-    row_cu["generate_s"] = gen_s
-    print(f"sharded_full_cuda {since()} " + json.dumps(row_cu) + f" [{card}]")
-    del be
-    torch.cuda.empty_cache()
-    if not np.array_equal(r_sh.x, r_cu.x):
-        fail("10000x50000: x of sharded (world of one) differs from cuda's")
-    if (r_sh.iterations, row_sh["normal_eq_launches"]) != (r_cu.iterations, row_cu["normal_eq_launches"]):
-        fail(f"10000x50000: sharded {r_sh.iterations} it / {row_sh['normal_eq_launches']} K1 launches, "
-             f"cuda {r_cu.iterations} / {row_cu['normal_eq_launches']}")
-    print(f"sharded_full {since()} sharded (nccl world of one) and cuda: x bit for bit, "
-          f"{r_cu.iterations} iterations and {row_cu['normal_eq_launches']} K1 launches each")
-    del p, r_sh, r_cu
-    torch.cuda.empty_cache()
+    if not np.array_equal(r_sh.x, ref.x):
+        fail(f"{p_main.name}: x of sharded (world of one) differs from cuda's")
+    if (r_sh.iterations, row_sh["normal_eq_launches"]) != (ref.iterations, row_cu["normal_eq_launches"]):
+        fail(f"{p_main.name}: sharded {r_sh.iterations} it / {row_sh['normal_eq_launches']} K1 "
+             f"launches, cuda {ref.iterations} / {row_cu['normal_eq_launches']}")
+    print(f"sharded_main {since()} sharded (nccl world of one) and cuda: x bit for bit, "
+          f"{ref.iterations} iterations and {row_cu['normal_eq_launches']} K1 launches each")
+    del r_sh
 
-    # 3. The main path's problem over gloo worlds sharing the card (and an
-    # NCCL world over the cards where there are two or more).
-    p_main = random_dense_lp(SHARDED_MAIN["m"], SHARDED_MAIN["n"], seed=SHARDED_MAIN["seed"])
-    ref = solve(p_main, backend="cuda", tol=1e-8)
-    print(f"sharded_main_cuda {since()} {p_main.name}: {ref.status.value} {ref.iterations} it "
-          f"objective {ref.objective!r}")
-    # The world of 2 also carries pdlp's column mesh (the solo phase's
-    # problem; here with --sharded-only its mesh=None solve first) and, in
-    # a whole run, the block and scenario tiers' gloo cases.
+    # 3. The main path's problem over a gloo world of 2 sharing the card
+    # (and an NCCL world over the cards where there are two or more); at
+    # the same time, pdlp's column mesh (the solo phase's problem; here
+    # with --sharded-only its mesh=None solve first) on a second world of
+    # 2 and, in a whole run, the block and scenario tiers' gloo cases on a
+    # third (six processes; every all-reduce is staged through the host
+    # either way).
     pdlp = shared.get("pdlp")
     if pdlp is None:
         pdlp = dict(p=p_main, r=solve(p_main, backend="pdlp", tol=PDHG_TOL))
-    extras = [dict(tag="pdlp 2048x10240 mesh_shape=(2,)", case=pdlp_mesh_case())]
+    pdlp_case = dict(tag="pdlp 2048x10240 mesh_shape=(2,)", case=pdlp_mesh_case())
+    side = []
     block, scen = shared.get("block"), shared.get("scenario")
     if block is not None:
-        extras.append(dict(block, tag="block pds-10", case=block_gloo2_case()))
+        side.append(dict(block, tag="block pds-10", case=block_gloo2_case()))
     if scen is not None:
-        extras.append(dict(scen, tag="scenario main path", case=scenario_gloo2_case()))
-    worlds = {k: sharded_world(torch, k, "gloo", p_main, ref, card, extras if k == 2 else ())
-              for k in SHARDED_WORLDS}
-    pdlp_gloo2_check(pdlp["p"], pdlp["r"], *extras[0]["gloo2"], card)
+        side.append(dict(scen, tag="scenario main path", case=scenario_gloo2_case()))
+    with ThreadPoolExecutor(2) as ex:
+        futs = [ex.submit(side_world, [pdlp_case], "sharded_pdlp")]
+        if side:
+            futs.append(ex.submit(side_world, side, "sharded_side"))
+        world2 = sharded_world(torch, SHARDED_RANKS, "gloo", p_main, ref, card)
+        for fut in futs:
+            fut.result()
+    pdlp_gloo2_check(pdlp["p"], pdlp["r"], *pdlp_case["gloo2"], card)
     block_rows = []
-    for e in extras[1:]:
+    for e in side:
         if e["tag"] == "block pds-10":
             counts = block_gloo2_check(e, *e["gloo2"], card)
             block_rows += block_rank_rows(torch, ne, card, e, "gloo2", counts)
@@ -4019,23 +4090,17 @@ def sharded_phase(torch, ne, card, shared):
     else:
         print("sharded_nccl_multi: one card, no NCCL world over several cards")
 
-    rows = []
-    for (m, n), (mx, t) in k1.items():
-        if (m, n) == (SHARDED_FULL["m"], SHARDED_FULL["n"]):
-            launches, path = row_sh["normal_eq_launches"], "sharded, nccl world of one, 10000x50000"
-        else:
-            k = SHARDED_MAIN["n"] // n
-            launches = sum(worlds[k]["k1_launches_per_rank"])
-            path = f"sharded, gloo world of {k} on one card (all ranks), 2048x10240"
-        rows.append({
-            "name": f"normal_eq (sharded {m}x{n})", "route": "cuda",
-            "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
-            "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
-            "launches": launches, "launches_path": path,
-            "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
-            "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
-        })
+    rows = [{
+        "name": f"normal_eq (sharded {m}x{n})", "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        "launches": sum(world2["k1_launches_per_rank"]),
+        "launches_path": f"sharded, gloo world of {SHARDED_RANKS} on one card (all ranks), 2048x10240",
+        "launches_nccl_world_of_one": row_sh["normal_eq_launches"],
+        "max_abs_err": mx, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
+        "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
+    }]
     print(f"sharded phase {since()}")
     return rows + block_rows
 
@@ -4045,7 +4110,7 @@ def sharded_phase(torch, ne, card, shared):
 # The serve bucket, split over a world's batch mesh.
 SLICE_BUCKET = dict(m=BM, n=BN, batch=SERVE_BATCH, seed=0, tol=1e-8)
 SLICE_WORLD_TIMEOUT_S = 300.0
-SLICE_STREAM, SLICE_ASYNC = 96, 32  # the serve phase's cold stream: sync, then async
+SLICE_STREAM, SLICE_ASYNC = 48, 32  # the serve phase's cold stream: sync, then async
 SHRINK_FAULT_ITERATION = 3
 SLICE_OBJ_TOL = 1e-8
 
@@ -4147,7 +4212,6 @@ def slice_cli(card) -> dict:
     id resolves optimal/timeout, never 404, with no duplicate solve."""
     import shutil
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -4307,17 +4371,21 @@ def slice_cli(card) -> dict:
     return out
 
 
-def slice_shrink(ref, p_main, card) -> dict:
+def slice_shrink(ref, p_main, card, extra=None) -> dict:
     """The SHRINK rung on ``sharded`` over a gloo world of 4 ranks sharing
     the card: ``random_dense_lp(2048, 10240, seed=0)`` supervised with
     DEVICE_LOST of rank 3 at iteration SHRINK_FAULT_ITERATION; then the
-    same plan with ``min_devices=4`` (``degrade:cuda``)."""
+    same plan with ``min_devices=4`` (``degrade:cuda``). ``extra``, another
+    phase's case (a dict with its ``case``), rides the same world third:
+    its per-rank results are left in its ``"gloo4"`` with the world's wall."""
     from distributedlpsolver_tpu_torch.distributed.launcher import run_world
 
     fault = [{"kind": "device_lost", "iteration": SHRINK_FAULT_ITERATION, "device_ids": [3]}]
     case = {**SHARDED_MAIN, "tol": 1e-8, "faults": fault, "supervisor": {"backoff_base": 0.001}}
     cases = [{**case, "return_xy": True},
              {**case, "supervisor": {"backoff_base": 0.001, "min_devices": 4}}]
+    if extra is not None:
+        cases.append(extra["case"])
     work = os.path.join(ROOT, "build", "dlps_torch", "slice_shrink_gloo4")
     t0 = time.perf_counter()
     try:
@@ -4326,6 +4394,8 @@ def slice_shrink(ref, p_main, card) -> dict:
     except (RuntimeError, TimeoutError) as e:
         fail(f"shrink: {e}")
     wall = time.perf_counter() - t0
+    if extra is not None:
+        extra["gloo4"] = ({rank: o["cases"][2] for rank, o in res.items()}, wall)
     rel = lambda o: abs(o["objective"] - ref.objective) / (1.0 + abs(ref.objective))
     left = res[3]["cases"][0]
     if not left["left"] or left["faults"][0]["action"] != "shrink:4->3":
@@ -4364,9 +4434,11 @@ def slice_shrink(ref, p_main, card) -> dict:
     return row
 
 
-def slice_phase(torch, ne, card):
+def slice_phase(torch, ne, card, shared):
     """The serving slice and the elastic shrink (module note, step 21).
-    Returns the kernels-line row of K1 at a rank's lane block."""
+    Returns the kernels-line rows of K1 at a rank's lane block, and in a
+    whole run those of the block tier's shrink, which rides this phase's
+    world of 4 (``shared["block"]``)."""
     import numpy as np
 
     from distributedlpsolver_tpu_torch.backends import batched as tb
@@ -4398,16 +4470,30 @@ def slice_phase(torch, ne, card):
     block = [tb.solve_bucket(BatchedLP(c=b.c[:B // 2], A=b.A[:B // 2], b=b.b[:B // 2],
                                        name=b.name), np.ones(B // 2, bool), cfg)
              for b in batches]
-    probes = {k: slice_probe(k, pb, refs, card, block if k == 2 else None)
-              for k, pb in ((1, "nccl"), (2, "gloo"))}
-
-    # 3. cli serve-slice over gloo on the card, through a rank kill.
-    cli_row = slice_cli(card)
-
-    # 4. The SHRINK rung on sharded over a gloo world of 4.
+    # 3. cli serve-slice over gloo on the card, through a rank kill (in a
+    # whole run it ran beside the plane phase's processes); and the SHRINK
+    # rung on sharded over a gloo world of 4 (in a whole run with the
+    # block tier's shrink as its third case), all at the same time as the
+    # probes' worlds: every all-reduce of theirs is staged through the
+    # host either way.
     p_main = random_dense_lp(SHARDED_MAIN["m"], SHARDED_MAIN["n"], seed=SHARDED_MAIN["seed"])
     ref = solve(p_main, backend="cuda", tol=1e-8)
-    slice_shrink(ref, p_main, card)
+    pds = shared.get("block")
+    shrink_extra = None if pds is None else dict(case=block_shrink_case())
+    cli_row = shared.pop("slice_cli", None)
+    with ThreadPoolExecutor(3) as ex:
+        fut_cli = ex.submit(slice_cli, card) if cli_row is None else None
+        fut_shrink = ex.submit(slice_shrink, ref, p_main, card, shrink_extra)
+        fut_gloo = ex.submit(slice_probe, 2, "gloo", refs, card, block)
+        probes = {1: slice_probe(1, "nccl", refs, card), 2: fut_gloo.result()}
+        fut_shrink.result()
+        if fut_cli is not None:
+            cli_row = fut_cli.result()
+    block_rows = []
+    if pds is not None:
+        counts = block_shrink_check(pds, *shrink_extra["gloo4"], card)
+        block_rows = (block_rank_rows(torch, ne, card, pds, "gloo4", counts)
+                      + block_rank_rows(torch, ne, card, pds, "shrunk", counts))
 
     # 5. A local batch mesh names distinct cards: beyond the card count it
     # raises, naming the count; nothing falls back.
@@ -4432,7 +4518,7 @@ def slice_phase(torch, ne, card):
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "bound_share": timing["bound_share"], "library_ms": timing["library_ms"],
         "dtypes": ["float64"], "shape": timing["shape"],
-    }]
+    }] + block_rows
 
 
 # -- the row-sharded matrix-free tier (sparse-iterative on a mesh) -------------
@@ -4576,24 +4662,39 @@ def rows_phase(torch, ne, card, shared):
     del op_r, out, w, inf_s
     torch.cuda.empty_cache()
 
-    # 3. Gloo worlds sharing the card at the 20,480-row instance: the
-    # single-device solve, a world of 2, and the shrink of a world of 4.
+    # 3. Gloo worlds sharing the card at the 20,480-row instance, held to
+    # the sparse phase's single-device solve of it: a world of 2, and the
+    # shrink of a world of 4.
     p20 = storm_sparse_lp(**STORM_20K)
-    be = get_backend("sparse-iterative")
-    r20 = solve(p20, backend=be, tol=1e-8)
-    ref_cg = be.cg_report()["cg_iters"]
-    if r20.status.value != "optimal":
-        fail(f"rows: mesh=None on {p20.name}: {r20.status.value}")
-    rel = lambda v: abs(v - r20.objective) / (1.0 + abs(r20.objective))  # noqa: E731
-    res2, wall2 = card_world("sparse_rows", {**ROWS_WORLD, "return_xy": True}, 2, "gloo",
-                             "rows_gloo2")
+    r20 = shared.get("storm20k")
+    if r20 is None:  # --rows-only: the mesh=None solve here
+        be = get_backend("sparse-iterative")
+        r = solve(p20, backend=be, tol=1e-8)
+        if r.status.value != "optimal":
+            fail(f"rows: mesh=None on {p20.name}: {r.status.value}")
+        r20 = dict(objective=r.objective, iterations=r.iterations,
+                   cg_iters=be.cg_report()["cg_iters"], solve_s=r.solve_time)
+        del r, be
+    rel = lambda v: abs(v - r20["objective"]) / (1.0 + abs(r20["objective"]))  # noqa: E731
+    m4 = p20.A.shape[0]
+    split3 = [min(m4, (k + 1) * -(-m4 // 3)) - min(m4, k * -(-m4 // 3)) for k in range(3)]
+    fault = [{"kind": "device_lost", "iteration": SHRINK_FAULT_ITERATION, "device_ids": [3]}]
+    case = {**ROWS_WORLD, "backend": "sparse-iterative", "faults": fault,
+            "supervisor": {"backoff_base": 0.001}, "return_xy": True}
+    # The two worlds run at once (six processes; every all-reduce is
+    # staged through the host either way).
+    with ThreadPoolExecutor(1) as ex:
+        fut4 = ex.submit(card_world, "supervised_solve", case, 4, "gloo", "rows_shrink_gloo4")
+        res2, wall2 = card_world("sparse_rows", {**ROWS_WORLD, "return_xy": True}, 2, "gloo",
+                                 "rows_gloo2")
+        res4, wall4 = fut4.result()
     for rank, o in res2.items():
-        if (o["status"] != "optimal" or o["iterations"] != r20.iterations
+        if (o["status"] != "optimal" or o["iterations"] != r20["iterations"]
                 or not rel(o["objective"]) <= ROWS_OBJ_TOL or o["shards"] != 2
                 or o["pg_backend"] != "gloo" or o["ell_launches"]["A·v"] <= 0
                 or o["ell_launches"]["Aᵀ·v"] <= 0):
             fail(f"rows gloo world of 2: rank {rank} {o['status']} {o['iterations']} it (mesh=None "
-                 f"{r20.iterations}), objective {o['objective']!r} ({rel(o['objective']):.2e}), "
+                 f"{r20['iterations']}), objective {o['objective']!r} ({rel(o['objective']):.2e}), "
                  f"shards {o['shards']}, {o['pg_backend']}, launches {o['ell_launches']}")
         o["answer"] = sharded_answer_check(f"rows gloo world of 2: rank {rank}", p20, o.pop("x"),
                                            o.pop("y"), o["rel_gap"])
@@ -4601,29 +4702,18 @@ def rows_phase(torch, ne, card, shared):
         fail(f"rows gloo world of 2: ranks disagree: {[(o['x_sha256'][:12], o['cg_iters']) for o in res2.values()]}")
     o = res2[0]
     w2 = {"world": "gloo world of 2", "problem": p20.name, "status": o["status"],
-          "iterations": o["iterations"], "mesh_none_iterations": r20.iterations,
+          "iterations": o["iterations"], "mesh_none_iterations": r20["iterations"],
           "objective_rel_mesh_none": rel(o["objective"]), "cg_iters": o["cg_iters"],
-          "mesh_none_cg_iters": ref_cg, "x_bits_equal_across_ranks": True,
+          "mesh_none_cg_iters": r20["cg_iters"], "x_bits_equal_across_ranks": True,
           "rows_by_rank": [res2[k]["rows"] for k in sorted(res2)],
           "ell_launches_by_rank": [res2[k]["ell_launches"] for k in sorted(res2)],
           "s_per_step_rank0": o["solve_s"] / max(o["iterations"], 1), "solve_s_rank0": o["solve_s"],
-          "setup_parts_rank0": o["setup"], "mesh_none_solve_s": r20.solve_time,
+          "setup_parts_rank0": o["setup"], "mesh_none_solve_s": r20["solve_s"],
           "max_operand_per_device": o["max_operand_per_device"],
           "operator_bytes_per_device": [res2[k]["operator_bytes_per_device"] for k in sorted(res2)],
           "answers": [res2[k]["answer"] for k in sorted(res2)], "world_wall_s": wall2}
     print(f"rows_gloo2 {since()} " + json.dumps(w2) + f" [{card}; gloo through the host, not NCCL]")
 
-    m4 = p20.A.shape[0]
-    split3 = [min(m4, (k + 1) * -(-m4 // 3)) - min(m4, k * -(-m4 // 3)) for k in range(3)]
-    fault = [{"kind": "device_lost", "iteration": SHRINK_FAULT_ITERATION, "device_ids": [3]}]
-    case = {**ROWS_WORLD, "backend": "sparse-iterative", "faults": fault,
-            "supervisor": {"backoff_base": 0.001}, "return_xy": True}
-    # In a whole run the block tier's shrink rides this world as a second case.
-    block = shared.get("block")
-    cases = [case, block_shrink_case()] if block else [case]
-    res4, wall4 = card_world("supervised_solve", {"cases": cases}, 4, "gloo", "rows_shrink_gloo4")
-    block4 = {rank: o["cases"][1] for rank, o in res4.items()} if block else None
-    res4 = {rank: o["cases"][0] for rank, o in res4.items()}
     if not res4[3]["left"] or res4[3]["faults"][0]["action"] != "shrink:4->3":
         fail(f"rows shrink: rank 3 {res4[3]}")
     shas, answers, overhead = set(), [], []
@@ -4634,7 +4724,7 @@ def rows_phase(torch, ne, card, shared):
                 or [x["action"] for x in f] != ["shrink:4->3"] or f[0]["devices"] != [3]
                 or not f[0]["recovery_overhead_s"] > 0 or not rel(o["objective"]) <= ROWS_OBJ_TOL):
             fail(f"rows shrink: rank {rank} {o['status']} on {o['backend']}, faults {f}, objective "
-                 f"{o['objective']!r} against mesh=None's {r20.objective!r}")
+                 f"{o['objective']!r} against mesh=None's {r20['objective']!r}")
         shas.add(o["x_sha256"])
         answers.append(sharded_answer_check(f"rows shrink rank {rank}", p20, o.pop("x"), o.pop("y"),
                                             o["rel_gap"]))
@@ -4645,16 +4735,10 @@ def rows_phase(torch, ne, card, shared):
     w4 = {"world": "gloo world of 4", "problem": p20.name, "action": "shrink:4->3",
           "rows_after_shrink": split3, "status": o["status"],
           "backend": o["backend"], "iterations": o["iterations"],
-          "mesh_none_iterations": r20.iterations, "objective_rel_mesh_none": rel(o["objective"]),
+          "mesh_none_iterations": r20["iterations"], "objective_rel_mesh_none": rel(o["objective"]),
           "x_bits_equal_across_survivors": True, "recovery_overhead_s": overhead,
-          "answers": answers, "wall_s_rank0": o["wall_s"], "world_wall_s": wall4,
-          "world_cases": ["sparse-iterative"] + (["block"] if block else [])}
+          "answers": answers, "wall_s_rank0": o["wall_s"], "world_wall_s": wall4}
     print(f"rows_shrink {since()} " + json.dumps(w4) + f" [{card}; gloo through the host, not NCCL]")
-    block_rows = []
-    if block:
-        counts = block_shrink_check(block, block4, wall4, card)
-        block_rows = (block_rank_rows(torch, ne, card, block, "gloo4", counts)
-                      + block_rank_rows(torch, ne, card, block, "shrunk", counts))
     print(f"rows phase {since()}")
 
     rows = []
@@ -4678,7 +4762,7 @@ def rows_phase(torch, ne, card, shared):
             "slices": t["slices"], "heavy_chunks": t["heavy_chunks"], "dtypes": ["float64"],
             "shape": [hi - lo, n_full],
         })
-    return rows + block_rows
+    return rows
 
 
 def main(only: str = "") -> int:
@@ -4702,8 +4786,11 @@ def main(only: str = "") -> int:
     print(f"card: {card} | torch.cuda.get_device_name(0) = {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 1. Build every kernel from the checkout's sources: one nvcc per
-    # source, all started together.
+    # source, all started together, and the static-analysis gate beside
+    # them (host only: it touches no device; awaited before the first
+    # timed step).
     es = importlib.import_module("distributedlpsolver_tpu_torch.ops.ell_spmv")
+    gate = start_graftcheck()
     t0 = time.perf_counter()
     kernel_build.build(ne.build_job(), es.build_job())
     ne.load_library()
@@ -4714,17 +4801,24 @@ def main(only: str = "") -> int:
         print(f"  {mod.build_info['path']}")
         for ln in mod.build_info.get("ptxas", []):
             print(f"  {ln}")
+    if only:
+        finish_graftcheck(*gate)
+    # Step 9's CLI leg, a fresh process, runs beside the gate.
+    serve_cli = None if only else start_cli_serve()
 
     # What a later phase takes from an earlier one in a whole run: the solo
-    # PDHG answer (pdlp's mesh=None), the sparse phase's full-shape solve
-    # (the rows phase's mesh=None answer), the block phase's pds-10 and the
-    # scenario main path (cases of the sharded and rows phases' gloo worlds).
+    # PDHG answer (pdlp's mesh=None), the sparse phase's full-shape and
+    # acceptance solves (the rows phase's mesh=None answers), the block
+    # phase's pds-10 and the scenario main path (cases of the sharded and
+    # slice phases' gloo worlds).
     shared = {}
-    rows = [] if only else dense_phases(torch, ne, card, shared)
+    rows = [] if only else dense_phases(torch, ne, card, shared, gate, serve_cli)
+    if not only:  # HiGHS for the sparse phase, beside the plane's processes
+        shared["highs"] = start_highs_storm20k()
     # 17. The network plane: its launches go to the serve bucket's K1 row,
     # which a --plane-only run times on its own.
     if only in ("", "plane"):
-        launches = plane_phase(torch, ne, card)
+        launches = plane_phase(torch, ne, card, None if only else shared)
         if only == "plane":
             rows.append(serve_bucket_row(
                 kernel_parity(torch, ne, BM, BN, "float64", batch=SERVE_BATCH),
@@ -4746,7 +4840,7 @@ def main(only: str = "") -> int:
         rows += sharded_phase(torch, ne, card, shared)
     # 21. The serving slice and the elastic shrink.
     if only in ("", "slice"):
-        rows += slice_phase(torch, ne, card)
+        rows += slice_phase(torch, ne, card, shared)
     # 22. The row-sharded matrix-free tier.
     if only in ("", "rows"):
         rows += rows_phase(torch, ne, card, shared)
@@ -4758,12 +4852,18 @@ def main(only: str = "") -> int:
     return 0
 
 
-def dense_phases(torch, ne, card, shared):
+def dense_phases(torch, ne, card, shared, gate, serve_cli):
     """Steps 1 (the SASS count) to 14 of the module note; returns the K1
     rows of the kernels line and leaves the solo PDHG answer in
     ``shared["pdlp"]``."""
     from distributedlpsolver_tpu_torch import cli
     from distributedlpsolver_tpu_torch.io import read_mps
+
+    _T0[0] = time.perf_counter()
+    steps = {}  # seconds into the phase at the end of each step
+
+    def mark(step):
+        steps[step] = round(time.perf_counter() - _T0[0], 1)
 
     dmma = dmma_count(ne)
     print(f"sass: {dmma} DMMA instructions in normal_eq_dmma_kernel (f64)")
@@ -4780,6 +4880,9 @@ def dense_phases(torch, ne, card, shared):
     for k, (rel, mx) in parity.items():
         print(f"parity normal_eq {k}: rel_err {rel:.3e} max_abs_err {mx:.3e} (tol {TOL[k.split('_')[0]]:.0e}), "
               "M = Mᵀ bitwise, two launches bitwise equal")
+    finish_graftcheck(*gate)  # before the first timed step
+    finish_cli_serve(*serve_cli)
+    mark("2 parity, graftcheck")
 
     # 3. Timing (card and power limit printed above and below).
     timings = [
@@ -4794,6 +4897,7 @@ def dense_phases(torch, ne, card, shared):
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
               f"bound share {t['bound_share']:.3f} [{card}]")
 
+    mark("3 timing")
     # 4. The main path (the fused loop), counts reset just before and read
     # just after.
     print(f"linalg: preferred library {torch.backends.cuda.preferred_linalg_library()}")
@@ -4814,6 +4918,7 @@ def dense_phases(torch, ne, card, shared):
              f"differs from the cold one {row['objective']!r}/{row['iterations']} it")
     print("main_path_warm " + json.dumps(warm_row))
 
+    mark("4 main path")
     # 5. The host loop and the segmented loop against the fused one, then
     # cold solves in fresh processes, then the bad-step path.
     for kw in ({"fused_loop": False}, {"segment_iters": 4}):
@@ -4821,15 +4926,15 @@ def dense_phases(torch, ne, card, shared):
         other_row["x_bitwise_equal_to_fused"] = same_answer(
             other_row["loop"], r_fused, row, r_other, other_row)
         print(f"main_path_{other_row['loop']} " + json.dumps(other_row))
-    for kw in ({}, {"fused_loop": False}):
-        cold = cold_solve(kw)
-        print(f"main_path_cold_{cold['loop']} " + json.dumps(cold))
+    cold = cold_solve({})
+    print(f"main_path_cold_{cold['loop']} " + json.dumps(cold))
     r_bad, launches, phases, _, _ = solve_counted(zero_row_lp(), presolve=False, reg_dual=0.0)
     acc = launch_accounting(r_bad, launches, phases, 0, fused=True)
     if r_bad.status.value != "numerical_error" or r_bad.iterations != 0:
         fail(f"zero-row LP: {r_bad.status.value} at {r_bad.iterations} iterations")
     print(f"bad_step_path zero_row: {r_bad.status.value} at {r_bad.iterations} iterations " + json.dumps(acc))
 
+    mark("5 loops, cold, bad step")
     # 6. The CLI on a fixture.
     fixture = os.path.join(ROOT, "tests", "fixtures", "maximize.mps")
     buf = io.StringIO()
@@ -4842,31 +4947,39 @@ def dense_phases(torch, ne, card, shared):
     print(f"cli: {out['name']} {out['status']} objective {out['objective']!r} (HiGHS {h_cli!r}) "
           f"iterations {out['iterations']}")
 
-    # 7. Where the main path's device time goes (warm solves, both loops).
-    for tag, kw in (("fused", {}), ("host", {"fused_loop": False})):
-        print(f"profile_{tag} " + json.dumps(profile_main_path(torch, 2048, 10240, 0, tag, **kw)))
+    mark("6 cli")
+    # 7. Where the main path's device time goes (a warm solve of the fused
+    # loop; the host loop's profile was cut for the script's time).
+    print("profile_fused " + json.dumps(profile_main_path(torch, 2048, 10240, 0, "fused")))
 
     # 8. The batched solver, with vmap's per-sample fallback off for the
     # whole phase (solve_batched also turns it off for its own run).
     torch._C._functorch._set_vmap_fallback_enabled(False)
+    mark("7 profiles")
     b_parity, b_timings, b_cold = batched_phase(torch, ne, card)
+    mark("8 batched")
 
     # 10. The default backend of the CLI and the service (auto on the
     # card), with the counts reset just before and read just after.
     default_row = default_entry_phase(torch, ne, row, r_fused)
+    mark("10 default entry")
 
     # 11-12. The route table, and the solo cost on both routes.
     route_and_solo_phase(card)
+    mark("11-12 route, solo cost")
 
     # 9, 13. The serve phase, under the default ServiceConfig, with the
     # PDHG wave and both solo routes.
     s_parity, s_timing, s_rows = serve_phase(torch, ne, card)
+    mark("9, 13 serve")
 
     # 14. The solo PDHG engine, then its column mesh on an NCCL world of
     # one (the gloo world of 2 rides the sharded phase's).
     pdhg_row, p_pdhg, r_pdhg = solo_pdhg_phase(card)
     pdlp_mesh_nccl1(torch, card, p_pdhg, r_pdhg, pdhg_row)
     shared["pdlp"] = dict(p=p_pdhg, r=r_pdhg)
+    mark("14 solo pdhg")
+    print(f"dense phase {since()} steps " + json.dumps(steps))
 
     main_t = timings[0]
     batched_t = b_timings[0]

@@ -1277,6 +1277,8 @@ def solve_batched(
     if chunk and B_total > chunk:
         t0 = time.perf_counter()
         parts = [
+            # Each chunk solves on this device alone (no mesh, no collective).
+            # graftcheck: disable=spmd-divergent-collective (local chunk)
             solve_batched(
                 BatchedLP(
                     c=batch.c[i : i + chunk],
@@ -1363,6 +1365,9 @@ def solve_batched(
             ws = IPMState(x=x[i], y=y_h[i], s=s_h[i], w=w_h[i], z=z_h[i])
             be = get_backend(CLEANUP_BACKEND, device=dev)
             t_c = time.perf_counter()
+            # A mesh-less backend with no checkpoint path: the solve enters
+            # no collective (the driver's barrier is the checkpoint's).
+            # graftcheck: disable=spmd-divergent-collective (local cleanup)
             r = _solve(member_interior_form(batch, i), backend=be,
                        config=base_cfg.replace(max_iter=remaining), warm_start=ws)
             status_arr[i] = r.status

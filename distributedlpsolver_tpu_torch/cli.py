@@ -18,9 +18,8 @@ honours plus ``--device``. Subcommands:
     obs-agg      fleet telemetry aggregator and trace merge
     generate     write a generated problem to MPS
     backends     list registered SolverBackend names
-
-``check`` (ROADMAP Queue 1 item 15) is parsed and raises
-``NotImplementedError``.
+    check        graftcheck static-analysis suite over this package (the
+                 tier-1 CI gate)
 
 Every command that touches a device takes ``--device``: ``cuda`` (the
 default: the first card; it fails where there is none, never falling
@@ -32,7 +31,8 @@ cpu`` to ``cpu-native``. The chosen backend is named in the result
 batch mesh of K devices (K distinct cards; on the CPU the CPU device K
 times); more than the process has raises.
 
-Run as ``python -m distributedlpsolver_tpu_torch.cli ...``.
+Run as ``python -m distributedlpsolver_tpu_torch.cli ...`` (or
+``python -m distributedlpsolver_tpu_torch ...``).
 """
 
 from __future__ import annotations
@@ -863,15 +863,6 @@ def cmd_serve_slice(args) -> int:
         world.close()
 
 
-def _unported_cmd(name: str, item):
-    def fn(_args) -> int:
-        raise NotImplementedError(
-            f"cli {name} is not ported to the torch package yet (ROADMAP Queue 1 item {item})"
-        )
-
-    return fn
-
-
 def _add_serving_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--batch", type=int, default=16, help="bucket slots")
     p.add_argument(
@@ -928,6 +919,65 @@ def _add_serving_flags(p: argparse.ArgumentParser) -> None:
         "--journal-fsync", default="flush", choices=["none", "flush", "always"],
         help="journal persistence per record",
     )
+
+
+def cmd_check(args) -> int:
+    """graftcheck: run the repo's static-analysis suite (jit/recompile
+    hygiene, dtype discipline, lock + static deadlock discipline, SPMD
+    discipline, JSONL schema) over the given paths. Exit 0 iff there are
+    no unsuppressed findings: the tier-1 CI gate over this package. With
+    ``--baseline`` the gate is incremental: only findings NOT in the
+    committed baseline fail (the repo commits an EMPTY one,
+    ``BASELINE_GRAFTCHECK_TORCH.json``). Pure stdlib: no torch import,
+    touches no device."""
+    from distributedlpsolver_tpu_torch import analysis
+
+    if args.list_rules:
+        for name, doc in analysis.all_rules().items():
+            print(f"{name}: {doc}")
+        return 0
+    paths = args.paths or [os.path.dirname(os.path.abspath(__file__))]
+    for p in paths:
+        if not os.path.exists(p):
+            print(f"check: {p!r}: path not found", file=sys.stderr)
+            return 2
+    rules = args.rules.split(",") if args.rules else None
+    try:
+        findings = analysis.check_paths(paths, rules=rules)
+    except ValueError as e:  # unknown rule name
+        print(f"check: {e}", file=sys.stderr)
+        return 2
+    if args.write_baseline:
+        with open(args.write_baseline, "w") as fh:
+            fh.write(analysis.write_baseline(findings) + "\n")
+        print(
+            f"check: wrote baseline of "
+            f"{sum(1 for f in findings if not f.suppressed)} finding(s) "
+            f"to {args.write_baseline}",
+            file=sys.stderr,
+        )
+        return 0
+    gating = [f for f in findings if not f.suppressed]
+    if args.baseline:
+        try:
+            with open(args.baseline) as fh:
+                doc = json.load(fh)
+        except (OSError, ValueError) as e:
+            print(f"check: --baseline {args.baseline!r}: {e}", file=sys.stderr)
+            return 2
+        gating = analysis.diff_baseline(findings, doc)
+        known = sum(1 for f in findings if not f.suppressed) - len(gating)
+        if known:
+            print(
+                f"check: {known} known finding(s) covered by baseline "
+                f"{args.baseline}",
+                file=sys.stderr,
+            )
+    if args.json:
+        print(analysis.render_json(findings))
+    else:
+        print(analysis.render_text(findings, show_suppressed=args.show_suppressed))
+    return 1 if gating else 0
 
 
 def cmd_backends(_args) -> int:
@@ -1162,8 +1212,45 @@ def _add_plane_parsers(sub) -> None:
     ap_oa.add_argument("--json", action="store_true", help="print the fleet view as JSON")
     ap_oa.set_defaults(fn=cmd_obs_agg)
 
-    ap_c = sub.add_parser("check", help="graftcheck static analysis (not ported: ROADMAP item 15)")
-    ap_c.set_defaults(fn=_unported_cmd("check", 15))
+    ap_c = sub.add_parser(
+        "check",
+        help="graftcheck static-analysis suite: jit/recompile hygiene, "
+        "dtype discipline, lock discipline, SPMD discipline, JSONL schema — "
+        "the tier-1 CI gate (README 'Static analysis')",
+    )
+    ap_c.add_argument(
+        "paths", nargs="*",
+        help="files/directories to check (default: the installed "
+        "distributedlpsolver_tpu_torch package)",
+    )
+    ap_c.add_argument(
+        "--json", action="store_true",
+        help="machine-readable findings (the gate's artifact format)",
+    )
+    ap_c.add_argument(
+        "--rules", default=None,
+        help="comma-separated rule subset (see --list-rules)",
+    )
+    ap_c.add_argument(
+        "--list-rules", action="store_true",
+        help="print the rule catalogue and exit",
+    )
+    ap_c.add_argument(
+        "--show-suppressed", action="store_true",
+        help="also print findings silenced by graftcheck directives",
+    )
+    ap_c.add_argument(
+        "--baseline", default=None, metavar="JSON",
+        help="incremental diff-gate: fail only on findings absent from "
+        "this committed baseline (see --write-baseline); the tier-1 "
+        "gate runs against the empty BASELINE_GRAFTCHECK_TORCH.json",
+    )
+    ap_c.add_argument(
+        "--write-baseline", default=None, metavar="JSON",
+        help="write the current unsuppressed findings as a baseline "
+        "document and exit 0 (adopt-then-ratchet for existing trees)",
+    )
+    ap_c.set_defaults(fn=cmd_check)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -1209,10 +1296,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     ap_g.set_defaults(fn=cmd_generate)
 
-    # The unported command takes any flags of the reference's and raises.
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.cmd != "check":
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
     args.argv = list(sys.argv[1:] if argv is None else argv)
     return args.fn(args)
 

@@ -18,10 +18,15 @@ A probe reports a member unhealthy when the registry names it, or when
 a tiny op on its device raises or misses its deadline. Under a world a
 rank probes only its own device: another rank's device gives no
 evidence from here, as in the JAX package's multi-process guard.
+
+Inside :func:`rank_local` a thread's work runs on its rank alone, as in
+a world of one: a solve with no process-group mesh is then a program of
+this process only, as a mesh-less program is in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -104,26 +109,59 @@ def world() -> dict:
     }
 
 
+_RANK_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def rank_local():
+    """Run what this thread calls inside the block on this rank alone.
+
+    For a solve that one rank of a world runs by itself: the serving
+    service's per-request path on a slice's rank 0, whose followers only
+    replay the dispatch journal. There the world's collectives would
+    wait for ranks that never come. Inside the block :func:`in_world` is
+    False, :func:`is_primary` and :func:`barrier` without a
+    process-group mesh act as in a world of one; a mesh's own collectives
+    are unchanged."""
+    prev = getattr(_RANK_LOCAL, "on", False)
+    _RANK_LOCAL.on = True
+    try:
+        yield
+    finally:
+        _RANK_LOCAL.on = prev
+
+
+def _rank_local() -> bool:
+    return getattr(_RANK_LOCAL, "on", False)
+
+
+def in_world() -> bool:
+    """True when this thread's work is shared by every rank of a world of
+    more than one: False without a world and inside :func:`rank_local`."""
+    return not _rank_local() and world()["num_processes"] > 1
+
+
 def is_primary(mesh=None) -> bool:
     """True on the process that should own logging and IO: rank 0, or
     the first member of ``mesh`` when it has a process group (after a
-    shrink, the survivors' first)."""
+    shrink, the survivors' first). Inside :func:`rank_local`, and with
+    no such mesh, every rank is its own primary."""
     if mesh is not None and mesh.group is not None:
         return mesh.is_primary
     dist = _dist()
-    return dist is None or dist.get_rank() == 0
+    return dist is None or _rank_local() or dist.get_rank() == 0
 
 
 def barrier(mesh=None) -> None:
-    """Wait for every rank of the world (a no-op without one), or for
-    every member of ``mesh`` when it has a process group. An all-reduce
-    of one element on the world's collective device: the one collective
-    every backend carries."""
+    """Wait for every rank of the world (a no-op without one, and inside
+    :func:`rank_local`), or for every member of ``mesh`` when it has a
+    process group. An all-reduce of one element on the world's
+    collective device: the one collective every backend carries."""
     if mesh is not None and mesh.group is not None:
         mesh.barrier()
         return
     dist = _dist()
-    if dist is None or dist.get_world_size() == 1:
+    if dist is None or _rank_local() or dist.get_world_size() == 1:
         return
     dev = _WORLD.collective_device if _WORLD is not None else torch.device("cpu")
     t = torch.zeros(1, device=dev)

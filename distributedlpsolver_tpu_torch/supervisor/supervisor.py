@@ -375,7 +375,10 @@ def supervised_solve(
         base_cfg = base_cfg.replace(**config_overrides)
     from distributedlpsolver_tpu_torch.parallel import runtime
 
-    in_world = runtime.world()["num_processes"] > 1
+    # A solve that every rank of a world runs together shares rank 0's
+    # checkpoint; one that this rank runs alone (runtime.rank_local) keeps
+    # its own, as in a world of one.
+    in_world = runtime.in_world()
     tmpdir = None
     ckpt_path = sup.checkpoint_path or base_cfg.checkpoint_path
     if not ckpt_path:

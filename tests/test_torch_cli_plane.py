@@ -1,9 +1,9 @@
 """The torch package's CLI beyond ``solve``/``serve`` against the JAX
 package's, on the CPU: each new subcommand's ``--json`` output carries the
 reference's keys, files agree where both write them, every command that
-touches a device takes ``--device`` (default ``cuda``, no fallback), and
-``serve-slice`` and ``check`` raise ``NotImplementedError`` naming ROADMAP
-items 13 and 15."""
+touches a device takes ``--device`` (default ``cuda``, no fallback),
+``serve-slice`` refuses several devices a rank, and ``check`` gates a bad
+graftcheck fixture and passes its clean twin."""
 
 import json
 import os
@@ -31,17 +31,22 @@ def _json_out(capsys):
 
 
 @pytest.mark.parametrize("cmd", ["serve-slice", "check"])
-def test_unported_commands_name_their_items(cmd):
-    """``check`` still raises naming item 15. ``serve-slice`` (item 13,
-    once refused) is ported (``test_torch_slice.py`` serves through it);
-    here its supervisor refuses several devices a rank before it
-    launches anything, as a torch world runs one process per device."""
+def test_unported_commands_name_their_items(cmd, capsys):
+    """Both commands this test once found unported now run. ``serve-slice``
+    (item 13) serves in ``test_torch_slice.py``; here its supervisor
+    refuses several devices a rank before it launches anything, as a torch
+    world runs one process per device. ``check`` (item 15) exits 1 on a
+    bad graftcheck fixture and 0 on its clean twin
+    (``test_torch_graftcheck.py`` holds it to the JAX package's)."""
     if cmd == "serve-slice":
         with pytest.raises(ValueError, match="one process per device"):
             cli.main([cmd, "--world-size", "2", "--local-devices", "2"])
         return
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main([cmd, "--world-size", "2"])
+    fixtures = os.path.join(ROOT, "tests", "graftcheck_fixtures")
+    assert cli.main([cmd, os.path.join(fixtures, "fx_jit_bad.py")]) == 1
+    assert "jit-nonhoisted" in capsys.readouterr().out
+    assert cli.main([cmd, os.path.join(fixtures, "fx_jit_clean.py")]) == 0
+    assert capsys.readouterr().out.strip() == "graftcheck: 0 finding(s), 0 suppressed"
 
 
 @pytest.mark.parametrize("kind", ["scenario"])
