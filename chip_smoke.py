@@ -387,7 +387,28 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    survivors' x bits equal, within 1e-8 of the ``mesh=None`` objective,
    ``recovery_overhead_s`` printed). Gloo stages every all-reduce through
    the host: no number of those worlds stands for NCCL over NVLink;
-23. prints the ``kernels`` JSON line, the card line, and last the result
+23. the dense backend's forced-PCG schedule (``pcg_phase``; ``--pcg-only``
+   runs the build and this phase alone), ``solve_mode="pcg"`` at tol 1e-8
+   and ``max_iter=200``, each solve held to the JAX package's verdict for
+   its route (``PCG_JAX``, from ``scripts/port_pcg_jax_verdicts.py``):
+   the main path's problem, ``random_dense_lp(2048, 10240, seed=0)``, on
+   the captured fused loop twice (the same status; where OPTIMAL,
+   iterations within ±2 and the objective within 1e-8 of the JAX
+   package's and 1e-6 of HiGHS, else the final rel_gap and pinf within a
+   factor of 10; x bit for bit on the repeat), beside the direct path's
+   ms an iteration and peak memory on the same problem; K1 f32 on that
+   path's f32 copy of A against its plain version and one
+   preconditioner build split by CUDA events (K1 f32, the f32 Cholesky,
+   the inverse); then ``random_dense_lp(512, 2560, seed=0)`` and
+   ``(60, 180, seed=0)`` on the fused loop, the host loop and
+   ``segment_iters=10`` (the closure's route). Each solve's K1 f32
+   launches are held to its factorizations (+1 for the closure's G on
+   the segmented loop); printed: ms an iteration, live and masked CG
+   iterations a Newton solve, peak GB, the best error and where. A status
+   other than the JAX package's passes only on the plateau of a loop with
+   a stall exit, where each run's best error lies on the side of the
+   patience floor (1e3·tol) its status needs (``pcg_by_patience``);
+24. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -4765,10 +4786,261 @@ def rows_phase(torch, ne, card, shared):
     return rows
 
 
+# The JAX package's verdicts for the pcg phase's instances under
+# solve_mode="pcg" at tol 1e-8, max_iter 200, on the CPU, with each run's
+# best max(rel_gap, pinf, dinf) (``JAX_PLATFORMS=cpu python
+# scripts/port_pcg_jax_verdicts.py``; the full width took 1,211 s).
+PCG_JAX = {
+    "small_fused": {"status": "optimal", "iterations": 12, "objective": 166.05981005706167,
+        "rel_gap": 7.924253124358696e-09, "pinf": 7.475362475836445e-13,
+        "min_err": 7.924253124358696e-09},
+    "small_host": {"status": "optimal", "iterations": 12, "objective": 166.05981005706167,
+        "rel_gap": 7.924253124358696e-09, "pinf": 7.475362475836445e-13,
+        "min_err": 7.924253124358696e-09},
+    "small_segmented": {"status": "optimal", "iterations": 12, "objective": 166.05981005718908,
+        "rel_gap": 7.925016322805116e-09, "pinf": 3.5912469545549635e-13,
+        "min_err": 7.925016322805116e-09},
+    "mid_fused": {"status": "iteration_limit", "iterations": 200, "objective": 3246.321486954089,
+        "rel_gap": 3.648475894581509e-06, "pinf": 1.3535873076421826e-05,
+        "min_err": 8.183393886992595e-06},
+    "mid_host": {"status": "iteration_limit", "iterations": 200, "objective": 3246.321486954089,
+        "rel_gap": 3.648475894581509e-06, "pinf": 1.3535873076421826e-05,
+        "min_err": 8.183393886992595e-06},
+    "mid_segmented": {"status": "stalled", "iterations": 35, "objective": 3246.3410568283207,
+        "rel_gap": 1.1190864307331612e-05, "pinf": 3.6110236382553035e-07,
+        "min_err": 1.1190864307331612e-05},
+    "full_fused": {"status": "iteration_limit", "iterations": 200, "objective": 15829.410043199126,
+        "rel_gap": 2.0706636009363924e-06, "pinf": 6.705685172054956e-06,
+        "min_err": 6.705685172054956e-06},
+}
+PCG_SHAPES = {"small": (60, 180), "mid": (512, 2560), "full": (2048, 10240)}
+PCG_LOOPS = {"fused": {}, "host": {"fused_loop": False}, "segmented": {"segment_iters": 10}}
+PCG_OBJ_TOL = 1e-8  # objective against the JAX package's, OPTIMAL cases
+PCG_HIGHS_TOL = 1e-6  # objective against HiGHS, OPTIMAL cases of the full width
+PCG_ITER_SLACK = 2  # iterations against the JAX package's, where not at the limit
+PCG_RATIO = 10.0  # final rel_gap and pinf against the JAX package's, where not OPTIMAL
+# The fused loop's stall patience floor at tol 1e-8 (1e3·tol): its stall
+# exit fires only while the run's best max(rel_gap, pinf, dinf) stays above.
+PCG_PATIENCE = 1e-5
+
+
+def pcg_solve_counted(torch, name, **kw):
+    """``solve(random_dense_lp(m, n, seed=0), backend="cuda",
+    solve_mode="pcg", tol=1e-8, max_iter=200)`` on the loop ``kw`` of the
+    case ``name`` ("<size>_<loop>"), with K1's launches reset just before
+    and read just after, the peak device memory and the CG tally. Returns
+    the problem, the result and the row."""
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+    from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
+    from distributedlpsolver_tpu_torch.ops import normal_eq
+
+    size, loop = name.split("_")
+    p = random_dense_lp(*PCG_SHAPES[size], seed=0)
+    be = get_backend("cuda")
+    reg = obs_metrics.MetricsRegistry()
+    prev = obs_metrics.set_registry(reg)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        normal_eq.launches = 0
+        t0 = time.perf_counter()
+        r = solve(p, backend=be, tol=1e-8, max_iter=200, solve_mode="pcg", **PCG_LOOPS[loop], **kw)
+        wall = time.perf_counter() - t0
+        launches = normal_eq.launches
+    finally:
+        obs_metrics.set_registry(prev)
+    refactors = int(reg.snapshot().get("ipm_refactorizations_total", 0))
+    phases = getattr(be, "phase_report", None)
+    err = [max(h.rel_gap, h.pinf, h.dinf) for h in r.history]
+    best = min(range(len(err)), key=err.__getitem__)
+    # The segmented route also assembles G = A·Aᵀ for its closure, once.
+    closure = 1 if loop == "segmented" else 0
+    if (be._closure is not None) != bool(closure):
+        fail(f"pcg {name}: the primal-row closure {'missing' if closure else 'built'} on this route")
+    acc = launch_accounting(r, launches - closure, phases, refactors, loop != "host")
+    cg = be.cg_report()
+    row = {
+        "case": name, "status": r.status.value, "iterations": r.iterations,
+        "objective": r.objective, "rel_gap": r.rel_gap, "pinf": r.pinf, "dinf": r.dinf,
+        "min_err": err[best], "min_err_at": best + 1, "wall_s": wall, "setup_s": r.setup_time, "solve_s": r.solve_time,
+        "ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1),
+        "normal_eq_f32_launches": launches, "closure_launches": closure,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **cg,
+        "cg_live_per_solve": cg["cg_live"] / max(cg["solves"], 1),
+        "cg_masked_per_solve": cg["cg_masked"] / max(cg["solves"], 1),
+        **{k: acc[k] for k in ("bodies", "replays", "masked", "bad_steps", "refactorizations")
+           if k in acc},
+    }
+    if phases is not None and phases[0]["mode"] != "pcg":
+        fail(f"pcg {name}: the phase ran in mode {phases[0]['mode']}")
+    return p, r, be, row
+
+
+def pcg_by_patience(name, status, row, ref) -> bool:
+    """Whether a status that differs from the JAX package's differs only
+    through the stall exit's patience floor: both runs end on the plateau
+    (ITERATION_LIMIT or STALLED) of a loop with a stall exit, and each
+    run's best error lies on the side of ``PCG_PATIENCE`` its status needs
+    (above it where the run stalled, at or below it where the run went on
+    to the iteration limit). One such case is logged in ROADMAP Queue 3."""
+    plateau = ("iteration_limit", "stalled")
+    return (not name.endswith("_host") and status in plateau and ref["status"] in plateau
+            and (row["min_err"] > PCG_PATIENCE) == (status == "stalled")
+            and (ref["min_err"] > PCG_PATIENCE) == (ref["status"] == "stalled"))
+
+
+def pcg_verdict(name, r, row, p=None):
+    """Hold a PCG solve to the JAX package's verdict for its case."""
+    ref = PCG_JAX[name]
+    if ref is None:
+        fail(f"pcg {name}: no JAX verdict recorded")
+    row["jax_status"] = ref["status"]
+    if r.status.value != ref["status"]:
+        if not pcg_by_patience(name, r.status.value, row, ref):
+            fail(f"pcg {name}: {r.status.value} at {r.iterations} (best error {row['min_err']:.3e}) "
+                 f"where the JAX package gives {ref['status']} at {ref['iterations']} (best error "
+                 f"{ref['min_err']:.3e})")
+    elif (ref["status"] != "iteration_limit"
+          and abs(r.iterations - ref["iterations"]) > PCG_ITER_SLACK):
+        fail(f"pcg {name}: {r.iterations} iterations against the JAX package's {ref['iterations']}")
+    if ref["status"] == "optimal":
+        rel = abs(r.objective - ref["objective"]) / (1.0 + abs(ref["objective"]))
+        row["objective_rel_jax"] = rel
+        if not rel <= PCG_OBJ_TOL:
+            fail(f"pcg {name}: objective {r.objective!r} against the JAX package's "
+                 f"{ref['objective']!r} ({rel:.3e} > {PCG_OBJ_TOL:.0e})")
+        if p is not None:
+            h = highs_objective(p)
+            rel_h = abs(r.objective - h) / (1.0 + abs(h))
+            row["objective_rel_highs"] = rel_h
+            if not rel_h <= PCG_HIGHS_TOL:
+                fail(f"pcg {name}: objective {r.objective!r} against HiGHS {h!r} ({rel_h:.3e})")
+    else:
+        for k in ("rel_gap", "pinf"):
+            ratio = max(getattr(r, k), 1e-300) / max(ref[k], 1e-300)
+            row[f"{k}_over_jax"] = ratio
+            if not 1.0 / PCG_RATIO <= ratio <= PCG_RATIO:
+                fail(f"pcg {name}: final {k} {getattr(r, k):.3e} against the JAX package's "
+                     f"{ref[k]:.3e}")
+
+
+def pcg_factor_split(torch, ne, be, card):
+    """K1 f32 on the full-width path's f32 copy of A (a d spread over 8
+    orders, seeded) against its plain version, and one preconditioner
+    build split by CUDA events into K1, the f32 Cholesky and the explicit
+    inverse. Returns (max_abs_err, rel_err, split row)."""
+    from distributedlpsolver_tpu_torch.backends import dense
+
+    A32 = be._A32
+    m, n = A32.shape
+    g = torch.Generator(device="cuda").manual_seed(19)
+    d = (10.0 ** (8.0 * torch.rand(n, dtype=torch.float64, device="cuda", generator=g) - 4.0))
+    d32 = d.to(torch.float32)
+    M = ne.normal_eq(A32, d32)
+    R = torch.tril(ne.normal_eq_reference(A32, d32)).double()
+    diff = torch.tril(M).double() - R
+    rel, mx = (diff.norm() / R.norm()).item(), diff.abs().max().item()
+    if not torch.equal(M, M.T) or not rel <= TOL["float32"]:
+        fail(f"pcg K1 f32 on the path's A: rel_err {rel:.3e} (tol {TOL['float32']:.0e}), "
+             f"symmetric {torch.equal(M, M.T)}")
+    s = torch.rsqrt(M.diagonal().clamp_min(torch.finfo(torch.float32).tiny))
+    Ms = M * s[:, None] * s[None, :]
+    Ms.diagonal().add_(1e-8)
+    L, info = torch.linalg.cholesky_ex(Ms)
+    if int(info) != 0:
+        fail(f"pcg: the f32 Cholesky of the scaled M failed (info {int(info)})")
+    eye = torch.eye(m, dtype=torch.float32, device="cuda")
+    fac, _ = dense._pcg_ops(be._A, A32, 1e-11, 100)
+    split = {
+        "k1_f32_ms": cuda_ms(torch, lambda: ne.normal_eq(A32, d32), 10, 2),
+        "cholesky_f32_ms": cuda_ms(torch, lambda: torch.linalg.cholesky_ex(Ms), 10, 2),
+        "inverse_f32_ms": cuda_ms(
+            torch, lambda: torch.linalg.solve_triangular(L, eye, upper=False), 10, 2),
+        "factorize_ms": cuda_ms(torch, lambda: fac(d, 1e-8), 10, 2),
+    }
+    del M, R, diff, Ms, L, eye
+    torch.cuda.empty_cache()
+    print(f"pcg factorization split {m}x{n} (K1 f32, Cholesky f32, inverse f32; the whole "
+          f"factorize with its casts): " + json.dumps(split) + f" [{card}]")
+    return mx, rel, split
+
+
+def pcg_phase(torch, ne, card):
+    """The dense backend's forced-PCG schedule on the card (module note,
+    step 23). Returns the kernels-line row of K1 f32 on this path."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    _T0[0] = time.perf_counter()
+    # The direct path on the same problem (its second solve, warm), for ms
+    # an iteration and peak memory.
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r_dir = solve(random_dense_lp(*PCG_SHAPES["full"], seed=0), backend=get_backend("cuda"),
+                      tol=1e-8)
+    direct = {"iterations": r_dir.iterations, "solve_s": r_dir.solve_time,
+              "ms_per_iteration": 1e3 * r_dir.solve_time / max(r_dir.iterations, 1),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"pcg direct_fused {since()} " + json.dumps(direct) + f" [{card}]")
+
+    # The full width on the captured fused loop, twice (x bit for bit; the
+    # second is warm and alone on the card).
+    p, r, be, row = pcg_solve_counted(torch, "full_fused")
+    pcg_verdict("full_fused", r, row, p)
+    print(f"pcg full_fused {since()} " + json.dumps(row) + f" [{card}]")
+    max_abs, rel, split = pcg_factor_split(torch, ne, be, card)
+    del be
+    _, r2, _, row2 = pcg_solve_counted(torch, "full_fused")
+    if r2.iterations != r.iterations or not np.array_equal(np.asarray(r2.x), np.asarray(r.x)):
+        fail(f"pcg full_fused: a repeat solve gives {r2.iterations} iterations and other bits")
+    print(f"pcg full_fused_repeat {since()} x bit for bit, " + json.dumps(row2) + f" [{card}]")
+    print(f"pcg full_fused against direct: ms an iteration {row2['ms_per_iteration']:.3f} "
+          f"vs {direct['ms_per_iteration']:.3f}, peak GB {row2['peak_gb']:.3f} vs "
+          f"{direct['peak_gb']:.3f}, CG live {row2['cg_live_per_solve']:.2f} / masked "
+          f"{row2['cg_masked_per_solve']:.2f} a Newton solve, K1 f32 launches "
+          f"{row2['normal_eq_f32_launches']} [{card}]")
+
+    # The three loops at 512x2560 and 60x180.
+    for size in ("mid", "small"):
+        for loop in PCG_LOOPS:
+            name = f"{size}_{loop}"
+            _, r_l, _, row_l = pcg_solve_counted(torch, name)
+            pcg_verdict(name, r_l, row_l)
+            print(f"pcg {name} {since()} " + json.dumps(row_l) + f" [{card}]")
+
+    t = kernel_timing(torch, ne, *PCG_SHAPES["full"], "float32", iters=20, warm=3)
+    print(f"pcg phase {since()}")
+    return [{
+        "name": "normal_eq (pcg, f32)",
+        "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        # The full-width fused PCG solve: the starting point and one a body.
+        "launches": row["normal_eq_f32_launches"],
+        "max_abs_err": max_abs,
+        "rel_err": rel,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "bound_share": t["bound_share"],
+        "library_ms": t["library_ms"],
+        "dtype": "float32",
+        "shape": t["shape"],
+        "factorization_split": split,
+    }]
+
+
 def main(only: str = "") -> int:
-    """The whole run, or with ``only`` ("sparse", "plane", "block",
-    "scenario", "sharded", "slice" or "rows") the build and that phase
-    alone."""
+    """The whole run, or with ``only`` ("pcg", "sparse", "plane",
+    "block", "scenario", "sharded", "slice" or "rows") the build and that
+    phase alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4813,6 +5085,9 @@ def main(only: str = "") -> int:
     # slice phases' gloo worlds).
     shared = {}
     rows = [] if only else dense_phases(torch, ne, card, shared, gate, serve_cli)
+    # 23. The dense backend's forced-PCG schedule.
+    if only in ("", "pcg"):
+        rows += pcg_phase(torch, ne, card)
     if not only:  # HiGHS for the sparse phase, beside the plane's processes
         shared["highs"] = start_highs_storm20k()
     # 17. The network plane: its launches go to the serve bucket's K1 row,
@@ -5035,7 +5310,7 @@ if __name__ == "__main__":
         sys.exit(highs_storm20k())
     only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block",
             "--scenario-only": "scenario", "--sharded-only": "sharded", "--slice-only": "slice",
-            "--rows-only": "rows"}
+            "--rows-only": "rows", "--pcg-only": "pcg"}
     if sys.argv[1:] and sys.argv[1] not in only:
         raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
     sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

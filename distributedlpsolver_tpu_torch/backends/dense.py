@@ -36,8 +36,24 @@ columns (cost 1, unbounded) and A is placed by :meth:`shardings`, both
 as in the JAX package; ``backends/sharded.py`` overrides them (and the
 step's ``LinOps``) to split A's columns over a process-group mesh.
 
-Not ported yet: the two-phase and PCG schedules, the primal-row closure
-and the dense endgame.
+``solve_mode="pcg"`` (the JAX package's forced-PCG schedule) replaces
+every factorization with a preconditioner and every normal-equations
+solve with ``core.pcg_solve`` (:func:`_pcg_ops`): K1 assembles ``M`` in
+f32 on a precast copy of A, which is Jacobi-scaled, regularized, factored
+in f32 and inverted explicitly; CG then runs in the iterate dtype over
+the matrix-free operator ``A·(d∘Aᵀv) + reg·diag(M)∘v`` with two GEMVs of
+the inverse as the preconditioner. The reference builds that inverse in
+512-column TRSM panels (``_tri_inv_paneled``) because XLA's one TRSM with
+m right-hand sides ran out of TPU memory at m = 10000; here it is one
+``torch.linalg.solve_triangular(L, I)``. The starting point, the host
+loop and the fused loop run PCG alone; the segmented loop also takes the
+primal-row closure (:func:`_closure_factors`: ``G = A·Aᵀ`` through K1
+with d = 1, built once per problem, applied with two refinement sweeps),
+as only the reference's segmented route does. ``solve_mode=None`` stays
+direct: off a TPU the reference engages PCG only inside its two-phase
+schedule.
+
+Not ported yet: the two-phase schedule and the dense endgame.
 
 Failure semantics: ``torch.linalg.cholesky`` raises on a matrix that is
 not positive definite, where the JAX package's Cholesky returns NaN. The
@@ -51,7 +67,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -59,7 +75,7 @@ import torch
 
 from distributedlpsolver_tpu_torch.backends.base import SolverBackend, register_backend
 from distributedlpsolver_tpu_torch.ipm import core
-from distributedlpsolver_tpu_torch.ipm.config import SolverConfig
+from distributedlpsolver_tpu_torch.ipm.config import SolverConfig, StepParams
 from distributedlpsolver_tpu_torch.ipm.state import IPMState, StepStats
 from distributedlpsolver_tpu_torch.models.problem import InteriorForm
 from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq
@@ -152,17 +168,120 @@ def _cholesky_ops(A, factor_dtype, refine_steps, Af=None, tri_solves=False, asse
     return factorize, solve
 
 
-def _make_ops(A, reg, factor_dtype, refine_steps, Af=None, tri_solves=False) -> core.LinOps:
+def _scaled_inverse(M, shift):
+    """``(L⁻¹, s)`` for the Jacobi-scaled ``S·M·S + shift·I`` with
+    ``S = diag(s)``, ``s = rsqrt(max(diag M, tiny))``: Cholesky and the
+    explicit inverse in M's dtype. The scaling leaves a unit diagonal, so
+    a relative diagonal shift becomes ``+ shift·I`` exactly. A failed
+    factorization gives a NaN inverse on the device."""
+    s = torch.rsqrt(M.diagonal().clamp_min(torch.finfo(M.dtype).tiny))
+    Ms = M * s[:, None] * s[None, :]
+    Ms.diagonal().add_(shift)
+    L, info = torch.linalg.cholesky_ex(Ms)
+    L = torch.where(info == 0, L, float("nan"))
+    eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
+    return torch.linalg.solve_triangular(L, eye, upper=False), s
+
+
+def _pcg_ops(A, Af, cg_tol, cg_iters, counts=None):
+    """factorize/solve closures of the PCG mode (the JAX package's
+    ``_pcg_ops``, single device).
+
+    ``factorize(d, reg)`` builds only a preconditioner: ``M = Af·diag(d)·Afᵀ``
+    through K1 on the f32 copy ``Af``, then :func:`_scaled_inverse` in f32
+    (library matmuls in true fp32: the backend turns TF32 off on a card),
+    the inverse cast to A's dtype once, so each application is two exact
+    GEMVs. ``solve`` is ``core.pcg_solve`` over the true operator
+    ``A·(d∘Aᵀv) + reg·diag(M)∘v`` in A's dtype; ``counts`` is its device
+    tally of solves and CG iterations.
+    """
+    def factorize(d, reg):
+        M = normal_eq(Af, d.to(Af.dtype))
+        Linv, s = _scaled_inverse(M, reg)
+        dt = A.dtype
+        return Linv.to(dt), s.to(dt), M.diagonal().to(dt), d, reg
+
+    def solve(factors, rhs):
+        Linv, s, diagM, d, reg = factors
+        regd = reg * diagM
+
+        def op(v):
+            return A @ (d * (A.T @ v)) + regd * v
+
+        def prec(r):
+            return s * (Linv.T @ (Linv @ (s * r)))
+
+        return core.pcg_solve(op, prec, rhs, cg_tol, cg_iters, counts)
+
+    return factorize, solve
+
+
+def _closure_factors(A32):
+    """``(L⁻¹, s)`` of the loop-invariant ``G = A·Aᵀ`` in f32 — G through
+    K1 with d = 1, Jacobi-scaled, shifted by 1e-6 (the reference's
+    ``_closure_from_G``). Built once per problem; it powers the
+    primal-row closure of :func:`_closure_project`."""
+    G = normal_eq(A32, torch.ones(A32.shape[1], dtype=A32.dtype, device=A32.device))
+    return _scaled_inverse(G, 1e-6)
+
+
+def _closure_project(A, closure, sweeps):
+    """The primal-row closure ``rv ↦ Aᵀ·(A·Aᵀ)⁻¹·rv`` (the reference's
+    ``pp`` of ``_make_ops``): the f32 factor through its scaling, then
+    ``sweeps`` refinement sweeps on the true operator ``A·(Aᵀt)``."""
+    LinvG, sG = closure
+    sG = sG.to(A.dtype)
+
+    def prec(r):
+        z = LinvG @ (sG * r).to(LinvG.dtype)
+        return sG * (LinvG.T @ z).to(sG.dtype)
+
+    def project(rv):
+        t = prec(rv)
+        for _ in range(sweeps):
+            t = t + prec(rv - A @ (A.T @ t))
+        return A.T @ t
+
+    return project
+
+
+def _make_ops(A, reg, factor_dtype, refine_steps, Af=None, tri_solves=False, cg_iters=0,
+              cg_tol=0.0, closure=None, closure_sweeps=0, cg_counts=None) -> core.LinOps:
     """The step's linear algebra at regularization ``reg``: a host float
     (the host loop) or a device scalar (the fused loop, or one lane of the
-    batched solver's)."""
-    factorize, solve = _cholesky_ops(A, factor_dtype, refine_steps, Af, tri_solves)
+    batched solver's). ``cg_iters > 0`` takes the PCG ops on ``Af`` (the
+    f32 copy); ``closure`` adds the primal-row closure."""
+    if cg_iters > 0:
+        factorize, solve = _pcg_ops(A, Af, cg_tol, cg_iters, cg_counts)
+    else:
+        factorize, solve = _cholesky_ops(A, factor_dtype, refine_steps, Af, tri_solves)
     return core.LinOps(
         matvec=lambda v: A @ v,
         rmatvec=lambda v: A.T @ v,
         factorize=functools.partial(factorize, reg=reg),
         solve=solve,
+        primal_project=None if closure is None else _closure_project(A, closure, closure_sweeps),
     )
+
+
+class _Phase(NamedTuple):
+    """One phase of the fused solve (the JAX package's phase-plan spec,
+    less its TPU placement fields)."""
+
+    params: StepParams
+    factor_dtype: torch.dtype
+    refine: int
+    Af: Optional[torch.Tensor]
+    window: int = 0
+    patience: float = 0.0
+    cg_iters: int = 0
+    cg_tol: float = 0.0
+    closure: Any = None
+    closure_sweeps: int = 0
+
+    @property
+    def mode(self) -> str:
+        return "pcg" if self.cg_iters else _mode(self.factor_dtype)
 
 
 def _dense_solve_full(
@@ -216,6 +335,8 @@ class DenseTorchBackend(SolverBackend):
         self._reg: float = 0.0
         self._cfg: Optional[SolverConfig] = None
         self._n_orig: Optional[int] = None  # the unpadded column count (setup)
+        self._pcg = False
+        self._cg_counts: Optional[torch.Tensor] = None  # PCG mode's device tally
 
     # -- placement hooks (overridden by the sharded backend) ---------------
     def shardings(self, m: int, n: int):
@@ -229,15 +350,15 @@ class DenseTorchBackend(SolverBackend):
         backends need the variable axis divisible by the mesh)."""
         return 1
 
-    def _make_linops(self, reg, factor_dtype, refine, Af) -> core.LinOps:
-        """The step's linear algebra at regularization ``reg``."""
-        return _make_ops(self._A, reg, factor_dtype, refine, Af)
+    def _make_linops(self, reg, spec: _Phase) -> core.LinOps:
+        """The step's linear algebra at regularization ``reg`` for the
+        phase ``spec``."""
+        return _make_ops(self._A, reg, spec.factor_dtype, spec.refine, spec.Af,
+                         cg_iters=spec.cg_iters, cg_tol=spec.cg_tol, closure=spec.closure,
+                         closure_sweeps=spec.closure_sweeps, cg_counts=self._cg_counts)
 
     # -- SolverBackend ------------------------------------------------------
     def setup(self, inf: InteriorForm, config: SolverConfig) -> None:
-        if config.solve_mode == "pcg":
-            raise NotImplementedError("solve_mode='pcg' is not ported to the torch package yet "
-                                      "(ROADMAP Queue 1 item 5b)")
         self._cfg = config
         self._reg = config.reg_dual
         dtype = _torch_dtype(config.dtype)
@@ -274,37 +395,70 @@ class DenseTorchBackend(SolverBackend):
         self._Af = (
             self._A.to(self._factor_dtype) if self._factor_dtype != dtype else None
         )
+        # Forced PCG (the JAX package's solve_mode="pcg" without its
+        # two-phase schedule, which needs a TPU): every solve of every
+        # loop, starting point included. None (auto) engages PCG only in
+        # that schedule, so it stays direct here.
+        self._pcg = config.solve_mode == "pcg"
+        self._A32 = self._A.to(torch.float32) if self._pcg else None
+        self._closure = None
+        self._cg_counts = (
+            torch.zeros(3, dtype=torch.int64, device=dev) if self._pcg else None
+        )
         self._data = core.make_problem_data(c_host, np.asarray(inf.b, dtype=np.float64),
                                             u_host, dtype, dev)
         self._params = config.step_params()
 
     def _ops(self) -> core.LinOps:
-        return self._make_linops(self._reg, self._factor_dtype, self._refine, self._Af)
+        return self._make_linops(self._reg, self._point_spec())
 
-    def _step(self, params, factor_dtype, refine, Af):
+    def _step(self, spec: _Phase):
         """``(state, reg) -> (state', stats)``: one Mehrotra step over this
         backend's ``LinOps``, the fused loop's ``step_fn``."""
         def step(state, reg):
-            ops = self._make_linops(reg, factor_dtype, refine, Af)
-            return core.mehrotra_step(ops, self._data, params, state)
+            return core.mehrotra_step(self._make_linops(reg, spec), self._data, spec.params,
+                                      state)
 
         return step
+
+    def _point_spec(self) -> _Phase:
+        """The spec of the per-call entry points (``starting_point``,
+        ``iterate``): the PCG ops on the f32 copy in PCG mode, else the
+        direct factorization."""
+        if self._pcg:
+            return _Phase(self._params, torch.float32, 0, self._A32,
+                          cg_iters=self._cfg.cg_iters, cg_tol=self._cfg.cg_tol)
+        return _Phase(self._params, self._factor_dtype, self._refine, self._Af)
+
+    def _ensure_closure(self):
+        """The f32 factor of ``G = A·Aᵀ`` for the primal-row closure,
+        built at the first segmented PCG solve of a problem."""
+        if self._closure is None:
+            self._closure = _closure_factors(self._A32)
+        return self._closure
 
     def starting_point(self) -> IPMState:
         return core.starting_point(self._ops(), self._data, self._params)
 
-    def _phase_plan(self):
-        """Per-phase specs of the fused solve: ``(params, factor_dtype,
-        refine_steps, Af, stall_window, stall_patience_floor)``. One
-        phase: the two-phase and PCG plans are not ported."""
+    def _phase_plan(self, segmented: bool = True):
+        """Per-phase specs of the fused solve: one phase, with the JAX
+        package's final-phase stall semantics (window 2·w, the near-tol
+        patience floor). In PCG mode the segmented route's phase also
+        takes the primal-row closure with 2 sweeps; the unsegmented route
+        has none, as in the reference."""
         cfg = self._cfg
         w = cfg.stall_window
-        # The only phase gets the JAX package's final-phase stall
-        # semantics: window 2·w with the near-tol patience floor.
-        return [
-            (self._params, self._factor_dtype, self._refine, self._Af,
-             2 * w if w else 0, 1e3 * cfg.tol)
-        ]
+        spec = self._point_spec()._replace(window=2 * w if w else 0, patience=1e3 * cfg.tol)
+        if self._pcg and segmented:
+            spec = spec._replace(closure=self._ensure_closure(), closure_sweeps=2)
+        return [spec]
+
+    def cg_report(self) -> dict:
+        """PCG mode's tally since ``setup``, in one device read: Newton
+        solves (a fused body run past the loop's exit counts its solves),
+        live CG iterations and masked ones."""
+        solves, live, masked = self._cg_counts.tolist() if self._pcg else (0, 0, 0)
+        return {"solves": solves, "cg_live": live, "cg_masked": masked}
 
     def _reg0(self) -> torch.Tensor:
         return torch.full((), self._reg, dtype=self._dtype, device=self.device)
@@ -320,11 +474,11 @@ class DenseTorchBackend(SolverBackend):
         loops = []
 
         def make_phase(spec):
-            params, fdt, refine, Af, window, patience = spec
-            rate = core.SEG_RATE_F32 if fdt == torch.float32 else core.SEG_RATE_F64
+            window, patience = spec.window, spec.patience
+            rate = core.SEG_RATE_F32 if spec.factor_dtype == torch.float32 else core.SEG_RATE_F64
 
             def make_run_seg(bound):
-                loop = _dense_loop(self._step(params, fdt, refine, Af), params, buf_cap,
+                loop = _dense_loop(self._step(spec), spec.params, buf_cap,
                                    self._A.device, self._A.dtype, window, patience,
                                    capture=self.capture)
                 loops.append(loop)
@@ -335,7 +489,11 @@ class DenseTorchBackend(SolverBackend):
 
                 return run_seg
 
-            return (make_run_seg, window, patience, core.seg_open(cfg.segment_iters, flops / rate))
+            # A PCG phase opens with one iteration (the reference's rule:
+            # the FLOP model cannot see the CG sweeps); drive_segments
+            # sizes the rest from measured time.
+            seg0 = 1 if spec.cg_iters else core.seg_open(cfg.segment_iters, flops / rate)
+            return (make_run_seg, window, patience, seg0)
 
         plan = self._phase_plan()
         self.phase_report = []
@@ -345,7 +503,7 @@ class DenseTorchBackend(SolverBackend):
                 cfg.max_iter, buf_cap, self._dtype, report=self.phase_report,
             )
             for row, spec, loop in zip(self.phase_report, plan, loops):
-                row.update(mode=_mode(spec[1]), **loop.report())
+                row.update(mode=spec.mode, **loop.report())
         finally:
             for loop in loops:
                 loop.close()
@@ -363,18 +521,18 @@ class DenseTorchBackend(SolverBackend):
         if core.use_segments(cfg.segment_iters, self.device.type):
             st, it, status, buf = self._solve_segmented(state)
         else:
-            (params, fdt, refine, Af, window, _), = self._phase_plan()
+            spec, = self._phase_plan(segmented=False)
             loop = {}
             t0 = time.perf_counter()
             st, it, status, buf = _dense_solve_full(
-                self._step(params, fdt, refine, Af), state, self._reg0(), params,
+                self._step(spec), state, self._reg0(), spec.params,
                 cfg.max_iter, cfg.max_refactor, cfg.reg_grow,
-                core.buffer_cap(cfg.max_iter), window, report=loop, capture=self.capture,
+                core.buffer_cap(cfg.max_iter), spec.window, report=loop, capture=self.capture,
             )
             it = int(it)
             self.phase_report = [{
                 "phase": 0, "iters": it, "wall_s": round(time.perf_counter() - t0, 3),
-                "mode": _mode(fdt), **loop,
+                "mode": spec.mode, **loop,
             }]
         if self.device.type == "cuda":
             for row in self.phase_report:

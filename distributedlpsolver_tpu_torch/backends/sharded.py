@@ -45,8 +45,11 @@ instance on the re-formed mesh (``parallel.mesh.reform_mesh``), whose
 ``from_host`` re-pads the host-canonical checkpoint onto the new column
 blocks; the supervisor resumes from it.
 
-Not ported yet: ``prec_sharding`` (the PCG schedule, ROADMAP Queue 1
-item 5b).
+Not ported yet: the PCG schedule on a mesh (``solve_mode="pcg"`` raises
+in ``setup``; its column-sharded preconditioner ``prec_sharding``, the
+reference's ``_tri_inv_mesh`` and the distributed Cholesky under it,
+ROADMAP Queue 1 item 5b). The dense backend runs that schedule on one
+device.
 """
 
 from __future__ import annotations
@@ -162,6 +165,11 @@ class ShardedTorchBackend(DenseTorchBackend):
         self.capture_off_reason = reason
 
     def setup(self, inf, config):
+        if config.solve_mode == "pcg":
+            raise NotImplementedError(
+                "solve_mode='pcg' on the sharded backend (the column-sharded preconditioner, "
+                "prec_sharding) is not ported to the torch package yet (ROADMAP Queue 1 item 5b)"
+            )
         if self._mesh is None:
             self._mesh = mesh_lib.make_mesh(
                 config.mesh_shape, axis_names=(config.mesh_axis,), device=self.device
@@ -187,10 +195,10 @@ class ShardedTorchBackend(DenseTorchBackend):
             mesh_lib.replicated(self._mesh),
         )
 
-    def _make_linops(self, reg, factor_dtype, refine, Af) -> core.LinOps:
+    def _make_linops(self, reg, spec) -> core.LinOps:
         lo, hi = self._cols
-        return sharded_ops(self._A, lo, hi, self._shape[1], self._mesh, reg, factor_dtype,
-                           refine, Af, axis=self._axis, clock=self.clock)
+        return sharded_ops(self._A, lo, hi, self._shape[1], self._mesh, reg, spec.factor_dtype,
+                           spec.refine, spec.Af, axis=self._axis, clock=self.clock)
 
     def prec_sharding(self):
         raise NotImplementedError(

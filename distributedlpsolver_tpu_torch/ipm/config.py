@@ -12,7 +12,8 @@ native FP64, and ``segment_iters=None`` leaves the fused loop
 unsegmented. Fields that only the JAX package's TPU and serving schedules
 read (``endgame_*``, ``bucket_schedule``, ``fused_iters``, ``mesh_*``)
 are kept so configs stay interchangeable; the port's dense backend
-ignores them, and raises for ``solve_mode="pcg"``.
+ignores them. ``solve_mode="pcg"`` runs the dense backend's forced-PCG
+schedule; ``None`` stays direct, as the reference does off a TPU.
 """
 
 from __future__ import annotations

@@ -35,8 +35,16 @@ JAX package traces one ``lax.while_loop``, the port splits the loop into
 ``ipm/device_loop.py`` runs the body: eagerly on the CPU, as one captured
 CUDA graph replayed by the host on a card.
 
-Not ported here (they serve the JAX package's TPU schedules): the df32
-``elementwise`` engine and ``pcg_solve``.
+:func:`pcg_solve` is the reference's CG of the dense PCG mode. Its
+``lax.while_loop`` becomes a masked iteration (:func:`_pcg_body`): inside
+a CUDA-graph capture all ``max_iter`` iterations run, each a no-op once
+the exit test fails, so the graph holds no host read; elsewhere the host
+reads the exit flag once per chunk of iterations (``ops/pcg.py``'s
+chunks: every iteration on the CPU). Either way x is the early exit's,
+bit for bit.
+
+Not ported here (it serves the JAX package's TPU schedules): the df32
+``elementwise`` engine.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import torch
 from distributedlpsolver_tpu_torch.ipm import device_loop
 from distributedlpsolver_tpu_torch.ipm.config import StepParams
 from distributedlpsolver_tpu_torch.ipm.state import IPMState, StepStats
+from distributedlpsolver_tpu_torch.ops import pcg as pcg_ops
 
 
 class LinOps(NamedTuple):
@@ -64,8 +73,8 @@ class LinOps(NamedTuple):
     solve: Callable[[Any, Any], Any]  # (factors, rhs) ↦ M⁻¹ rhs
     # Optional exact primal-row closure: rv ↦ Aᵀ(A·Aᵀ)⁻¹·rv. When set,
     # each KKT solve corrects its final dx so A·dx equals its target
-    # (see the JAX package's core.LinOps). No backend of this package
-    # sets it yet.
+    # (see the JAX package's core.LinOps). The dense backend's segmented
+    # PCG phase sets it.
     primal_project: Any = None
 
 
@@ -199,6 +208,70 @@ def _centrality_backoff(state, hub, dirs, ap_max, ad_max, ncomp, gamma):
     idx = torch.argmax(ok.to(torch.int32))
     idx = torch.where(ok.any(), idx, len(fac) - 1).reshape(1)
     return aps.index_select(0, idx)[0], ads.index_select(0, idx)[0]
+
+
+def _pcg_cond(carry, thresh, max_iter):
+    """The reference CG loop's ``cond``; the carry holds ‖r‖ (``rn``)."""
+    _, _, _, rz, it, rn = carry
+    return (it < max_iter) & (rn > thresh) & torch.isfinite(rz)
+
+
+def _pcg_body(op, prec, carry, thresh, max_iter):
+    """One reference CG iteration, masked by its ``cond``: once the exit
+    test fails, the carry comes back bit for bit."""
+    go = _pcg_cond(carry, thresh, max_iter)
+    x, r, p, rz, it, _ = carry
+    Ap = op(p)
+    denom = p @ Ap
+    alpha = rz / torch.where(denom != 0, denom, 1.0)
+    x1 = x + alpha * p
+    r1 = r - alpha * Ap
+    z = prec(r1)
+    rz1 = r1 @ z
+    beta = rz1 / torch.where(rz != 0, rz, 1.0)
+    new = (x1, r1, z + beta * p, rz1, it + 1, torch.linalg.vector_norm(r1))
+    return tuple(torch.where(go, a, b) for a, b in zip(new, carry))
+
+
+def pcg_solve(op, prec, rhs, tol, max_iter, counts=None):
+    """Preconditioned conjugate gradient (the JAX package's
+    ``core.pcg_solve``): from zero, until ‖r‖ ≤ ``tol``·‖rhs‖,
+    ``max_iter`` iterations or a non-finite ``rz``.
+
+    ``op`` is the full-precision matrix-free normal-equations operator,
+    ``prec`` the preconditioner. A non-finite result, or a residual left
+    above max(1e-3·‖rhs‖, 10·tol·‖rhs‖), comes back as NaN, so a broken
+    (f32-Cholesky) preconditioner reaches the step's finite check and the
+    loop's bad-step path as a failed direct solve does.
+
+    ``counts`` (an int64 (3,) device tensor), when given, gets ``[1,
+    live, masked]`` added on the device: the solve, the iterations that
+    moved the carry and those that ran masked past the exit.
+    """
+    norm0 = torch.linalg.vector_norm(rhs)
+    thresh = tol * norm0
+    z0 = prec(rhs)
+    it0 = torch.zeros((), dtype=torch.int32, device=rhs.device)
+    carry = (torch.zeros_like(rhs), rhs, z0, rhs @ z0, it0, norm0)
+    # A graph capture holds every iteration and reads nothing; otherwise
+    # the host reads the exit flag between chunks.
+    capturing = rhs.is_cuda and torch.cuda.is_current_stream_capturing()
+    chunks = pcg_ops._chunks(rhs.device, None)
+    ran = 0
+    while ran < max_iter:
+        n = max_iter - ran if capturing else min(next(chunks), max_iter - ran)
+        for _ in range(n):
+            carry = _pcg_body(op, prec, carry, thresh, max_iter)
+        ran += n
+        if not capturing and not bool(_pcg_cond(carry, thresh, max_iter)):
+            break
+    x, _, _, rz, it, rn = carry
+    bad = ~(torch.isfinite(rz) & torch.isfinite(x).all())
+    bad = bad | (rn > torch.maximum(1e-3 * norm0, 10.0 * thresh))
+    if counts is not None:
+        live = it.to(torch.int64)
+        counts.add_(torch.stack([torch.ones_like(live), live, ran - live]))
+    return torch.where(bad, torch.full_like(x, float("nan")), x)
 
 
 def residual_norms(ops: LinOps, data: ProblemData, state: IPMState):

@@ -182,7 +182,7 @@ def _loop_parts(case="random_general_lp:2", **cfg_kw):
     be = _cpu()
     be.setup(inf, cfg)
     state = be.starting_point()
-    step = be._step(be._params, be._factor_dtype, be._refine, be._Af)
+    step = be._step(be._point_spec())
     carry = tcore.fresh_segment_carry(state, be._reg0(), tcore.buffer_cap(cfg.max_iter),
                                       torch.float64)
     return cfg, be, step, carry

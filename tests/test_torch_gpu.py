@@ -212,6 +212,81 @@ def test_bad_step_path_in_the_graph(cuda):
     assert row["bad_steps"] == 6 and normal_eq.launches == 1 + row["bodies"]
 
 
+# The JAX package's objectives for random_dense_lp(60, 180, seed=0) under
+# solve_mode="pcg" (scripts/port_pcg_jax_verdicts.py): OPTIMAL at 12
+# iterations on every loop; the segmented loop's closure moves the 11th digit.
+PCG_SMALL_OBJECTIVE = {"fused": 166.05981005706167, "host": 166.05981005706167,
+                       "segmented": 166.05981005718908}
+
+
+def test_pcg_solve_on_the_card_on_every_loop(cuda):
+    """solve_mode="pcg" on the captured fused loop (twice: the same bits),
+    the host loop and the segmented loop (with the closure): OPTIMAL at
+    the reference's 12 iterations (±1), its objective for the route within
+    1e-8, fused and host within 1e-12; K1 f32 once a factorization, and
+    once more for the closure's G on the segmented loop."""
+    p = random_dense_lp(60, 180, seed=0)
+    out = {}
+    for name, kw in (("fused", {}), ("fused2", {}), ("host", {"fused_loop": False}),
+                     ("segmented", {"segment_iters": 2})):
+        be = get_backend("cuda")
+        reg = obs_metrics.MetricsRegistry()
+        prev = obs_metrics.set_registry(reg)
+        try:
+            normal_eq.launches = 0
+            r = solve(p, backend=be, tol=1e-8, solve_mode="pcg", **kw)
+            launches = normal_eq.launches
+        finally:
+            obs_metrics.set_registry(prev)
+        refactors = int(reg.snapshot().get("ipm_refactorizations_total", 0))
+        out[name] = (r, be, launches, refactors)
+        ref = PCG_SMALL_OBJECTIVE[name.rstrip("2")]
+        assert r.status == Status.OPTIMAL and abs(r.iterations - 12) <= 1
+        assert abs(r.objective - ref) <= 1e-8 * (1.0 + abs(ref))
+        assert be.cg_report()["solves"] > 0 and be.cg_report()["cg_live"] > 0
+    (rf, bf, lf, _), (rf2, _, lf2, _) = out["fused"], out["fused2"]
+    assert bf.phase_report[0]["captures"] == 1 and bf.phase_report[0]["replays"] > 0
+    assert bf.phase_report[0]["mode"] == "pcg"
+    assert rf2.iterations == rf.iterations and np.array_equal(rf2.x, rf.x)
+    rh, bh, lh, refactors = out["host"]
+    assert rh.iterations == rf.iterations
+    assert np.abs(rh.x - rf.x).max() <= 1e-12 * max(np.abs(rf.x).max(), 1.0)
+    # The captured body runs every CG iteration, masked past the exit.
+    assert bf.cg_report()["cg_masked"] > 0
+    assert lf == lf2 == 1 + bf.phase_report[0]["bodies"]
+    assert lh == 1 + rh.iterations + refactors
+    rs, bs, ls, _ = out["segmented"]
+    assert bs._closure is not None and bf._closure is None and bh._closure is None
+    assert ls == 2 + sum(row["bodies"] for row in bs.phase_report)
+
+
+def test_pcg_factorize_k1_f32_matches_its_plain_version(cuda):
+    """The PCG factorization on the card launches K1 once in f32 and gives
+    the CPU path's preconditioner (its plain version) within f32 rounding;
+    the solve gives the CPU path's x within 1e-9."""
+    from distributedlpsolver_tpu_torch.backends import dense
+
+    rng = np.random.default_rng(7)
+    A = rng.standard_normal((300, 1001))
+    d = 10.0 ** rng.uniform(-4, 4, 1001)
+    rhs = rng.standard_normal(300)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        At = torch.tensor(A, device=dev)
+        fac, solve_ = dense._pcg_ops(At, At.to(torch.float32), 1e-11, 100)
+        before = normal_eq.launches
+        factors = fac(torch.tensor(d, device=dev), 1e-8)
+        x = solve_(factors, torch.tensor(rhs, device=dev))
+        torch.cuda.synchronize()
+        assert normal_eq.launches == before + (1 if dev == "cuda" else 0)
+        sols[dev] = [t.cpu() for t in factors[:3]] + [x.cpu()]
+    (Lg, sg, dg, xg), (Lc, sc, dc, xc) = sols["cuda"], sols["cpu"]
+    assert ((dg - dc).abs().max() / dc.abs().max()).item() <= TOL[torch.float32]
+    assert ((sg - sc).abs().max() / sc.abs().max()).item() <= TOL[torch.float32]
+    assert ((Lg - Lc).norm() / Lc.norm()).item() <= 1e-3
+    assert ((xg - xc).abs().max() / xc.abs().max()).item() <= 1e-9
+
+
 def _batched_inputs(B, m, n, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     A = torch.tensor(rng.standard_normal((B, m, n)), device=device).to(dtype)
