@@ -408,7 +408,33 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    other than the JAX package's passes only on the plateau of a loop with
    a stall exit, where each run's best error lies on the side of the
    patience floor (1e3·tol) its status needs (``pcg_by_patience``);
-24. prints the ``kernels`` JSON line, the card line, and last the result
+24. the dense backend's two-phase schedule, the reference's default on a
+   TPU, asked for with ``DenseTorchBackend(schedule_platform="tpu")``
+   (``two_phase_phase``; ``--two-phase-only`` runs the build and this
+   phase alone), at tol 1e-8 and ``max_iter=200``, each solve held to
+   the JAX package's verdict for its case (``TWO_PHASE_JAX``, from
+   ``scripts/port_two_phase_jax_verdicts.py``: the same status; where
+   OPTIMAL, iterations within ±2 — or a difference before the f64 finish
+   alone, where an earlier, f32-factored phase took bad steps and the
+   f64 finish is within ±2 (``two_phase_by_f32_edge``) — and the
+   objective within 1e-8 of the JAX package's and within 1e-6 of HiGHS
+   at full width (``MAIN_HIGHS_OBJECTIVE``, from ``--highs-main`` on the
+   CPU); else the final rel_gap and pinf within a factor of 10): the
+   main path's problem, ``random_dense_lp(2048, 10240, seed=0)``, on the
+   segmented route (the TPU's auto), on
+   ``segment_iters=0`` (the fused two-phase program, twice: x bit for
+   bit on the repeat) and on the host loop, with ms an iteration by
+   phase beside a warm direct solve's; the three-phase PCG plan
+   (``solve_mode="pcg"``: f32 → PCG → f64) on the same problem, with the
+   PCG phase's live and masked CG iterations a Newton solve; and
+   ``random_dense_lp(4096, 20480, seed=0)``, the smallest class where
+   ``solve_mode=None`` engages that plan (2²⁶ ≤ m·n < 2²⁸). Each solve's
+   phases are checked, and its K1 launches split by dtype: f32 = the
+   start, the closure's G on a PCG plan and the bodies of the f32 and PCG
+   phases; f64 = the f64 phase's bodies (the host loop: its steps). K1
+   f32 on each path's f32 copy of A, and f64 at 4096×20480, against
+   their plain versions, and timed;
+25. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -5037,10 +5063,325 @@ def pcg_phase(torch, ne, card):
     }]
 
 
+# The JAX package's verdicts for the two_phase phase's instances under its
+# TPU schedule (jax.default_backend forced to "tpu", use_pallas=False) at
+# tol 1e-8, max_iter 200, on the CPU (``JAX_PLATFORMS=cpu python
+# scripts/port_two_phase_jax_verdicts.py``): each phase's iterations, and
+# the run's best max(rel_gap, pinf, dinf) and the CPU seconds it took (8
+# CPUs; "phases" is [mode, iterations] of each, None on the host loop).
+TWO_PHASE_JAX = {
+    "full_segmented": {"status": "optimal", "iterations": 25, "phases": [["f32", 17], ["f64", 8]],
+        "objective": 15829.377320131895, "rel_gap": 2.500501569551409e-10, "pinf": 1.8246915230590684e-10,
+        "min_err": 2.500501569551409e-10, "seconds": 31.0},
+    "full_fused": {"status": "optimal", "iterations": 25, "phases": [["f32", 17], ["f64", 8]],
+        "objective": 15829.377320028387, "rel_gap": 2.4349838913065215e-10, "pinf": 2.0664524292426392e-10,
+        "min_err": 2.4349838913065215e-10, "seconds": 27.9},
+    "full_host": {"status": "optimal", "iterations": 25, "phases": None,
+        "objective": 15829.377320028354, "rel_gap": 2.4350103194550355e-10, "pinf": 2.0658110065054045e-10,
+        "min_err": 2.4350103194550355e-10, "seconds": 38.9},
+    "full_pcg": {"status": "optimal", "iterations": 34, "phases": [["f32", 17], ["pcg", 9], ["f64", 8]],
+        "objective": 15829.377412651034, "rel_gap": 7.543149681374103e-09, "pinf": 3.73194663066146e-16,
+        "min_err": 7.543149681374103e-09, "seconds": 97.9},
+    "auto_pcg": {"status": "optimal", "iterations": 55, "phases": [["f32", 41], ["pcg", 5], ["f64", 9]],
+        "objective": 17614.18318008747, "rel_gap": 8.265028292955787e-09, "pinf": 2.3475424850680472e-11,
+        "min_err": 8.265028292955787e-09, "seconds": 557.3},
+}
+TWO_PHASE_SHAPES = {"full": (2048, 10240), "auto": (4096, 20480)}
+# HiGHS's objective for random_dense_lp(2048, 10240, seed=0)
+# (``python3 chip_smoke.py --highs-main``, on the CPU).
+MAIN_HIGHS_OBJECTIVE = 15829.377317117824
+TWO_PHASE_CASES = {
+    "full_segmented": {},  # segment_iters=None: the TPU's auto, segmented
+    "full_fused": {"segment_iters": 0},  # the fused two-phase program
+    "full_host": {"fused_loop": False},
+    "full_pcg": {"solve_mode": "pcg"},  # f32 -> PCG -> f64, always segmented
+    "auto_pcg": {},  # m·n >= 2**26: solve_mode=None engages the PCG plan
+}
+TWO_PHASE_MODES = {"full_segmented": ["f32", "f64"], "full_fused": ["f32", "f64"],
+                   "full_host": None, "full_pcg": ["f32", "pcg", "f64"],
+                   "auto_pcg": ["f32", "pcg", "f64"]}
+
+
+def two_phase_solve_counted(torch, name):
+    """``solve(random_dense_lp(m, n, seed=0), backend=DenseTorchBackend(
+    schedule_platform="tpu"), tol=1e-8, max_iter=200)`` on the route of
+    the case ``name``, with K1's counts (all and f32) reset just before
+    and read just after, and the peak device memory. Returns the problem,
+    the result, the backend and the row; checks the plan's phases and
+    K1's launches against them: f32 = the start (its f32 factorization or
+    PCG preconditioner), the closure's G on a PCG plan, and the bodies of
+    the f32 and PCG phases; f64 = the f64 phase's bodies (the host loop:
+    its steps and refactorizations)."""
+    from distributedlpsolver_tpu_torch.backends.dense import DenseTorchBackend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+    from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
+    from distributedlpsolver_tpu_torch.ops import normal_eq
+
+    p = random_dense_lp(*TWO_PHASE_SHAPES[name.split("_")[0]], seed=0)
+    be = DenseTorchBackend(schedule_platform="tpu")
+    reg = obs_metrics.MetricsRegistry()
+    prev = obs_metrics.set_registry(reg)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        normal_eq.launches = normal_eq.launches_f32 = 0
+        t0 = time.perf_counter()
+        r = solve(p, backend=be, tol=1e-8, max_iter=200, **TWO_PHASE_CASES[name])
+        wall = time.perf_counter() - t0
+        launches, f32 = normal_eq.launches, normal_eq.launches_f32
+    finally:
+        obs_metrics.set_registry(prev)
+    refactors = int(reg.snapshot().get("ipm_refactorizations_total", 0))
+    host = name.endswith("_host")
+    phases = None if host else be.phase_report
+    modes = None if host else [row["mode"] for row in phases]
+    if not be._two_phase or modes != TWO_PHASE_MODES[name]:
+        fail(f"two_phase {name}: two-phase {be._two_phase}, phases {modes}")
+    err = [max(h.rel_gap, h.pinf, h.dinf) for h in r.history]
+    best = min(range(len(err)), key=err.__getitem__)
+    row = {
+        "case": name, "status": r.status.value, "iterations": r.iterations,
+        "objective": r.objective, "rel_gap": r.rel_gap, "pinf": r.pinf, "dinf": r.dinf,
+        "min_err": err[best], "min_err_at": best + 1, "wall_s": wall, "setup_s": r.setup_time,
+        "solve_s": r.solve_time, "ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1),
+        "normal_eq_launches": launches, "normal_eq_f32_launches": f32,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if host:
+        f32_want, f64_want = 1, r.iterations + refactors
+        row["refactorizations"] = refactors
+    else:
+        bodies = [ph["bodies"] for ph in phases]
+        f32_want = 1 + int(be._pcg) + sum(bodies[:-1])
+        f64_want = bodies[-1]
+        row["phases"] = [{k: ph[k] for k in ("mode", "iters", "bodies", "bad_steps", "wall_s")}
+                         | {"ms_per_iteration": 1e3 * ph["wall_s"] / max(ph["iters"], 1)}
+                         for ph in phases]
+        if sum(ph["iters"] for ph in phases) != r.iterations:
+            fail(f"two_phase {name}: phase iterations {[ph['iters'] for ph in phases]} "
+                 f"against {r.iterations}")
+    if (f32, launches - f32) != (f32_want, f64_want):
+        fail(f"two_phase {name}: K1 launches f32 {f32} / f64 {launches - f32} against "
+             f"{f32_want} / {f64_want}")
+    if be._pcg:
+        cg = be.cg_report()
+        row.update(cg, cg_live_per_solve=cg["cg_live"] / max(cg["solves"], 1),
+                   cg_masked_per_solve=cg["cg_masked"] / max(cg["solves"], 1))
+    return p, r, be, row
+
+
+def two_phase_by_f32_edge(row, ref) -> bool:
+    """Whether a two-phase solve whose iterations differ from the JAX
+    package's by more than ``PCG_ITER_SLACK`` differs only before its f64
+    finish, in phases that factor in f32 and met the edge of f32
+    breakdown: its phases' modes are the JAX package's, its f64 finish is
+    within ``PCG_ITER_SLACK`` of the JAX package's, and an earlier phase
+    took bad steps (a failed f32 factorization or refinement, answered by
+    raising the regularization). There the f32 phases' lengths follow the
+    rounding of the f32 assembly, and K1's f32 M is about twice as far
+    from the exact one as a cuBLAS product's (``scripts/
+    port_two_phase_probe.py``; ROADMAP Queue 3)."""
+    phases, ref_phases = row.get("phases"), ref["phases"]
+    if not phases or [ph["mode"] for ph in phases] != [mode for mode, _ in ref_phases or []]:
+        return False
+    return (phases[-1]["mode"] == "f64"
+            and abs(phases[-1]["iters"] - ref_phases[-1][1]) <= PCG_ITER_SLACK
+            and any(ph["bad_steps"] > 0 for ph in phases[:-1]))
+
+
+def two_phase_verdict(name, r, row, card, highs=None):
+    """Hold a two-phase solve to the JAX package's verdict for its case
+    (:func:`_two_phase_verdict`), printing its row either way."""
+    try:
+        _two_phase_verdict(name, r, row, highs)
+    finally:
+        print(f"two_phase {name} {since()} " + json.dumps(row) + f" [{card}]")
+
+
+def _two_phase_verdict(name, r, row, highs=None):
+    """The same status as the JAX package's (a plateau status that differs
+    only through the stall exit's patience floor passes,
+    ``pcg_by_patience``); where OPTIMAL, iterations within ±2 (or a
+    difference before the f64 finish alone, at the f32 breakdown edge:
+    ``two_phase_by_f32_edge``)
+    and the objective within 1e-8 of the JAX package's and, with
+    ``highs``, within 1e-6 of HiGHS; else the final rel_gap and pinf
+    within a factor of 10."""
+    ref = TWO_PHASE_JAX.get(name)
+    if ref is None:
+        fail(f"two_phase {name}: no JAX verdict recorded")
+    row["jax_status"], row["jax_iterations"] = ref["status"], ref["iterations"]
+    row["jax_phases"] = ref["phases"]
+    if r.status.value != ref["status"]:
+        if not pcg_by_patience(name, r.status.value, row, ref):
+            fail(f"two_phase {name}: {r.status.value} at {r.iterations} (best error "
+                 f"{row['min_err']:.3e}) where the JAX package gives {ref['status']} at "
+                 f"{ref['iterations']} (best error {ref['min_err']:.3e})")
+    elif (ref["status"] != "iteration_limit"
+          and abs(r.iterations - ref["iterations"]) > PCG_ITER_SLACK):
+        row["by_f32_edge"] = two_phase_by_f32_edge(row, ref)
+        if not row["by_f32_edge"]:
+            fail(f"two_phase {name}: {r.iterations} iterations (phases {row.get('phases')}) "
+                 f"against the JAX package's {ref['iterations']} ({ref['phases']})")
+    if ref["status"] == "optimal":
+        rel = abs(r.objective - ref["objective"]) / (1.0 + abs(ref["objective"]))
+        row["objective_rel_jax"] = rel
+        if not rel <= PCG_OBJ_TOL:
+            fail(f"two_phase {name}: objective {r.objective!r} against the JAX package's "
+                 f"{ref['objective']!r} ({rel:.3e} > {PCG_OBJ_TOL:.0e})")
+        if highs is not None:
+            rel_h = abs(r.objective - highs) / (1.0 + abs(highs))
+            row["objective_rel_highs"] = rel_h
+            if not rel_h <= PCG_HIGHS_TOL:
+                fail(f"two_phase {name}: objective {r.objective!r} against HiGHS {highs!r} "
+                     f"({rel_h:.3e})")
+    else:
+        for k in ("rel_gap", "pinf"):
+            ratio = max(getattr(r, k), 1e-300) / max(ref[k], 1e-300)
+            row[f"{k}_over_jax"] = ratio
+            if not 1.0 / PCG_RATIO <= ratio <= PCG_RATIO:
+                fail(f"two_phase {name}: final {k} {getattr(r, k):.3e} against the JAX "
+                     f"package's {ref[k]:.3e}")
+
+
+def two_phase_k1_row(torch, ne, be, name, launches, extra):
+    """K1 f32 on a two-phase path's f32 copy of A with a d spread over 8
+    orders (seeded) against its plain version, timed at that shape; the
+    kernels-line row."""
+    A32 = be._A32
+    m, n = A32.shape
+    g = torch.Generator(device="cuda").manual_seed(20)
+    d32 = (10.0 ** (8.0 * torch.rand(n, dtype=torch.float64, device="cuda", generator=g) - 4.0)
+           ).to(torch.float32)
+    M = ne.normal_eq(A32, d32)
+    R = torch.tril(ne.normal_eq_reference(A32, d32)).double()
+    diff = torch.tril(M).double() - R
+    rel, mx = (diff.norm() / R.norm()).item(), diff.abs().max().item()
+    if not torch.equal(M, M.T) or not rel <= TOL["float32"]:
+        fail(f"two_phase K1 f32 on the path's A ({m}x{n}): rel_err {rel:.3e} "
+             f"(tol {TOL['float32']:.0e}), symmetric {torch.equal(M, M.T)}")
+    del M, R, diff
+    torch.cuda.empty_cache()
+    t = kernel_timing(torch, ne, m, n, "float32", iters=20, warm=3)
+    return {
+        "name": name, "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        "launches": launches, "max_abs_err": mx, "rel_err": rel,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                             "library_ms", "shape")},
+        "dtype": "float32", **extra,
+    }
+
+
+def highs_main() -> int:
+    """The body of ``--highs-main`` (no card needed): HiGHS's objective
+    for the main path's problem, ``random_dense_lp(2048, 10240, seed=0)``,
+    on the last line of standard output, which ``MAIN_HIGHS_OBJECTIVE``
+    pastes. Its interior point method (``highs-ipm``) at feasibility
+    tolerances of 1e-10; either method takes minutes there, too long for
+    this script's limit."""
+    import scipy.optimize as sopt
+
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    p = random_dense_lp(*TWO_PHASE_SHAPES["full"], seed=0)
+    t0 = time.perf_counter()
+    h = sopt.linprog(p.c, A_eq=p.A, b_eq=p.rlb, bounds=(0, None), method="highs-ipm",
+                     options={"primal_feasibility_tolerance": 1e-10,
+                              "dual_feasibility_tolerance": 1e-10})
+    print(json.dumps({"status": int(h.status), "message": h.message, "objective": h.fun,
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def two_phase_phase(torch, ne, card):
+    """The dense backend's two-phase schedule under
+    ``schedule_platform="tpu"`` on the card (module note, step 24).
+    Returns the kernels-line rows of K1 on this path."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends import get_backend
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    _T0[0] = time.perf_counter()
+    # The direct path on the same problem (its second solve, warm), for ms
+    # an iteration.
+    for _ in range(2):
+        r_dir = solve(random_dense_lp(*TWO_PHASE_SHAPES["full"], seed=0),
+                      backend=get_backend("cuda"), tol=1e-8)
+    direct_ms = 1e3 * r_dir.solve_time / max(r_dir.iterations, 1)
+    print(f"two_phase direct_fused {since()} {r_dir.iterations} it, {direct_ms:.3f} ms an "
+          f"iteration (warm) [{card}]")
+    highs = MAIN_HIGHS_OBJECTIVE
+
+    rows = {}
+    for name in ("full_segmented", "full_fused", "full_host"):
+        _, r, be, row = two_phase_solve_counted(torch, name)
+        two_phase_verdict(name, r, row, card, highs)
+        rows[name] = (r, be, row)
+    # The fused two-phase program again (warm): the same bits.
+    _, r2, _, row2 = two_phase_solve_counted(torch, "full_fused")
+    r1 = rows["full_fused"][0]
+    if r2.iterations != r1.iterations or not np.array_equal(np.asarray(r2.x), np.asarray(r1.x)):
+        fail("two_phase full_fused: a repeat solve gives other iterations or bits")
+    print(f"two_phase full_fused_repeat {since()} x bit for bit, " + json.dumps(row2) + f" [{card}]")
+    print("two_phase ms an iteration by phase (the warm fused program): "
+          + ", ".join(f"{ph['mode']} {ph['ms_per_iteration']:.3f} ({ph['iters']} it)"
+                      for ph in row2["phases"])
+          + f"; the direct path {direct_ms:.3f} [{card}]")
+    _, be_seg, row_seg = rows["full_segmented"]
+    k1_rows = [two_phase_k1_row(torch, ne, be_seg, "normal_eq (two-phase, f32)",
+                                row_seg["normal_eq_f32_launches"], {
+        "f64_launches": row_seg["normal_eq_launches"] - row_seg["normal_eq_f32_launches"],
+        "launches_by_route": {n: rows[n][2]["normal_eq_f32_launches"] for n in rows},
+    })]
+    del rows, be_seg
+
+    # The PCG plan at the same shape: does its f64 finish reach OPTIMAL
+    # where the forced PCG of the card's schedule stalls (step 23)?
+    _, r, be, row = two_phase_solve_counted(torch, "full_pcg")
+    two_phase_verdict("full_pcg", r, row, card, highs)
+    k1_rows[0]["launches_by_route"]["full_pcg"] = row["normal_eq_f32_launches"]
+    del be
+    print(f"two_phase full_pcg: {r.status.value} at {r.iterations} (phases "
+          f"{[(ph['mode'], ph['iters']) for ph in row['phases']]}), the PCG phase's CG live "
+          f"{row['cg_live_per_solve']:.2f} / masked {row['cg_masked_per_solve']:.2f} a Newton "
+          f"solve; the forced PCG of step 23 ends {PCG_JAX['full_fused']['status']} in the JAX "
+          f"package and STALLED at 35 on the card [{card}]")
+
+    # Auto PCG at the smallest class that engages it (2**26 <= m·n < 2**28).
+    _, r, be, row = two_phase_solve_counted(torch, "auto_pcg")
+    if not be._pcg:
+        fail("two_phase auto_pcg: solve_mode=None did not engage PCG")
+    two_phase_verdict("auto_pcg", r, row, card)
+    m, n = TWO_PHASE_SHAPES["auto"]
+    rel64, mx64 = kernel_parity(torch, ne, m, n, "float64")
+    t64 = kernel_timing(torch, ne, m, n, "float64", iters=10, warm=2)
+    f64_launches = row["normal_eq_launches"] - row["normal_eq_f32_launches"]
+    k1_rows.append(two_phase_k1_row(torch, ne, be, "normal_eq (two-phase auto PCG, f32)",
+                                    row["normal_eq_f32_launches"], {"f64_launches": f64_launches}))
+    del be
+    k1_rows.append({
+        "name": "normal_eq (two-phase auto PCG, f64 finish)", "route": "cuda",
+        "source": "distributedlpsolver_tpu_torch/csrc/normal_eq.cu",
+        "replaces": "distributedlpsolver_tpu/ops/normal_eq.py:51",
+        "launches": f64_launches, "max_abs_err": mx64, "rel_err": rel64,
+        **{k: t64[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                               "library_ms", "shape")},
+        "dtype": "float64",
+    })
+    torch.cuda.empty_cache()
+    print(f"two_phase phase {since()}")
+    return k1_rows
+
+
 def main(only: str = "") -> int:
-    """The whole run, or with ``only`` ("pcg", "sparse", "plane",
-    "block", "scenario", "sharded", "slice" or "rows") the build and that
-    phase alone."""
+    """The whole run, or with ``only`` ("pcg", "two_phase", "sparse",
+    "plane", "block", "scenario", "sharded", "slice" or "rows") the build
+    and that phase alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5088,6 +5429,9 @@ def main(only: str = "") -> int:
     # 23. The dense backend's forced-PCG schedule.
     if only in ("", "pcg"):
         rows += pcg_phase(torch, ne, card)
+    # 24. The dense backend's two-phase schedule (the reference's TPU one).
+    if only in ("", "two_phase"):
+        rows += two_phase_phase(torch, ne, card)
     if not only:  # HiGHS for the sparse phase, beside the plane's processes
         shared["highs"] = start_highs_storm20k()
     # 17. The network plane: its launches go to the serve bucket's K1 row,
@@ -5308,9 +5652,11 @@ if __name__ == "__main__":
         sys.exit(one_solve(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--highs-storm20k"]:
         sys.exit(highs_storm20k())
+    if sys.argv[1:2] == ["--highs-main"]:
+        sys.exit(highs_main())
     only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block",
             "--scenario-only": "scenario", "--sharded-only": "sharded", "--slice-only": "slice",
-            "--rows-only": "rows", "--pcg-only": "pcg"}
+            "--rows-only": "rows", "--pcg-only": "pcg", "--two-phase-only": "two_phase"}
     if sys.argv[1:] and sys.argv[1] not in only:
         raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
     sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

@@ -21,6 +21,24 @@ iterate dtype (f64) and there is no two-phase schedule
 A is kept only when ``factor_dtype`` differs from ``dtype``; the
 assembly then runs in ``factor_dtype`` on that copy.
 
+``schedule_platform="tpu"`` is a parity seam, not a feature: it makes
+the backend take every schedule decision that the JAX package takes from
+``jax.default_backend()`` as that package does on a TPU, so that its
+default TPU schedule can be run here and held to the reference (the JAX
+package's tests force the same gate). Those decisions are the two-phase
+schedule (``factor_dtype="auto"``), auto segmentation
+(``segment_iters=None``) and auto PCG (``solve_mode=None`` at
+``m·n ≥ _PCG_AUTO_ENTRIES`` inside the two-phase schedule). The
+two-phase schedule (the reference's ``_dense_solve_two_phase`` and its
+phase plans) runs phase 1 with f32 factorizations, K1 in f32 on a lazy
+f32 copy of A, under a loosened tolerance, then hands the iterate to
+full-precision f64 phases: directly (``[f32, f64]``), or through a PCG
+phase that stops at ``pcg_handoff_tol`` (``[f32, pcg, f64]``, the
+primal-row closure in every phase). The starting point of the direct
+plan uses the f32 factorization; the host loop iterates in f64. The
+reference's TPU factorization routes (the paneled explicit inverse,
+``ops/chol_mxu.py``) are not taken: the factorizations stay cuSOLVER's.
+
 The fused loop is the default path (``solve_full``, as in the JAX
 package): one masked Mehrotra iteration (``core.fused_body``) run by
 ``ipm/device_loop.py``, on the card as a captured CUDA graph replayed by
@@ -50,10 +68,11 @@ loop and the fused loop run PCG alone; the segmented loop also takes the
 primal-row closure (:func:`_closure_factors`: ``G = A·Aᵀ`` through K1
 with d = 1, built once per problem, applied with two refinement sweeps),
 as only the reference's segmented route does. ``solve_mode=None`` stays
-direct: off a TPU the reference engages PCG only inside its two-phase
-schedule.
+direct: the reference engages PCG only inside its two-phase schedule.
 
-Not ported yet: the two-phase schedule and the dense endgame.
+Not ported yet: the dense endgame (ROADMAP item 5b), the reference's
+full-precision finish of a PCG plan at ``m·n ≥ _ENDGAME_ENTRIES``.
+Under ``schedule_platform="tpu"`` such a plan raises in ``setup``.
 
 Failure semantics: ``torch.linalg.cholesky`` raises on a matrix that is
 not positive definite, where the JAX package's Cholesky returns NaN. The
@@ -81,6 +100,13 @@ from distributedlpsolver_tpu_torch.models.problem import InteriorForm
 from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+# m·n from which the reference's solve_mode=None engages PCG inside its
+# two-phase schedule (below it the two-phase direct plan wins).
+_PCG_AUTO_ENTRIES = 1 << 26
+# m·n from which the reference finishes a PCG plan with its host-driven
+# endgame instead of a fused f64 phase (not ported: ROADMAP item 5b).
+_ENDGAME_ENTRIES = 1 << 28
 
 
 def resolve_device(device=None) -> torch.device:
@@ -299,6 +325,45 @@ def _dense_solve_full(
     )
 
 
+def _dense_solve_two_phase(
+    step32, step64, state0, reg0, params, params_p1, max_iter, max_refactor, reg_grow,
+    buf_cap, stall_window, report=None, capture=True,
+):
+    """The unsegmented two-phase solve (the JAX package's
+    ``_dense_solve_two_phase``): two runs of the fused loop over one
+    stats buffer and a global iteration count, each loop captured once.
+
+    Phase 1 (``step32``: f32 factorizations on the f32 copy) runs under
+    ``params_p1`` with the stall window and no patience, and does not
+    finalize; whatever its status, phase 2 (``step64``: the f64 direct
+    factorization) re-enters RUNNING from its iterate with a budget of
+    ``max_iter`` more iterations, window 2w and the patience floor
+    1e3·tol. ``report`` (a list) gets one row per phase."""
+    rows = [{}, {}]
+    t0 = time.perf_counter()
+    st1, it1, status1, buf = core.fused_solve(
+        step32, state0, reg0, params_p1, max_iter, max_refactor, reg_grow, buf_cap,
+        stall_window=stall_window, finalize=False, report=rows[0], capture=capture,
+    )
+    it1 = int(it1)  # the loop has ended: its count is read on the host anyway
+    t1 = time.perf_counter()
+    # Every phase-1 verdict is provisional: phase 2 re-derives it in f64.
+    status1 = torch.full_like(status1, core.STATUS_RUNNING)
+    out = core.fused_solve(
+        step64, st1, reg0, params, it1 + max_iter, max_refactor, reg_grow, buf_cap,
+        stall_window=2 * stall_window if stall_window else 0,
+        stall_patience_floor=1e3 * params.tol, carry_in=(it1, status1, buf),
+        report=rows[1], capture=capture,
+    )
+    if report is not None:
+        walls = (t1 - t0, time.perf_counter() - t1)
+        iters = (it1, int(out[1]) - it1)
+        for i, (mode, row) in enumerate(zip(("f32", "f64"), rows)):
+            report.append({"phase": i, "iters": iters[i], "wall_s": round(walls[i], 3),
+                           "mode": mode, **row})
+    return out
+
+
 def _dense_loop(step, params, buf_cap, device, dtype, stall_window=0, patience=0.0,
                 capture=True):
     """One phase's fused loop, captured once and replayed by every
@@ -330,13 +395,26 @@ class DenseTorchBackend(SolverBackend):
     capture: bool = True
     capture_off_reason: Optional[str] = None
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, schedule_platform: Optional[str] = None):
         self.device = resolve_device(device)
+        if schedule_platform not in (None, "tpu", "cuda", "cpu"):
+            raise ValueError(f"schedule_platform must be None, 'tpu', 'cuda' or 'cpu'; "
+                             f"got {schedule_platform!r}")
+        # The platform whose schedule decisions the backend takes (see the
+        # module note): None = the device's own type.
+        self.schedule_platform = schedule_platform
         self._reg: float = 0.0
         self._cfg: Optional[SolverConfig] = None
         self._n_orig: Optional[int] = None  # the unpadded column count (setup)
+        self._two_phase = False
         self._pcg = False
         self._cg_counts: Optional[torch.Tensor] = None  # PCG mode's device tally
+
+    @property
+    def platform(self) -> str:
+        """The platform string of the schedule decisions: ``"tpu"`` under
+        the parity seam, else the device's type."""
+        return self.schedule_platform or self.device.type
 
     # -- placement hooks (overridden by the sharded backend) ---------------
     def shardings(self, m: int, n: int):
@@ -395,12 +473,24 @@ class DenseTorchBackend(SolverBackend):
         self._Af = (
             self._A.to(self._factor_dtype) if self._factor_dtype != dtype else None
         )
-        # Forced PCG (the JAX package's solve_mode="pcg" without its
-        # two-phase schedule, which needs a TPU): every solve of every
-        # loop, starting point included. None (auto) engages PCG only in
-        # that schedule, so it stays direct here.
-        self._pcg = config.solve_mode == "pcg"
-        self._A32 = self._A.to(torch.float32) if self._pcg else None
+        # The schedule, resolved as the JAX package resolves it on
+        # `platform`: two-phase only for factor_dtype="auto" on a TPU, and
+        # PCG when forced or (auto) inside the two-phase schedule from
+        # _PCG_AUTO_ENTRIES. The f32 copy of A is made at its first use.
+        platform = self.platform
+        self._two_phase = config.two_phase_enabled(platform)
+        entries = m * n
+        if config.solve_mode is None:
+            self._pcg = self._two_phase and entries >= _PCG_AUTO_ENTRIES
+        else:
+            self._pcg = config.solve_mode == "pcg"
+        if self._pcg and platform == "tpu" and entries >= _ENDGAME_ENTRIES:
+            raise NotImplementedError(
+                f"a PCG plan at m·n = {entries:,} ≥ 2²⁸ finishes with the reference's host-driven "
+                "dense endgame on a TPU, which is not ported to the torch package yet (ROADMAP "
+                "Queue 1 item 5b)"
+            )
+        self._A32 = None
         self._closure = None
         self._cg_counts = (
             torch.zeros(3, dtype=torch.int64, device=dev) if self._pcg else None
@@ -421,37 +511,77 @@ class DenseTorchBackend(SolverBackend):
 
         return step
 
+    def _ensure_A32(self) -> torch.Tensor:
+        """The f32 copy of A (of this rank's block on a mesh), made at its
+        first use: the f64 host loop of a two-phase schedule never reads
+        it."""
+        if self._A32 is None:
+            self._A32 = self._A.to(torch.float32)
+        return self._A32
+
     def _point_spec(self) -> _Phase:
         """The spec of the per-call entry points (``starting_point``,
         ``iterate``): the PCG ops on the f32 copy in PCG mode, else the
         direct factorization."""
         if self._pcg:
-            return _Phase(self._params, torch.float32, 0, self._A32,
+            return _Phase(self._params, torch.float32, 0, self._ensure_A32(),
                           cg_iters=self._cfg.cg_iters, cg_tol=self._cfg.cg_tol)
         return _Phase(self._params, self._factor_dtype, self._refine, self._Af)
+
+    def _start_spec(self) -> _Phase:
+        """The starting point's spec: a two-phase direct schedule takes it
+        with the f32 factorization on the f32 copy (it is a heuristic, and
+        phase 2 repairs f32 error); ``iterate`` keeps :meth:`_point_spec`,
+        since the host loop has no second phase."""
+        if self._two_phase and not self._pcg:
+            return _Phase(self._params, torch.float32, 0, self._ensure_A32())
+        return self._point_spec()
 
     def _ensure_closure(self):
         """The f32 factor of ``G = A·Aᵀ`` for the primal-row closure,
         built at the first segmented PCG solve of a problem."""
         if self._closure is None:
-            self._closure = _closure_factors(self._A32)
+            self._closure = _closure_factors(self._ensure_A32())
         return self._closure
 
     def starting_point(self) -> IPMState:
-        return core.starting_point(self._ops(), self._data, self._params)
+        return core.starting_point(self._make_linops(self._reg, self._start_spec()), self._data,
+                                   self._params)
 
     def _phase_plan(self, segmented: bool = True):
-        """Per-phase specs of the fused solve: one phase, with the JAX
-        package's final-phase stall semantics (window 2·w, the near-tol
-        patience floor). In PCG mode the segmented route's phase also
-        takes the primal-row closure with 2 sweeps; the unsegmented route
-        has none, as in the reference."""
+        """Per-phase specs of the fused solve (the JAX package's
+        ``_phase_plan``). Every final phase has window 2·w and the
+        near-tol patience floor 1e3·tol.
+
+        * One phase without the two-phase schedule; in PCG mode the
+          segmented route's phase also takes the primal-row closure with
+          2 sweeps (the unsegmented route has none, as in the reference).
+        * Two-phase direct: f32 under ``phase1_params()`` (window w, no
+          patience), then f64.
+        * Two-phase PCG (always segmented): f32 with the closure and 0
+          sweeps; PCG at max(tol, ``pcg_handoff_tol``) with window
+          min(3, w), no patience and 2 sweeps; f64 with 2 sweeps. The
+          reference finishes with its endgame instead of the f64 phase
+          from ``_ENDGAME_ENTRIES``, where ``setup`` refuses the plan.
+        """
         cfg = self._cfg
         w = cfg.stall_window
-        spec = self._point_spec()._replace(window=2 * w if w else 0, patience=1e3 * cfg.tol)
-        if self._pcg and segmented:
-            spec = spec._replace(closure=self._ensure_closure(), closure_sweeps=2)
-        return [spec]
+        final = dict(window=2 * w if w else 0, patience=1e3 * cfg.tol)
+        if not self._two_phase:
+            spec = self._point_spec()._replace(**final)
+            if self._pcg and segmented:
+                spec = spec._replace(closure=self._ensure_closure(), closure_sweeps=2)
+            return [spec]
+        p1 = _Phase(cfg.phase1_params(), torch.float32, 0, self._ensure_A32(), window=w)
+        f64 = _Phase(self._params, self._dtype, self._refine, None, **final)
+        if not self._pcg:
+            return [p1, f64]
+        closure = self._ensure_closure()
+        params_pcg = cfg.replace(tol=max(cfg.tol, cfg.pcg_handoff_tol)).step_params()
+        pcg = _Phase(params_pcg, torch.float32, 0, self._A32, window=min(3, w) if w else 0,
+                     cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol, closure=closure, closure_sweeps=2)
+        return [p1._replace(closure=closure), pcg,
+                f64._replace(closure=closure, closure_sweeps=2)]
 
     def cg_report(self) -> dict:
         """PCG mode's tally since ``setup``, in one device read: Newton
@@ -468,7 +598,12 @@ class DenseTorchBackend(SolverBackend):
         shared driver (``core.drive_phase_plan``). Each phase captures its
         loop once; every segment of the phase replays it."""
         cfg = self._cfg
-        buf_cap = core.buffer_cap(cfg.max_iter)
+        # An explicit segment_iters=0 reaches here on the two-phase PCG
+        # route (solve_full): segment sizing treats it as auto.
+        seg_cfg = cfg.segment_iters or None
+        # Each phase has its own max_iter budget; the buffer covers them all.
+        n_phases = 1 + int(self._two_phase) + int(self._pcg)
+        buf_cap = core.buffer_cap(n_phases * cfg.max_iter)
         m, n = self._shape
         flops = 2.0 * m * m * n + m**3 / 3.0  # per-iteration FLOP estimate
         loops = []
@@ -492,7 +627,7 @@ class DenseTorchBackend(SolverBackend):
             # A PCG phase opens with one iteration (the reference's rule:
             # the FLOP model cannot see the CG sweeps); drive_segments
             # sizes the rest from measured time.
-            seg0 = 1 if spec.cg_iters else core.seg_open(cfg.segment_iters, flops / rate)
+            seg0 = 1 if spec.cg_iters else core.seg_open(seg_cfg, flops / rate)
             return (make_run_seg, window, patience, seg0)
 
         plan = self._phase_plan()
@@ -510,16 +645,32 @@ class DenseTorchBackend(SolverBackend):
         return st, it, status, buf
 
     def solve_full(self, state: IPMState):
-        """The fused loop from ``state``: host-segmented when
-        ``segment_iters > 0``, else one run. Returns ``(state, it,
-        status, buf)``, the last three on the host; ``self.phase_report``
-        gets one row per phase with the JAX package's keys (``phase``,
-        ``iters``, ``wall_s``, ``mode``) plus ``bad_steps`` and the
-        loop's report (``DeviceLoop.report``): each body launches K1
-        once, so K1 runs ``1 + bodies`` times a solve."""
+        """The fused loop from ``state`` (the JAX package's routing):
+        host-segmented when ``core.use_segments`` says so on the
+        schedule's platform, and always for the two-phase PCG plan (only
+        the segmented route has its f64 finish); the two-phase direct
+        schedule otherwise as :func:`_dense_solve_two_phase`; else one
+        run. Returns ``(state, it, status, buf)``, the last three on the
+        host; ``self.phase_report`` gets one row per phase with the JAX
+        package's keys (``phase``, ``iters``, ``wall_s``, ``mode``) plus
+        ``bad_steps`` and the loop's report (``DeviceLoop.report``): each
+        body launches K1 once, so K1 runs ``1 + bodies`` times a solve."""
         cfg = self._cfg
-        if core.use_segments(cfg.segment_iters, self.device.type):
+        if (core.use_segments(cfg.segment_iters, self.platform)
+                or (self._pcg and self._two_phase)):
             st, it, status, buf = self._solve_segmented(state)
+        elif self._two_phase:
+            p1, p2 = self._phase_plan(segmented=False)
+            # This route's phase 1 keys only its tol to the handoff: no
+            # μ-vs-pinf floor, unlike phase1_params() of the segmented plan.
+            params_p1 = cfg.replace(tol=max(cfg.tol, cfg.phase1_tol)).step_params()
+            self.phase_report = []
+            st, it, status, buf = _dense_solve_two_phase(
+                self._step(p1._replace(params=params_p1)), self._step(p2), state, self._reg0(),
+                p2.params, params_p1, cfg.max_iter, cfg.max_refactor, cfg.reg_grow,
+                core.buffer_cap(2 * cfg.max_iter), cfg.stall_window, report=self.phase_report,
+                capture=self.capture,
+            )
         else:
             spec, = self._phase_plan(segmented=False)
             loop = {}

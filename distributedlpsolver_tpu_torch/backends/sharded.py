@@ -45,11 +45,17 @@ instance on the re-formed mesh (``parallel.mesh.reform_mesh``), whose
 ``from_host`` re-pads the host-canonical checkpoint onto the new column
 blocks; the supervisor resumes from it.
 
+``schedule_platform="tpu"`` is the dense backend's parity seam (see
+``backends/dense.py``): the reference's TPU schedule on the mesh, whose
+two-phase direct plan runs phase 1 with K1 in f32 on each rank's f32
+copy of its block and the same all-reduce of M.
+
 Not ported yet: the PCG schedule on a mesh (``solve_mode="pcg"`` raises
-in ``setup``; its column-sharded preconditioner ``prec_sharding``, the
-reference's ``_tri_inv_mesh`` and the distributed Cholesky under it,
-ROADMAP Queue 1 item 5b). The dense backend runs that schedule on one
-device.
+in ``setup``, and so does the automatic PCG of a two-phase schedule
+under ``schedule_platform="tpu"``; its column-sharded preconditioner
+``prec_sharding``, the reference's ``_tri_inv_mesh`` and the distributed
+Cholesky under it, ROADMAP Queue 1 item 5b). The dense backend runs that
+schedule on one device.
 """
 
 from __future__ import annotations
@@ -137,10 +143,11 @@ class ShardedTorchBackend(DenseTorchBackend):
     the ``torch.distributed`` world, or a world of one without one.
     ``device`` defaults to the mesh's (the world's) device."""
 
-    def __init__(self, mesh: Optional[mesh_lib.Mesh] = None, device=None):
+    def __init__(self, mesh: Optional[mesh_lib.Mesh] = None, device=None,
+                 schedule_platform: Optional[str] = None):
         if device is None:
             device = mesh.device if mesh is not None else runtime.world_device()
-        super().__init__(device)
+        super().__init__(device, schedule_platform)
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"mesh device {mesh.device} != backend device {self.device}")
         self._mesh = mesh
@@ -182,6 +189,12 @@ class ShardedTorchBackend(DenseTorchBackend):
         )
         self._decide_capture()
         super().setup(inf, config)
+        if self._pcg:  # the automatic PCG of a two-phase schedule
+            raise NotImplementedError(
+                "PCG on the sharded backend (the column-sharded preconditioner, prec_sharding), "
+                "which the two-phase schedule engages at this size, is not ported to the torch "
+                "package yet (ROADMAP Queue 1 item 5b)"
+            )
         m, n = self._shape
         self._cols = self._mesh.col_range(n, self._axis)
 
@@ -217,4 +230,4 @@ class ShardedTorchBackend(DenseTorchBackend):
         ``from_host`` from the mesh alone, so re-placement is
         re-construction; the supervisor resumes the IPM from the last
         host-canonical checkpoint, which ``from_host`` re-pads."""
-        return type(self)(mesh=mesh, device=self.device)
+        return type(self)(mesh=mesh, device=self.device, schedule_platform=self.schedule_platform)

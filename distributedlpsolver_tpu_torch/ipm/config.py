@@ -9,11 +9,16 @@ TPU-keyed resolution below therefore takes its off-TPU branch: on the card
 ``factor_dtype="auto"`` resolves to plain ``dtype`` (f64) and
 :meth:`SolverConfig.two_phase_enabled` is False, because the H100 has
 native FP64, and ``segment_iters=None`` leaves the fused loop
-unsegmented. Fields that only the JAX package's TPU and serving schedules
-read (``endgame_*``, ``bucket_schedule``, ``fused_iters``, ``mesh_*``)
-are kept so configs stay interchangeable; the port's dense backend
-ignores them. ``solve_mode="pcg"`` runs the dense backend's forced-PCG
-schedule; ``None`` stays direct, as the reference does off a TPU.
+unsegmented. The one exception is a parity seam, not a feature: the dense
+backend's ``schedule_platform="tpu"`` (``backends/dense.py``) hands
+``"tpu"`` to these resolutions, so that the reference's TPU schedule (the
+two-phase f32 → f64 and f32 → PCG → f64 plans, auto segmentation, auto
+PCG) runs here to be held to the reference; this class gains no field for
+it. Fields that only the JAX package's TPU and serving schedules read
+(``endgame_*``, ``bucket_schedule``, ``fused_iters``, ``mesh_*``) are
+kept so configs stay interchangeable; the port's dense backend ignores
+them. ``solve_mode="pcg"`` runs the dense backend's forced-PCG schedule;
+``None`` stays direct, as the reference does off a TPU.
 """
 
 from __future__ import annotations

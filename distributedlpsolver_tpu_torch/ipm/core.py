@@ -848,7 +848,8 @@ SEG_RATE_F64 = 2.5e11
 def use_segments(seg_cfg, platform: str) -> bool:
     """Whether a backend should host-segment its fused loop: explicit
     ``segment_iters=0`` disables, any positive value enables, and auto
-    (None) enables exactly on TPU — so never in this package, whose
+    (None) enables exactly on TPU — so only under the dense backend's
+    ``schedule_platform="tpu"`` parity seam in this package, whose
     platforms are ``"cuda"`` and ``"cpu"``."""
     if seg_cfg is None:
         return platform == "tpu"

@@ -223,12 +223,15 @@ def _launch(A, d, out_dtype):
     kernel_build.count_launch(normal_eq)
     if batched:
         kernel_build.count_launch(normal_eq, attr="launches_batched")
+    if A.dtype == torch.float32:
+        kernel_build.count_launch(normal_eq, attr="launches_f32")
     return M
 
 
 # Launches of the CUDA kernel since the last reset (the CPU path never
 # counts; a batched launch counts once), and of those the batched ones
-# (a lane axis): a run sets them to 0 and reads them to show the kernel
-# ran.
+# (a lane axis) and the ones on an f32 A: a run sets them to 0 and reads
+# them to show the kernel ran.
 normal_eq.launches = 0
 normal_eq.launches_batched = 0
+normal_eq.launches_f32 = 0

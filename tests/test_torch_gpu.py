@@ -287,6 +287,56 @@ def test_pcg_factorize_k1_f32_matches_its_plain_version(cuda):
     assert ((xg - xc).abs().max() / xc.abs().max()).item() <= 1e-9
 
 
+# The JAX package's verdicts for random_dense_lp(60, 180, seed=0) under its
+# TPU schedule (jax.default_backend forced to "tpu", use_pallas=False; the
+# rule of scripts/port_two_phase_jax_verdicts.py): OPTIMAL at 11 + 1
+# iterations on the fused two-phase program, 12 + 1 on the segmented route.
+TWO_PHASE_SMALL = {"fused": (12, 166.05981002046568), "segmented": (13, 166.05980881256784)}
+
+
+def _two_phase_solve(p, **kw):
+    """A solve under ``schedule_platform="tpu"`` with K1's counts reset
+    just before and read just after: (result, backend, all, f32)."""
+    from distributedlpsolver_tpu_torch.backends.dense import DenseTorchBackend
+
+    be = DenseTorchBackend(schedule_platform="tpu")
+    normal_eq.launches = normal_eq.launches_f32 = 0
+    r = solve(p, backend=be, tol=1e-8, **kw)
+    return r, be, normal_eq.launches, normal_eq.launches_f32
+
+
+def test_two_phase_unsegmented_route_is_captured_and_repeatable(cuda):
+    """The fused two-phase program (``segment_iters=0``): phase 1 on its
+    captured loop, phase 2 resuming its carry; the reference's verdict
+    (iterations ±1, objective within 1e-8), and x bit for bit on a
+    repeat."""
+    p = random_dense_lp(60, 180, seed=0)
+    (r1, b1, _, _), (r2, _, _, _) = (_two_phase_solve(p, segment_iters=0) for _ in range(2))
+    its, obj = TWO_PHASE_SMALL["fused"]
+    assert r1.status == Status.OPTIMAL and abs(r1.iterations - its) <= 1
+    assert abs(r1.objective - obj) <= 1e-8 * (1.0 + abs(obj))
+    p1, p2 = b1.phase_report
+    assert (p1["mode"], p2["mode"]) == ("f32", "f64") and p1["iters"] + p2["iters"] == r1.iterations
+    assert p1["captures"] == 1 and p1["replays"] > 0 and p2["captures"] <= 1
+    assert all(row["captured"] for row in b1.phase_report)
+    assert r2.iterations == r1.iterations and np.array_equal(r2.x, r1.x)
+
+
+def test_two_phase_k1_f32_launches_are_the_start_and_phase_one(cuda):
+    """K1 f32 launches = the starting point + phase 1's bodies, and the
+    f64 ones phase 2's bodies, on the segmented route (the TPU's auto) and
+    the fused two-phase program."""
+    p = random_dense_lp(60, 180, seed=0)
+    for route, kw in (("segmented", {}), ("fused", {"segment_iters": 0})):
+        r, be, launches, f32 = _two_phase_solve(p, **kw)
+        its, obj = TWO_PHASE_SMALL[route]
+        assert r.status == Status.OPTIMAL and abs(r.iterations - its) <= 1
+        assert abs(r.objective - obj) <= 1e-8 * (1.0 + abs(obj))
+        p1, p2 = be.phase_report
+        assert (p1["mode"], p2["mode"]) == ("f32", "f64")
+        assert f32 == 1 + p1["bodies"] and launches - f32 == p2["bodies"]
+
+
 def _batched_inputs(B, m, n, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     A = torch.tensor(rng.standard_normal((B, m, n)), device=device).to(dtype)
