@@ -1,5 +1,7 @@
 """The CUDA kernel against its plain version (one matrix and a batch of
-lanes), the fused loop (a captured CUDA graph of the Mehrotra step)
+lanes; in f32 against the exact product, also on its 4-byte copies, and
+no farther from it than cuBLAS's; in f64 split over k, and its split's
+sum kernel), the fused loop (a captured CUDA graph of the Mehrotra step)
 against the host loop, the batched solver against its CPU path, and the
 bucket engine and solve service (one captured graph per bucket, reused),
 the sparse tier's hybrid-ELL kernel against its plain version and a
@@ -30,13 +32,23 @@ from distributedlpsolver_tpu_torch.models import random_batched_lp, random_dense
 from distributedlpsolver_tpu_torch.models.problem import LPProblem
 from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
 from distributedlpsolver_tpu_torch.ops import normal_eq, normal_eq_reference
+from distributedlpsolver_tpu_torch.ops.normal_eq import normal_eq_exact
 
 pytestmark = pytest.mark.gpu
 
 # Frobenius-relative error of the kernel's lower triangle against the
-# plain version's (the kernel computes the lower triangle and mirrors it,
-# so M must also equal Mᵀ bit for bit).
+# plain version's, in f32 against the exact product's (the kernel computes
+# the lower triangle and mirrors it, so M must also equal Mᵀ bit for bit).
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+def _held_against(A, d, out_dtype=None):
+    """The lower triangle, in f64, that the kernel on (A, d) is held to:
+    the plain version's, but for f32 the exact product's (the f32 plain
+    version's own sum lies up to ~1e-5 from it)."""
+    if A.dtype == torch.float32:
+        return torch.tril(normal_eq_exact(A, d))
+    return torch.tril(normal_eq_reference(A, d, out_dtype=out_dtype)).double()
 
 
 @pytest.fixture
@@ -71,7 +83,7 @@ def test_kernel_matches_plain_version(cuda, dtype, m, n):
     torch.cuda.synchronize()
     assert normal_eq.launches == before + 1
     assert torch.equal(M, M.T)
-    L, R = torch.tril(M).double(), torch.tril(normal_eq_reference(A, d, out_dtype=out)).double()
+    L, R = torch.tril(M).double(), _held_against(A, d, out)
     err = ((L - R).norm() / R.norm()).item()
     assert err <= TOL[dtype]
 
@@ -101,6 +113,129 @@ def test_f64_kernel_on_a_misaligned_view(cuda):
     M = normal_eq(view, d)
     torch.cuda.synchronize()
     assert torch.equal(M, normal_eq(A, d))
+
+
+def test_f32_kernel_on_its_four_byte_copies(cuda):
+    """f32 takes 4-byte copies for an odd n and for an A that starts 4
+    bytes past a 16-byte boundary (n a multiple of 4): the exact
+    product's M within tolerance, and the misaligned view the aligned
+    copy's bits."""
+    for m, n in ((130, 515), (65, 1001)):
+        A, d = _inputs(m, n, torch.float32, cuda, seed=6)
+        M = normal_eq(A, d)
+        L, R = torch.tril(M).double(), _held_against(A, d)
+        assert torch.equal(M, M.T) and ((L - R).norm() / R.norm()).item() <= TOL[torch.float32]
+    m, n = 130, 516
+    A, d = _inputs(m, n, torch.float32, cuda, seed=5)
+    flat = torch.empty(m * n + 1, dtype=torch.float32, device=cuda)
+    view = flat[1:].view(m, n)
+    view.copy_(A)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    M = normal_eq(view, d)
+    torch.cuda.synchronize()
+    assert torch.equal(M, normal_eq(A, d))
+
+
+def test_f32_batched_lanes_on_either_copy_width_equal_unbatched_launches(cuda):
+    """A batch whose lane stride is no multiple of 4 floats (lanes apart
+    by m·n + 1) takes 4-byte copies; each lane, copied out, takes 16-byte
+    ones alone. Lane i is bit for bit the one-lane launch either way."""
+    B, m, n = 3, 96, 1024
+    A, d = _batched_inputs(B, m, n, torch.float32, cuda, seed=4)
+    buf = torch.zeros(B, m * n + 1, dtype=torch.float32, device=cuda)
+    strided = buf[:, : m * n].view(B, m, n)
+    strided.copy_(A)
+    assert strided.stride(0) == m * n + 1
+    M, Ms = normal_eq(A, d), normal_eq(strided, d)
+    torch.cuda.synchronize()
+    assert torch.equal(M, Ms) and torch.equal(M, M.mT)
+    for i in range(B):
+        assert torch.equal(M[i], normal_eq(A[i].contiguous(), d[i].contiguous()))
+
+
+def _exact_errors(M, exact):
+    """Frobenius-relative error of M against the exact product, and the
+    largest relative error on the diagonal."""
+    M = M.double()
+    fro = ((M - exact).norm() / exact.norm()).item()
+    diag = ((M.diagonal() - exact.diagonal()).abs() / exact.diagonal().abs()).max().item()
+    return fro, diag
+
+
+def test_f32_kernel_is_no_farther_from_the_exact_product_than_cublas(cuda):
+    """At the main path's width, 2048×10240, K1's f32 M (3×TF32 products,
+    a blocked sum) is no farther from the f64 product of the same f32
+    inputs than one cuBLAS f32 product (TF32 off), Frobenius-relative and
+    on the diagonal."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn(2048, 10240, dtype=torch.float64, device=cuda, generator=g).float()
+    d = (torch.rand(10240, dtype=torch.float64, device=cuda, generator=g) + 0.1).float()
+    exact = normal_eq_exact(A, d)
+    k1 = _exact_errors(normal_eq(A, d), exact)
+    cublas = _exact_errors((A * d[None, :]) @ A.T, exact)
+    assert k1[0] <= cublas[0] and k1[1] <= cublas[1], (k1, cublas)
+
+
+def _ne_module():
+    import importlib
+
+    return importlib.import_module("distributedlpsolver_tpu_torch.ops.normal_eq")
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("m,n", [(200, 20001), (129, 4097)])
+def test_split_launch_matches_plain_version(cuda, m, n, splits):
+    """An f64 launch split ``splits`` ways over k (the launch's private
+    handle): within 1e-12 of the plain version, M = Mᵀ and two launches
+    bit for bit, the split launches counted, and each lane of a batch the
+    one-lane launch's bits at the same split."""
+    ne = _ne_module()
+    A, d = _inputs(m, n, torch.float64, cuda, seed=splits)
+    before, split_before = normal_eq.launches, normal_eq.launches_split
+    M = ne._launch(A, d, torch.float64, splits=splits)
+    M2 = ne._launch(A, d, torch.float64, splits=splits)
+    torch.cuda.synchronize()
+    assert normal_eq.launches == before + 2
+    assert normal_eq.launches_split == split_before + (2 if splits > 1 else 0)
+    assert torch.equal(M, M.T) and torch.equal(M, M2)
+    L, R = torch.tril(M), torch.tril(normal_eq_reference(A, d))
+    assert ((L - R).norm() / R.norm()).item() <= TOL[torch.float64]
+    Ab, db = _batched_inputs(3, m, n, torch.float64, cuda, seed=splits)
+    Mb = ne._launch(Ab, db, torch.float64, splits=splits)
+    for i in range(3):
+        assert torch.equal(Mb[i], ne._launch(Ab[i].contiguous(), db[i].contiguous(),
+                                             torch.float64, splits=splits))
+
+
+def test_split_sum_kernel_equals_its_plain_version(cuda):
+    """The split's second kernel alone, on partial tiles of random values:
+    its plain version's bits (the same sums in split order)."""
+    ne = _ne_module()
+    m, lanes, splits = 200, 2, 3
+    work = torch.randn(ne.workspace_numel(m, lanes, splits), dtype=torch.float64, device=cuda)
+    M = ne.split_sum(work, m, lanes, splits)
+    torch.cuda.synchronize()
+    assert torch.equal(M, ne.split_sum_reference(work, m, lanes, splits))
+
+
+def test_split_launch_replays_in_a_cuda_graph(cuda):
+    """A split launch captured in a CUDA graph (its workspace from the
+    graph's pool) replays to the eager launch's bits."""
+    ne = _ne_module()
+    A, d = _inputs(129, 4097, torch.float64, cuda, seed=9)
+    eager = ne._launch(A, d, torch.float64, splits=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        ne._launch(A, d, torch.float64, splits=3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ne._launch(A, d, torch.float64, splits=3)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def test_bf16_output(cuda):
@@ -351,7 +486,7 @@ def _batched_inputs(B, m, n, dtype, device, seed=0):
 def test_batched_kernel_lanes_equal_the_unbatched_kernel(cuda, dtype, B, m, n):
     """One launch for every lane; lane i is bit for bit the unbatched
     kernel on lane i's inputs, symmetric bit for bit, and within the
-    tolerance of the batched plain version."""
+    tolerance of the batched plain version (in f32 the exact product)."""
     A, d = _batched_inputs(B, m, n, dtype, cuda)
     before = normal_eq.launches
     M = normal_eq(A, d)
@@ -361,7 +496,7 @@ def test_batched_kernel_lanes_equal_the_unbatched_kernel(cuda, dtype, B, m, n):
     assert torch.equal(M, M2) and torch.equal(M, M.mT)
     for i in range(B):
         assert torch.equal(M[i], normal_eq(A[i].contiguous(), d[i].contiguous()))
-    L, R = torch.tril(M).double(), torch.tril(normal_eq_reference(A, d)).double()
+    L, R = torch.tril(M).double(), _held_against(A, d)
     assert ((L - R).norm() / R.norm()).item() <= TOL[dtype]
 
 
