@@ -337,8 +337,9 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    checks on the scaled form at the tol and ``PDHG_REQUEST_KKT_BOUND`` on
    the given data, the objective within 2·tol·(1 + |obj|) of the solo
    answer's; with ``--sharded-only`` the solo answer is solved here) and,
-   in a whole run, a third runs steps 18 and 19's gloo cases; with two
-   cards or more, an NCCL world over the cards on the same problem.
+   in a whole run, a third runs steps 18 and 19's gloo cases (and the
+   second, step 25's; the NCCL world of one also carries step 25's (a)–(c));
+   with two cards or more, an NCCL world over the cards on the same problem.
    (``BASELINE.json`` config 3, 10000 × 50000, is not solved here: K1 at
    that shape is held and timed in steps 2–3; its solve, host presolve
    and scaling ~25 s of a ~30 s wall, and the world of 4, the shrink's in
@@ -451,7 +452,44 @@ CUDA card and fails (non-zero exit, no result line) without one. It:
    phases; f64 = the f64 phase's bodies (the host loop: its steps). K1
    f32 on each path's f32 copy of A, and f64 at 4096×20480, against
    their plain versions, and timed;
-25. prints the ``kernels`` JSON line, the card line, and last the result
+25. the sharded backend's PCG (``sharded_pcg_phase``;
+   ``--sharded-pcg-only`` runs the build and this step alone, solving
+   step 24's dense answers first; in a whole run its legs ride step 20's
+   NCCL world of one and its pdlp gloo world of 2), at tol 1e-8 and
+   ``max_iter=200``, each sharded answer held to its problem
+   (``sharded_answer_check``) and its K1 launches split by dtype as in
+   step 24 (forced PCG: the start + the bodies, + the closure's G on the
+   segmented loop; the host loop its steps): (a)
+   ``random_dense_lp(4096, 20480, seed=0)`` through
+   ``ShardedTorchBackend(schedule_platform="tpu")`` with
+   ``solve_mode=None`` on the NCCL world of one — the reference's
+   automatic PCG (2²⁶ ≤ m·n < 2²⁸), the segmented ``[f32, pcg, f64]`` plan
+   with the closure in every phase, every phase captured, TF32 off —
+   against step 24's dense answer to the same problem (the same status,
+   each phase's iterations within ±2, the objective within 1e-8), with ms
+   an iteration by phase, CG live and masked a Newton solve and peak GB
+   beside the dense solve's, and three clocked PCG iterations split by
+   part (``pcg_stage_parts``); (b) the main path's problem with
+   ``solve_mode="pcg"`` under the same schedule on the NCCL world of one
+   and on a local mesh of one on ``cuda:0``: x bit for bit, each held to
+   step 24's dense PCG plan as in (a), each captured loop's graph pool
+   the same on both and the card's reserved bytes not grown by a run of
+   replays (``pool_report``); (c) forced PCG at the reference's mesh
+   instances, ``random_dense_lp(48, 120, seed=11)``, ``(48, 128,
+   seed=4)`` and ``(64, 160, seed=9)``, on the fused loop (captured), the
+   host loop and ``segment_iters=2`` (the closure's route) on the NCCL
+   world of one, each held to the JAX package's verdict on its mesh of 8
+   (``SHARDED_PCG_JAX``, from ``scripts/port_sharded_pcg_jax_verdicts.py``:
+   the same status, iterations within ±2, the objective within 1e-8);
+   (d) (b)'s problem and plan, and (48, 120, seed=11) forced, over a gloo
+   world of 2 sharing the card (2048 × 5,120 a rank, uncaptured): every
+   rank the same x bits, the first held to (b)'s answer as in (a) and to
+   its problem, the second to the JAX verdict; (e) K1 f32 at a rank's
+   block (2048 × 5,120) and at 4096 × 20,480 against the exact product
+   (≤ 1e-5) and timed beside its bounds and ``torch.einsum``. Gloo stages
+   every sum through the host and the ranks share one card: no number of
+   that world stands for NCCL over NVLink;
+26. prints the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -4075,10 +4113,11 @@ def sharded_answer_check(name, p, x, y, rel_gap, tol=1e-8) -> dict:
     return {"max_violation": viol, "row_scale": scale, "host_rel_gap": gap}
 
 
-def clocked_steps(torch, be, steps=3) -> dict:
+def clocked_steps(torch, be, steps=3, parts=None) -> dict:
     """Milliseconds an iteration of the sharded step's parts: ``steps``
     host-loop iterations from the starting point with the stage clock on
-    (each part synchronized on its own)."""
+    (each part synchronized on its own), split by ``parts`` (default
+    :func:`stage_parts`)."""
     from distributedlpsolver_tpu_torch.backends.sharded import StageClock
 
     st = be.starting_point()
@@ -4093,7 +4132,7 @@ def clocked_steps(torch, be, steps=3) -> dict:
         if stats.bad:
             fail("clocked sharded step: a bad step from the starting point")
     be.clock = None
-    return stage_parts(clock.report(), sum(walls), steps)
+    return (parts or stage_parts)(clock.report(), sum(walls), steps)
 
 
 def stage_parts(rep, wall_ms, iterations) -> dict:
@@ -4219,6 +4258,7 @@ def sharded_phase(torch, ne, card, shared):
     p_main = random_dense_lp(SHARDED_MAIN["m"], SHARDED_MAIN["n"], seed=SHARDED_MAIN["seed"])
     ref, row_cu = sharded_solve_counted(ne, p_main, get_backend("cuda"))
     print(f"sharded_main_cuda {since()} " + json.dumps(row_cu) + f" [{card}]")
+    pcg_legs = None
     world = world_lib.init_world(world_lib.WorldConfig(
         coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
     try:
@@ -4232,6 +4272,9 @@ def sharded_phase(torch, ne, card, shared):
         print(f"sharded_main_parts {since()} " + json.dumps(parts) + f" [{card}]")
         del be
         torch.cuda.empty_cache()
+        # Step 25's legs on this world (a whole run: step 24's answers).
+        if shared.get("two_phase") is not None:
+            pcg_legs = sharded_pcg_nccl_legs(torch, ne, card, shared.pop("two_phase"))
     finally:
         world.close()
     if not np.array_equal(r_sh.x, ref.x):
@@ -4254,6 +4297,7 @@ def sharded_phase(torch, ne, card, shared):
     if pdlp is None:
         pdlp = dict(p=p_main, r=solve(p_main, backend="pdlp", tol=PDHG_TOL))
     pdlp_case = dict(tag="pdlp 2048x10240 mesh_shape=(2,)", case=pdlp_mesh_case())
+    pcg_cases = [] if pcg_legs is None else sharded_pcg_gloo_cases()
     side = []
     block, scen = shared.get("block"), shared.get("scenario")
     if block is not None:
@@ -4261,7 +4305,7 @@ def sharded_phase(torch, ne, card, shared):
     if scen is not None:
         side.append(dict(scen, tag="scenario main path", case=scenario_gloo2_case()))
     with ThreadPoolExecutor(2) as ex:
-        futs = [ex.submit(side_world, [pdlp_case], "sharded_pdlp")]
+        futs = [ex.submit(side_world, [pdlp_case] + pcg_cases, "sharded_pdlp")]
         if side:
             futs.append(ex.submit(side_world, side, "sharded_side"))
         world2 = sharded_world(torch, SHARDED_RANKS, "gloo", p_main, ref, card)
@@ -4291,6 +4335,10 @@ def sharded_phase(torch, ne, card, shared):
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
         "library_ms": t["library_ms"], "dtypes": ["float64"], "shape": t["shape"],
     }]
+    if pcg_legs is not None:  # step 25
+        gloo = sharded_pcg_gloo_check(pcg_cases, pcg_legs["b"]["row"], card)
+        block_rows += sharded_pcg_rows(torch, ne, card, pcg_legs, gloo)
+        print(f"sharded_pcg legs {pcg_legs['seconds']:.1f} s on the NCCL world of one")
     print(f"sharded phase {since()}")
     return rows + block_rows
 
@@ -5477,10 +5525,12 @@ def highs_main() -> int:
     return 0
 
 
-def two_phase_phase(torch, ne, card):
+def two_phase_phase(torch, ne, card, shared=None):
     """The dense backend's two-phase schedule under
     ``schedule_platform="tpu"`` on the card (module note, step 24).
-    Returns the kernels-line rows of K1 on this path."""
+    Returns the kernels-line rows of K1 on this path; in a whole run
+    ``shared["two_phase"]`` keeps its PCG plans' answers, which step 25
+    holds the sharded backend to."""
     import numpy as np
 
     from distributedlpsolver_tpu_torch.backends import get_backend
@@ -5527,6 +5577,7 @@ def two_phase_phase(torch, ne, card):
     two_phase_verdict("full_pcg", r, row, card, highs)
     k1_rows[0]["launches_by_route"]["full_pcg"] = row["normal_eq_f32_launches"]
     del be
+    dense_pcg = {"full_pcg": (r, row)}
     print(f"two_phase full_pcg: {r.status.value} at {r.iterations} (phases "
           f"{[(ph['mode'], ph['iters']) for ph in row['phases']]}), the PCG phase's CG live "
           f"{row['cg_live_per_solve']:.2f} / masked {row['cg_masked_per_solve']:.2f} a Newton "
@@ -5538,6 +5589,9 @@ def two_phase_phase(torch, ne, card):
     if not be._pcg:
         fail("two_phase auto_pcg: solve_mode=None did not engage PCG")
     two_phase_verdict("auto_pcg", r, row, card)
+    dense_pcg["auto_pcg"] = (r, row)
+    if shared is not None:
+        shared["two_phase"] = dense_pcg
     m, n = TWO_PHASE_SHAPES["auto"]
     rel64, mx64 = kernel_parity(torch, ne, m, n, "float64")
     t64 = kernel_timing(torch, ne, m, n, "float64", iters=10, warm=2)
@@ -5559,10 +5613,443 @@ def two_phase_phase(torch, ne, card):
     return k1_rows
 
 
+# -- the sharded backend's PCG (item 5b-1) --------------------------------------------
+
+# The JAX package's verdicts for the sharded PCG step's forced instances:
+# its sharded backend on a mesh of 8 virtual CPU devices, L⁻¹ column-split
+# (``python scripts/port_sharded_pcg_jax_verdicts.py``, ~35 s on 8 CPUs),
+# at tol 1e-8 and max_iter 200: the reference's own mesh instances
+# (tests/test_dist_chol.py, tests/test_pcg.py) on each loop.
+SHARDED_PCG_JAX = {
+    "48x120s11_fused": {"status": "optimal", "iterations": 12, "objective": 82.99564417333492,
+        "rel_gap": 5.126401959311193e-10, "pinf": 1.5720575122748864e-16},
+    "48x120s11_host": {"status": "optimal", "iterations": 12, "objective": 82.99564417333492,
+        "rel_gap": 5.126401959311193e-10, "pinf": 1.5720575122748864e-16},
+    "48x120s11_segmented": {"status": "optimal", "iterations": 12, "objective": 82.99564417333491,
+        "rel_gap": 5.126401959311193e-10, "pinf": 2.2784636288933935e-16},
+    "48x128s4_fused": {"status": "optimal", "iterations": 14, "objective": 56.1648194546346,
+        "rel_gap": 3.195948413302101e-10, "pinf": 2.133617629902021e-14},
+    "48x128s4_host": {"status": "optimal", "iterations": 14, "objective": 56.1648194546346,
+        "rel_gap": 3.1959496562741646e-10, "pinf": 2.133617629902021e-14},
+    "48x128s4_segmented": {"status": "optimal", "iterations": 14, "objective": 56.16481945463833,
+        "rel_gap": 3.196613403355668e-10, "pinf": 5.4254020958475545e-16},
+    "64x160s9_fused": {"status": "optimal", "iterations": 16, "objective": 145.7187344243081,
+        "rel_gap": 3.049126350264614e-10, "pinf": 7.213561867487075e-15},
+    "64x160s9_host": {"status": "optimal", "iterations": 16, "objective": 145.7187344243081,
+        "rel_gap": 3.049126350264614e-10, "pinf": 7.213561867487075e-15},
+    "64x160s9_segmented": {"status": "optimal", "iterations": 16, "objective": 145.7187344243073,
+        "rel_gap": 3.0490701727371516e-10, "pinf": 2.5213317355897056e-16},
+}
+SHARDED_PCG_INSTANCES = {"48x120s11": (48, 120, 11), "48x128s4": (48, 128, 4),
+                         "64x160s9": (64, 160, 9)}
+SHARDED_PCG_LOOPS = {"fused": {}, "host": {"fused_loop": False},
+                     "segmented": {"segment_iters": 2}}
+SHARDED_PCG_WORLD_TIMEOUT_S = 300.0
+
+
+@contextlib.contextmanager
+def loop_memory(torch):
+    """Records every run of a fused loop: its graph pool's bytes, whether
+    it was captured when the run began, and the card's reserved bytes
+    before and after the run."""
+    from distributedlpsolver_tpu_torch.ipm import device_loop
+
+    log, real = [], device_loop.DeviceLoop.run
+
+    def run(self, *args, **kw):
+        captured, before = self.captures > 0, torch.cuda.memory_reserved()
+        out = real(self, *args, **kw)
+        log.append((id(self), captured, self.pool_bytes, before, torch.cuda.memory_reserved()))
+        return out
+
+    device_loop.DeviceLoop.run = run
+    try:
+        yield log
+    finally:
+        device_loop.DeviceLoop.run = real
+
+
+# What a run of replays alone may add to the card's reserved bytes: one
+# segment of the caching allocator's small pool (the phase plan's scalars
+# between segments); a replay itself allocates nothing.
+REPLAY_RESERVED_SLACK = 2 << 20
+
+
+def pool_report(name, log) -> dict:
+    """Each loop's graph pool and the card's reserved bytes over its runs
+    of replays alone (the runs after its capture); fails if those runs
+    added more than ``REPLAY_RESERVED_SLACK``."""
+    loops = {}
+    for key, captured, pool, before, after in log:
+        loops.setdefault(key, []).append((captured, pool, before, after))
+    out = []
+    for runs in loops.values():
+        replays = [(before, after) for captured, _, before, after in runs if captured]
+        grown = (replays[-1][1] - replays[0][0]) if replays else 0
+        if grown > REPLAY_RESERVED_SLACK:
+            fail(f"{name}: the card's reserved bytes grew by {grown} B over a captured loop's "
+                 f"replays")
+        out.append({"runs": len(runs), "replay_runs": len(replays), "pool_bytes": runs[-1][1],
+                    "reserved_growth_over_replays": grown})
+    return {"loops": out}
+
+
+def sharded_pcg_solve(torch, name, p, be, **kw):
+    """``solve(p, backend=be, tol=1e-8, max_iter=200, **kw)`` on the
+    sharded backend ``be`` with K1's counts (all and f32) reset just before
+    and read just after, the peak device memory, the CG tally and each
+    loop's graph pool. Returns the result and its row. Checks K1's
+    launches against the plan: a two-phase plan f32 = the start, the
+    closure's G and the f32 and PCG bodies, f64 = the f64 phase's bodies;
+    forced PCG f32 = the start + the bodies (+ G on the segmented loop),
+    the host loop the start + its steps and refactorizations."""
+    import hashlib
+
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.ipm import solve
+    from distributedlpsolver_tpu_torch.obs import metrics as obs_metrics
+    from distributedlpsolver_tpu_torch.ops import normal_eq
+
+    reg = obs_metrics.MetricsRegistry()
+    prev = obs_metrics.set_registry(reg)
+    try:
+        with loop_memory(torch) as log:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            normal_eq.launches = normal_eq.launches_f32 = 0
+            t0 = time.perf_counter()
+            r = solve(p, backend=be, tol=1e-8, max_iter=200, **kw)
+            wall = time.perf_counter() - t0
+            launches, f32 = normal_eq.launches, normal_eq.launches_f32
+    finally:
+        obs_metrics.set_registry(prev)
+    refactors = int(reg.snapshot().get("ipm_refactorizations_total", 0))
+    if not be._pcg:
+        fail(f"sharded_pcg {name}: the backend did not engage PCG")
+    cg = be.cg_report()
+    row = {
+        "case": name, "status": r.status.value, "iterations": r.iterations,
+        "objective": r.objective, "rel_gap": r.rel_gap, "pinf": r.pinf, "dinf": r.dinf,
+        "wall_s": wall, "setup_s": r.setup_time, "solve_s": r.solve_time,
+        "ms_per_iteration": 1e3 * r.solve_time / max(r.iterations, 1),
+        "normal_eq_launches": launches, "normal_eq_f32_launches": f32,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **cg,
+        "cg_live_per_solve": cg["cg_live"] / max(cg["solves"], 1),
+        "cg_masked_per_solve": cg["cg_masked"] / max(cg["solves"], 1),
+        "x_sha256": hashlib.sha256(np.asarray(r.x).tobytes()).hexdigest(),
+        "mesh": repr(be.mesh), "prec_sharding": [be.prec_sharding().axis, be.prec_sharding().dim],
+        "memory": pool_report(f"sharded_pcg {name}", log),
+    }
+    closure = int(be._closure is not None)
+    if kw.get("fused_loop") is False:
+        f32_want, f64_want = 1 + r.iterations + refactors, 0
+        row["refactorizations"] = refactors
+    else:
+        phases = be.phase_report
+        bodies = [ph["bodies"] for ph in phases]
+        if be._two_phase:
+            f32_want, f64_want = 1 + closure + sum(bodies[:-1]), bodies[-1]
+        else:
+            f32_want, f64_want = 1 + closure + sum(bodies), 0
+        row["phases"] = [{k: ph.get(k) for k in ("mode", "iters", "bodies", "bad_steps", "wall_s",
+                                                 "captured", "capture_off_reason")}
+                         | {"ms_per_iteration": 1e3 * ph["wall_s"] / max(ph["iters"], 1)}
+                         for ph in phases]
+        if sum(ph["iters"] for ph in phases) != r.iterations:
+            fail(f"sharded_pcg {name}: phase iterations {[ph['iters'] for ph in phases]} "
+                 f"against {r.iterations}")
+    if (f32, launches - f32) != (f32_want, f64_want):
+        fail(f"sharded_pcg {name}: K1 launches f32 {f32} / f64 {launches - f32} against "
+             f"{f32_want} / {f64_want}")
+    return r, row
+
+
+def sharded_pcg_by_phase(name, row, ref, f32_edge=False):
+    """The same status as ``ref`` (a dense answer's row on the card); its
+    phases' modes, each phase's iterations within ±``PCG_ITER_SLACK``
+    (with ``f32_edge``, or a difference before the f64 finish alone where
+    an f32-factored phase took bad steps: ``two_phase_by_f32_edge``, the
+    allowance step 24 gives the same problem against the reference), and,
+    where OPTIMAL, the objective within ``PCG_OBJ_TOL``."""
+    got = [[ph["mode"], ph["iters"]] for ph in row.get("phases") or []]
+    want = [[ph["mode"], ph["iters"]] for ph in ref.get("phases") or []]
+    row["against"] = {"status": ref["status"], "phases": want, "objective": ref["objective"]}
+    if row["status"] != ref["status"]:
+        fail(f"sharded_pcg {name}: {row['status']} at {row['iterations']} against "
+             f"{ref['status']} at {ref['iterations']}")
+    if ([mode for mode, _ in got] != [mode for mode, _ in want]
+            or any(abs(it - ref_it) > PCG_ITER_SLACK for (_, it), (_, ref_it) in zip(got, want))):
+        row["by_f32_edge"] = f32_edge and two_phase_by_f32_edge(row, {"phases": want})
+        if not row["by_f32_edge"]:
+            fail(f"sharded_pcg {name}: phases {got} against {want} (each within "
+                 f"±{PCG_ITER_SLACK}; bad steps {[ph.get('bad_steps') for ph in row['phases']]})")
+        print(f"sharded_pcg_note {name}: phases {got} against {want}: the f64 finish within "
+              f"±{PCG_ITER_SLACK}, the f32 phase at the edge of f32 breakdown (bad steps "
+              f"{[ph['bad_steps'] for ph in row['phases']]})")
+    if ref["status"] == "optimal":
+        rel = abs(row["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
+        row["objective_rel"] = rel
+        if not rel <= PCG_OBJ_TOL:
+            fail(f"sharded_pcg {name}: objective {row['objective']!r} against "
+                 f"{ref['objective']!r} ({rel:.3e} > {PCG_OBJ_TOL:.0e})")
+
+
+def sharded_pcg_jax_verdict(name, row):
+    """The JAX package's verdict on its mesh of 8 (``SHARDED_PCG_JAX``):
+    the same status, iterations within ±``PCG_ITER_SLACK``, the objective
+    within ``PCG_OBJ_TOL``."""
+    ref = SHARDED_PCG_JAX[name]
+    row["jax_status"], row["jax_iterations"] = ref["status"], ref["iterations"]
+    rel = abs(row["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
+    row["objective_rel_jax"] = rel
+    if (row["status"] != ref["status"]
+            or abs(row["iterations"] - ref["iterations"]) > PCG_ITER_SLACK
+            or not rel <= PCG_OBJ_TOL):
+        fail(f"sharded_pcg {name}: {row['status']} at {row['iterations']}, objective "
+             f"{row['objective']!r}, against the JAX package's {ref['status']} at "
+             f"{ref['iterations']}, {ref['objective']!r} ({rel:.3e})")
+
+
+def pcg_stage_parts(rep, wall_ms, iterations) -> dict:
+    """Per-iteration ms of a clocked PCG step's parts (the stage clock's
+    spans, ``backends/sharded.py``): K1 on the blocks, the sum of M, the
+    panel factorization and inverse and their sums, the rest of the
+    factorization (scaling, casts), CG less its sums, the operator's and
+    the slabs' sums in CG, the step's own products' sums, and the rest."""
+    ms = rep["ms"]
+    g = lambda k: ms.get(k, 0.0)  # noqa: E731
+    per = lambda v: v / max(iterations, 1)  # noqa: E731
+    return {
+        "iterations": iterations, "k1_ms": per(g("k1")), "allreduce_M_ms": per(g("allreduce_M")),
+        "panels_ms": per(g("chol_inv") - g("allreduce_panel")),
+        "allreduce_panel_ms": per(g("allreduce_panel")),
+        "factorize_rest_ms": per(g("factorize") - g("k1") - g("allreduce_M") - g("chol_inv")),
+        "cg_ms": per(g("pcg_solve") - g("allreduce_cg") - g("allreduce_prec")),
+        "allreduce_cg_ms": per(g("allreduce_cg")), "allreduce_prec_ms": per(g("allreduce_prec")),
+        "allreduce_vec_ms": per(g("allreduce_vec")),
+        "rest_ms": per(wall_ms - g("factorize") - g("pcg_solve") - g("allreduce_vec")),
+        "wall_ms": per(wall_ms), "calls": rep["calls"],
+    }
+
+
+def sharded_pcg_gloo_cases() -> list:
+    """(d)'s cases on a gloo world of 2 sharing the card: the main path's
+    problem under the three-phase plan, and a reference mesh instance
+    forced."""
+    return [
+        dict(tag="sharded pcg 2048x10240", case={
+            **SHARDED_MAIN, "tol": 1e-8, "max_iter": 200, "solve_mode": "pcg",
+            "schedule_platform": "tpu", "return_xy": True}),
+        dict(tag="sharded pcg 48x120s11", case={
+            "m": 48, "n": 120, "seed": 11, "tol": 1e-8, "max_iter": 200, "solve_mode": "pcg"}),
+    ]
+
+
+def sharded_pcg_nccl_legs(torch, ne, card, refs) -> dict:
+    """(a)–(c) of the sharded PCG step on the NCCL world of one this
+    process has joined, and (b)'s local mesh of one on ``cuda:0``;
+    ``refs`` are the card's dense answers (step 24's ``full_pcg`` and
+    ``auto_pcg`` rows). Returns what the step's rows and (d) need."""
+    import numpy as np
+
+    from distributedlpsolver_tpu_torch.backends.sharded import ShardedTorchBackend
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    t_legs = time.perf_counter()
+    out = {}
+    # (a) The reference's automatic PCG at full width, on the segmented
+    # route with the closure in every phase.
+    p_a = random_dense_lp(*TWO_PHASE_SHAPES["auto"], seed=0)
+    be = ShardedTorchBackend(schedule_platform="tpu")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("sharded_pcg: TF32 is on for the f32 products")
+    r, row = sharded_pcg_solve(torch, "auto_pcg_nccl1", p_a, be)
+    if [ph["mode"] for ph in row["phases"]] != ["f32", "pcg", "f64"] or be._closure is None:
+        fail(f"sharded_pcg auto_pcg: phases {row['phases']}, closure {be._closure is not None}")
+    if be.mesh.pg_backend != "nccl" or not all(ph["captured"] for ph in row["phases"]):
+        fail(f"sharded_pcg auto_pcg: mesh {be.mesh}, phases {row['phases']}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("sharded_pcg: TF32 was on after the PCG solve")
+    ref = refs["auto_pcg"][1]
+    try:
+        sharded_pcg_by_phase("auto_pcg_nccl1", row, ref, f32_edge=True)
+    finally:
+        print(f"sharded_pcg auto_pcg_nccl1 row {since()} " + json.dumps(row) + f" [{card}]")
+    row.update(sharded_answer_check("sharded_pcg auto_pcg", p_a, r.x, r.y, r.rel_gap))
+    print("sharded_pcg auto_pcg ms an iteration by phase (sharded / dense): "
+          + ", ".join(f"{a['mode']} {a['ms_per_iteration']:.3f} / {b['ms_per_iteration']:.3f} "
+                      f"({a['iters']} / {b['iters']} it)"
+                      for a, b in zip(row["phases"], ref["phases"]))
+          + f"; PCG CG live {row['cg_live_per_solve']:.2f} / masked "
+          f"{row['cg_masked_per_solve']:.2f} a Newton solve (dense {ref['cg_live_per_solve']:.2f}"
+          f" / {ref['cg_masked_per_solve']:.2f}); peak GB {row['peak_gb']:.3f} (dense "
+          f"{ref['peak_gb']:.3f}) [{card}]")
+    parts = clocked_steps(torch, be, parts=pcg_stage_parts)
+    print(f"sharded_pcg auto_pcg_parts {since()} " + json.dumps(parts) + f" [{card}]")
+    out["a"] = dict(row=row, parts=parts, k1=two_phase_k1_row(
+        torch, ne, be, "normal_eq (sharded pcg, f32, 4096x20480)",
+        row["normal_eq_f32_launches"], {
+            "launches_path": "sharded auto PCG, NCCL world of one, 4096x20480",
+            "f64_launches": row["normal_eq_launches"] - row["normal_eq_f32_launches"]}))
+    del r, be, p_a
+    torch.cuda.empty_cache()
+
+    # (b) The three-phase plan at the main path's problem on the world of
+    # one and on a local mesh of one: the same code, bit for bit.
+    p_b = random_dense_lp(*TWO_PHASE_SHAPES["full"], seed=0)
+    b = {}
+    for tag, mesh in (("nccl1", None),
+                      ("local1", mesh_lib.make_mesh(axis_names=("cols",), devices=["cuda:0"]))):
+        be = ShardedTorchBackend(mesh=mesh, schedule_platform="tpu")
+        r, row = sharded_pcg_solve(torch, f"full_pcg_{tag}", p_b, be, solve_mode="pcg")
+        try:
+            if not all(ph["captured"] for ph in row["phases"]):
+                fail(f"sharded_pcg full_pcg_{tag}: a phase ran uncaptured: {row['phases']}")
+            sharded_pcg_by_phase(f"full_pcg_{tag}", row, refs["full_pcg"][1])
+            row.update(sharded_answer_check(f"sharded_pcg full_pcg_{tag}", p_b, r.x, r.y,
+                                            r.rel_gap))
+        finally:
+            print(f"sharded_pcg full_pcg_{tag} {since()} " + json.dumps(row) + f" [{card}]")
+        if tag == "nccl1":
+            # Rank 0's block of a world of 2: K1's f32 shape on (d)'s ranks.
+            half = be._A32.shape[1] // 2
+            out["block32"] = be._A32[:, :half].contiguous()
+        b[tag] = (r, row)
+        del be
+    (rn, row_n), (rl, row_l) = b["nccl1"], b["local1"]
+    if rn.iterations != rl.iterations or not np.array_equal(np.asarray(rn.x), np.asarray(rl.x)):
+        fail("sharded_pcg full_pcg: the NCCL world of one and the local mesh of one differ")
+    pools = lambda row: [lp["pool_bytes"] for lp in row["memory"]["loops"]]  # noqa: E731
+    if pools(row_n) != pools(row_l):
+        fail(f"sharded_pcg full_pcg: graph pools {pools(row_n)} against {pools(row_l)}")
+    print(f"sharded_pcg full_pcg {since()} NCCL world of one and local mesh of one: x bit for "
+          f"bit, {rn.iterations} iterations, graph pools {pools(row_n)} B [{card}]")
+    out["b"] = dict(r=rn, row=row_n, local=row_l)
+    del p_b, b, rl
+    torch.cuda.empty_cache()
+
+    # (c) Forced PCG at the reference's own mesh instances, each loop.
+    out["c"] = {}
+    for inst, (m, n, seed) in SHARDED_PCG_INSTANCES.items():
+        for loop, kw in SHARDED_PCG_LOOPS.items():
+            name = f"{inst}_{loop}"
+            be = ShardedTorchBackend()
+            r, row = sharded_pcg_solve(torch, name, random_dense_lp(m, n, seed=seed), be,
+                                       solve_mode="pcg", **kw)
+            if loop != "host" and not all(ph["captured"] for ph in row["phases"]):
+                fail(f"sharded_pcg {name}: a phase ran uncaptured")
+            if (be._closure is not None) != (loop == "segmented"):
+                fail(f"sharded_pcg {name}: closure {be._closure is not None} on this route")
+            sharded_pcg_jax_verdict(name, row)
+            out["c"][name] = row
+    print(f"sharded_pcg reference instances {since()} "
+          + json.dumps({k: [v["status"], v["iterations"], v["jax_iterations"],
+                            v["objective_rel_jax"], v["cg_live_per_solve"],
+                            v["cg_masked_per_solve"]] for k, v in out["c"].items()})
+          + f" [{card}]")
+    out["seconds"] = time.perf_counter() - t_legs
+    return out
+
+
+def sharded_pcg_gloo_check(cases, ref_b, card) -> dict:
+    """(d): every rank of the gloo world of 2 the same x bits; the main
+    path's case within ±2 a phase and 1e-8 of (b)'s answer, its answer held
+    to its problem; the forced instance to the JAX package's verdict; each
+    rank's block and K1 f32 launches."""
+    from distributedlpsolver_tpu_torch.models import random_dense_lp
+
+    out = {}
+    for e in cases:
+        outs, wall = e["gloo2"]
+        name = e["tag"]
+        if len({o["x_sha256"] for o in outs}) != 1:
+            fail(f"{name}: the gloo ranks' x bits differ")
+        rows = []
+        for o in outs:
+            row = {"case": name, "status": o["status"], "iterations": o["iterations"],
+                   "objective": o["objective"],
+                   "phases": [{"mode": ph["mode"], "iters": ph["iters"]}
+                              for ph in o["phase_report"] or []]}
+            if o["phase_report"] and o["phase_report"][0].get("captured") is not False:
+                fail(f"{name}: rank {o['rank']} captured a gloo loop")
+            if "2048x10240" in name:
+                sharded_pcg_by_phase(f"{name} rank {o['rank']}", row, ref_b)
+                p = random_dense_lp(SHARDED_MAIN["m"], SHARDED_MAIN["n"], seed=SHARDED_MAIN["seed"])
+                row.update(sharded_answer_check(f"{name} rank {o['rank']}", p, o.pop("x"),
+                                                o.pop("y"), o["rel_gap"]))
+                want = [SHARDED_MAIN["m"], SHARDED_MAIN["n"] // 2]
+            else:
+                sharded_pcg_jax_verdict("48x120s11_fused", row)
+                want = [48, 60]
+            if o["shard_shape"] != want or o["k1_launches_f32"] <= 0:
+                fail(f"{name}: rank {o['rank']} block {o['shard_shape']}, K1 f32 launches "
+                     f"{o['k1_launches_f32']}")
+            row.update(rank=o["rank"], k1_launches_f32=o["k1_launches_f32"],
+                       cg_report=o["cg_report"], solve_s=o["solve_s"])
+            rows.append(row)
+        out[name] = dict(rows=rows, wall_s=wall)
+        print(f"sharded_pcg gloo2 {since()} {name}: every rank the same x bits "
+              + json.dumps(rows) + f", world wall {wall:.1f} s [{card}]")
+    return out
+
+
+def sharded_pcg_rows(torch, ne, card, legs, gloo) -> list:
+    """The kernels-line rows of K1 f32 on the sharded PCG path: a gloo
+    rank's block of the main path's problem (2048 × 5,120; the world of 2's
+    launches, every rank) and the full width's (4096 × 20,480, the NCCL
+    world of one's)."""
+    import types
+
+    case = gloo["sharded pcg 2048x10240"]["rows"]
+    row = two_phase_k1_row(
+        torch, ne, types.SimpleNamespace(_A32=legs.pop("block32")),
+        "normal_eq (sharded pcg, f32, 2048x5120)", sum(r["k1_launches_f32"] for r in case), {
+            "launches_path": "sharded three-phase PCG plan, gloo world of 2 on one card "
+                             "(all ranks), 2048x10240",
+            "launches_nccl_world_of_one_whole_a": legs["b"]["row"]["normal_eq_f32_launches"]})
+    torch.cuda.empty_cache()
+    return [row, legs["a"]["k1"]]
+
+
+def sharded_pcg_phase(torch, ne, card, refs=None):
+    """The sharded backend's PCG on the card, run alone (module note,
+    step 25): the card's dense answers first (``refs``: step 24's rows in a
+    whole run), an NCCL world of one formed here, then (d) on a gloo world
+    of 2. Returns the kernels-line rows."""
+    from distributedlpsolver_tpu_torch.distributed import world as world_lib
+    from distributedlpsolver_tpu_torch.distributed.launcher import free_port
+
+    _T0[0] = time.perf_counter()
+    if refs is None:
+        refs = {}
+        for name in ("full_pcg", "auto_pcg"):
+            _, r, be, row = two_phase_solve_counted(torch, name)
+            refs[name] = (r, row)
+            print(f"sharded_pcg dense {name} {since()} " + json.dumps(row) + f" [{card}]")
+            del be
+        torch.cuda.empty_cache()
+    world = world_lib.init_world(world_lib.WorldConfig(
+        coordinator=f"127.0.0.1:{free_port()}", rank=0, world_size=1, device="cuda"))
+    try:
+        if world.pg_backend != "nccl":
+            fail(f"the world of one runs {world.pg_backend}, not nccl")
+        legs = sharded_pcg_nccl_legs(torch, ne, card, refs)
+    finally:
+        world.close()
+    cases = sharded_pcg_gloo_cases()
+    side_world(cases, "sharded_pcg_gloo2")
+    gloo = sharded_pcg_gloo_check(cases, legs["b"]["row"], card)
+    rows = sharded_pcg_rows(torch, ne, card, legs, gloo)
+    print(f"sharded_pcg phase {since()}")
+    return rows
+
+
 def main(only: str = "") -> int:
     """The whole run, or with ``only`` ("pcg", "two_phase", "sparse",
-    "plane", "block", "scenario", "sharded", "slice" or "rows") the build
-    and that phase alone."""
+    "plane", "block", "scenario", "sharded", "slice", "rows" or
+    "sharded_pcg") the build and that phase alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5612,7 +6099,7 @@ def main(only: str = "") -> int:
         rows += pcg_phase(torch, ne, card)
     # 24. The dense backend's two-phase schedule (the reference's TPU one).
     if only in ("", "two_phase"):
-        rows += two_phase_phase(torch, ne, card)
+        rows += two_phase_phase(torch, ne, card, shared)
     if not only:  # HiGHS for the sparse phase, beside the plane's processes
         shared["highs"] = start_highs_storm20k()
     # 17. The network plane: its launches go to the serve bucket's K1 row,
@@ -5644,6 +6131,9 @@ def main(only: str = "") -> int:
     # 22. The row-sharded matrix-free tier.
     if only in ("", "rows"):
         rows += rows_phase(torch, ne, card, shared)
+    # 25. The sharded backend's PCG: in a whole run legs of step 20's worlds.
+    if only == "sharded_pcg":
+        rows += sharded_pcg_phase(torch, ne, card)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -5848,7 +6338,8 @@ if __name__ == "__main__":
         sys.exit(highs_main())
     only = {"--sparse-only": "sparse", "--plane-only": "plane", "--block-only": "block",
             "--scenario-only": "scenario", "--sharded-only": "sharded", "--slice-only": "slice",
-            "--rows-only": "rows", "--pcg-only": "pcg", "--two-phase-only": "two_phase"}
+            "--rows-only": "rows", "--pcg-only": "pcg", "--two-phase-only": "two_phase",
+            "--sharded-pcg-only": "sharded_pcg"}
     if sys.argv[1:] and sys.argv[1] not in only:
         raise SystemExit(f"chip_smoke: unknown argument {sys.argv[1]!r}")
     sys.exit(main(only.get(sys.argv[1], "") if sys.argv[1:] else ""))

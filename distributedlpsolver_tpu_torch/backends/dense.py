@@ -48,11 +48,14 @@ the host, with the regularization a device scalar of the loop's carry.
 loop over :meth:`DenseTorchBackend.iterate`, whose regularization is a
 host float escalated by :meth:`~DenseTorchBackend.bump_regularization`.
 
-Placement seams (``pad_multiple``, ``shardings``): the variable axis is
-padded to a multiple of :meth:`DenseTorchBackend.pad_multiple` with zero
-columns (cost 1, unbounded) and A is placed by :meth:`shardings`, both
-as in the JAX package; ``backends/sharded.py`` overrides them (and the
-step's ``LinOps``) to split A's columns over a process-group mesh.
+Placement seams (``pad_multiple``, ``shardings``, ``prec_sharding``):
+the variable axis is padded to a multiple of
+:meth:`DenseTorchBackend.pad_multiple` with zero columns (cost 1,
+unbounded) and A is placed by :meth:`shardings` (through ``_place``),
+both as in the JAX package; ``prec_sharding`` is None here (one device
+holds the PCG preconditioner whole). ``backends/sharded.py`` overrides
+them, the step's ``LinOps`` and the closure's factor
+(``_ensure_closure``) to split A's columns over a mesh.
 
 ``solve_mode="pcg"`` (the JAX package's forced-PCG schedule) replaces
 every factorization with a preconditioner and every normal-equations
@@ -60,7 +63,12 @@ solve with ``core.pcg_solve`` (:func:`_pcg_ops`): K1 assembles ``M`` in
 f32 on a precast copy of A, which is Jacobi-scaled, regularized, factored
 in f32 and inverted explicitly; CG then runs in the iterate dtype over
 the matrix-free operator ``A·(d∘Aᵀv) + reg·diag(M)∘v`` with two GEMVs of
-the inverse as the preconditioner. The reference builds that inverse in
+the inverse as the preconditioner. The assembly, the inverse's build and
+application and the operator's products are seams of :func:`_pcg_ops`
+(as the assembly is of :func:`_cholesky_ops`, and the products of
+:func:`_closure_project`), whose defaults are one device's; the sharded
+backend passes its sums over the mesh and ``ops/dist_chol.py``'s column
+slabs. The reference builds that inverse in
 512-column TRSM panels (``_tri_inv_paneled``) because XLA's one TRSM with
 m right-hand sides ran out of TPU memory at m = 10000; here it is one
 ``torch.linalg.solve_triangular(L, I)``. The starting point, the host
@@ -194,67 +202,98 @@ def _cholesky_ops(A, factor_dtype, refine_steps, Af=None, tri_solves=False, asse
     return factorize, solve
 
 
-def _scaled_inverse(M, shift):
-    """``(L⁻¹, s)`` for the Jacobi-scaled ``S·M·S + shift·I`` with
-    ``S = diag(s)``, ``s = rsqrt(max(diag M, tiny))``: Cholesky and the
-    explicit inverse in M's dtype. The scaling leaves a unit diagonal, so
-    a relative diagonal shift becomes ``+ shift·I`` exactly. A failed
-    factorization gives a NaN inverse on the device."""
+def _jacobi_scaled(M, shift):
+    """``(S·M·S + shift·I, s)`` with ``S = diag(s)``, ``s = rsqrt(max(diag
+    M, tiny))``, in M's dtype. The scaling leaves a unit diagonal, so a
+    relative diagonal shift becomes ``+ shift·I`` exactly."""
     s = torch.rsqrt(M.diagonal().clamp_min(torch.finfo(M.dtype).tiny))
     Ms = M * s[:, None] * s[None, :]
     Ms.diagonal().add_(shift)
+    return Ms, s
+
+
+def _tri_inverse(Ms):
+    """``L⁻¹`` of ``chol(Ms)``: Cholesky and the explicit inverse in Ms's
+    dtype. A failed factorization gives a NaN inverse on the device."""
     L, info = torch.linalg.cholesky_ex(Ms)
     L = torch.where(info == 0, L, float("nan"))
-    eye = torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
-    return torch.linalg.solve_triangular(L, eye, upper=False), s
+    eye = torch.eye(Ms.shape[0], dtype=Ms.dtype, device=Ms.device)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
-def _pcg_ops(A, Af, cg_tol, cg_iters, counts=None):
+def _scaled_inverse(M, shift):
+    """``(L⁻¹, s)`` for the Jacobi-scaled ``S·M·S + shift·I``
+    (:func:`_jacobi_scaled`, :func:`_tri_inverse`)."""
+    Ms, s = _jacobi_scaled(M, shift)
+    return _tri_inverse(Ms), s
+
+
+def _pcg_ops(A, Af, cg_tol, cg_iters, counts=None, assemble=None, invert=None, apply_prec=None,
+             matvec=None, rmatvec=None):
     """factorize/solve closures of the PCG mode (the JAX package's
-    ``_pcg_ops``, single device).
+    ``_pcg_ops``).
 
     ``factorize(d, reg)`` builds only a preconditioner: ``M = Af·diag(d)·Afᵀ``
-    through K1 on the f32 copy ``Af``, then :func:`_scaled_inverse` in f32
-    (library matmuls in true fp32: the backend turns TF32 off on a card),
-    the inverse cast to A's dtype once, so each application is two exact
-    GEMVs. ``solve`` is ``core.pcg_solve`` over the true operator
-    ``A·(d∘Aᵀv) + reg·diag(M)∘v`` in A's dtype; ``counts`` is its device
-    tally of solves and CG iterations.
+    through K1 on the f32 copy ``Af``, Jacobi-scaled and shifted by ``reg``
+    (:func:`_jacobi_scaled`), then ``L⁻¹`` in f32 (library matmuls in true
+    fp32: the backend turns TF32 off on a card), cast to A's dtype once,
+    so each application is two exact GEMVs. ``solve`` is
+    ``core.pcg_solve`` over the true operator ``A·(d∘Aᵀv) + reg·diag(M)∘v``
+    in A's dtype; ``counts`` is its device tally of solves and CG
+    iterations.
+
+    The seams are the sharded backend's (``backends/sharded.py``), each
+    defaulting to one device's: ``assemble(src, d)`` (K1 on all of
+    ``src``), ``invert(Ms, dtype)`` (:func:`_tri_inverse` cast to dtype),
+    ``apply_prec(inv, v)`` (``L⁻ᵀ·(L⁻¹·v)``), and the operator's
+    ``matvec``/``rmatvec`` (``A @ v``, ``A.T @ y``).
     """
+    assemble = assemble or normal_eq
+    invert = invert or (lambda Ms, dt: _tri_inverse(Ms).to(dt))
+    apply_prec = apply_prec or (lambda Linv, v: Linv.T @ (Linv @ v))
+    matvec = matvec or (lambda v: A @ v)
+    rmatvec = rmatvec or (lambda y: A.T @ y)
+
     def factorize(d, reg):
-        M = normal_eq(Af, d.to(Af.dtype))
-        Linv, s = _scaled_inverse(M, reg)
+        M = assemble(Af, d.to(Af.dtype))
+        Ms, s = _jacobi_scaled(M, reg)
         dt = A.dtype
-        return Linv.to(dt), s.to(dt), M.diagonal().to(dt), d, reg
+        return invert(Ms, dt), s.to(dt), M.diagonal().to(dt), d, reg
 
     def solve(factors, rhs):
-        Linv, s, diagM, d, reg = factors
+        inv, s, diagM, d, reg = factors
         regd = reg * diagM
 
         def op(v):
-            return A @ (d * (A.T @ v)) + regd * v
+            return matvec(d * rmatvec(v)) + regd * v
 
         def prec(r):
-            return s * (Linv.T @ (Linv @ (s * r)))
+            return s * apply_prec(inv, s * r)
 
         return core.pcg_solve(op, prec, rhs, cg_tol, cg_iters, counts)
 
     return factorize, solve
 
 
-def _closure_factors(A32):
+def _closure_factors(A32, assemble=None, n=None):
     """``(L⁻¹, s)`` of the loop-invariant ``G = A·Aᵀ`` in f32 — G through
-    K1 with d = 1, Jacobi-scaled, shifted by 1e-6 (the reference's
+    K1 with d = 1 (``assemble(A32, ones(n))``, by default K1 on all of
+    ``A32``), Jacobi-scaled, shifted by 1e-6 (the reference's
     ``_closure_from_G``). Built once per problem; it powers the
     primal-row closure of :func:`_closure_project`."""
-    G = normal_eq(A32, torch.ones(A32.shape[1], dtype=A32.dtype, device=A32.device))
-    return _scaled_inverse(G, 1e-6)
+    assemble = assemble or normal_eq
+    ones = torch.ones(n or A32.shape[1], dtype=A32.dtype, device=A32.device)
+    return _scaled_inverse(assemble(A32, ones), 1e-6)
 
 
-def _closure_project(A, closure, sweeps):
+def _closure_project(A, closure, sweeps, matvec=None, rmatvec=None):
     """The primal-row closure ``rv ↦ Aᵀ·(A·Aᵀ)⁻¹·rv`` (the reference's
     ``pp`` of ``_make_ops``): the f32 factor through its scaling, then
-    ``sweeps`` refinement sweeps on the true operator ``A·(Aᵀt)``."""
+    ``sweeps`` refinement sweeps on the true operator ``A·(Aᵀt)``
+    (``matvec``/``rmatvec``: ``A @ v``, ``A.T @ y`` by default; the
+    sharded backend's sum over its mesh)."""
+    matvec = matvec or (lambda v: A @ v)
+    rmatvec = rmatvec or (lambda y: A.T @ y)
     LinvG, sG = closure
     sG = sG.to(A.dtype)
 
@@ -265,8 +304,8 @@ def _closure_project(A, closure, sweeps):
     def project(rv):
         t = prec(rv)
         for _ in range(sweeps):
-            t = t + prec(rv - A @ (A.T @ t))
-        return A.T @ t
+            t = t + prec(rv - matvec(rmatvec(t)))
+        return rmatvec(t)
 
     return project
 
@@ -428,6 +467,23 @@ class DenseTorchBackend(SolverBackend):
         backends need the variable axis divisible by the mesh)."""
         return 1
 
+    def prec_sharding(self):
+        """The placement of the PCG preconditioner's factor ``L⁻¹``
+        (``parallel.mesh.Sharding``), or None: one device holds it
+        whole."""
+        return None
+
+    def _place(self, A_host: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """The padded A on the device, cut by :meth:`shardings`' matrix
+        sharding (this rank's column block on a mesh)."""
+        m, n = A_host.shape
+        mat_s, col_s, _ = self.shardings(m, n)
+        if mat_s is not None:
+            A_host = mat_s.local(A_host)
+        if col_s is not None and col_s.axis is not None:
+            raise NotImplementedError("column-sharded vectors: the port keeps them replicated")
+        return torch.as_tensor(A_host, dtype=dtype, device=self.device).contiguous()
+
     def _make_linops(self, reg, spec: _Phase) -> core.LinOps:
         """The step's linear algebra at regularization ``reg`` for the
         phase ``spec``."""
@@ -463,13 +519,8 @@ class DenseTorchBackend(SolverBackend):
             u_host = np.concatenate([u_host, np.full(n_extra, np.inf)])
             n += n_extra
         self._shape = (m, n)
-        mat_s, col_s, _ = self.shardings(m, n)
-        if mat_s is not None:
-            A_host = mat_s.local(A_host)
-        if col_s is not None and col_s.axis is not None:
-            raise NotImplementedError("column-sharded vectors: the port keeps them replicated")
         dev = self.device
-        self._A = torch.as_tensor(A_host, dtype=dtype, device=dev).contiguous()
+        self._A = self._place(A_host, dtype)
         self._Af = (
             self._A.to(self._factor_dtype) if self._factor_dtype != dtype else None
         )

@@ -28,11 +28,15 @@ Tasks:
     scenarios, block_m, block_n, first_stage_n, first_stage_m, seed)``
     lowered), and ``backend: "pdlp"`` with ``mesh_shape: [R]`` the PDHG
     engine with A's columns over it (a caller in this process may hand the
-    problem itself as ``problem``); ``mesh_shape``/``mesh_axis`` go into
-    the solve's ``SolverConfig``. The result carries
+    problem itself as ``problem``); ``mesh_shape``/``mesh_axis``,
+    ``solve_mode``, ``segment_iters`` and ``fused_loop`` go into the
+    solve's ``SolverConfig``, ``schedule_platform`` to the backend (the
+    sharded PCG: ``solve_mode: "pcg"``, or ``schedule_platform: "tpu"``
+    past the auto threshold). The result carries
     the solve's verdict, a SHA-256 of x's bytes (ranks must agree bit for
-    bit), K1's launches on this rank (the batched lanes' among them), the
-    phase rows and the setup parts;
+    bit), K1's launches on this rank (the batched lanes' and the f32 ones
+    among them), the phase rows, the setup parts and, on a PCG schedule,
+    the backend's ``cg_report()``;
     with ``return_xy`` also x and y, for a caller to check the answer
     against the problem itself.
 
@@ -199,9 +203,14 @@ def sharded_solve(world: World, spec: dict) -> dict:
         checkpoint_every=int(spec.get("checkpoint_every", 0)),
         mesh_shape=tuple(spec["mesh_shape"]) if spec.get("mesh_shape") else None,
         mesh_axis=spec.get("mesh_axis", "cols"),
+        solve_mode=spec.get("solve_mode"),
+        segment_iters=spec.get("segment_iters"),
+        fused_loop=spec.get("fused_loop"),
     )
     name = spec.get("backend", "sharded")
     kw = {}
+    if spec.get("schedule_platform"):
+        kw["schedule_platform"] = spec["schedule_platform"]
     if spec.get("hybrid"):
         from distributedlpsolver_tpu_torch.parallel.mesh import make_hybrid_mesh
 
@@ -222,7 +231,8 @@ def sharded_solve(world: World, spec: dict) -> dict:
                 time.sleep(pace)
 
         hooks = _Pace()
-    launches0, batched0 = normal_eq.launches, normal_eq.launches_batched
+    launches0, batched0, f32_0 = (normal_eq.launches, normal_eq.launches_batched,
+                                  normal_eq.launches_f32)
     t0 = time.perf_counter()
     result = solve(problem, backend=be, config=cfg, hooks=hooks)
     wall = time.perf_counter() - t0
@@ -239,6 +249,7 @@ def sharded_solve(world: World, spec: dict) -> dict:
         "x_sha256": None if x is None else hashlib.sha256(x.tobytes()).hexdigest(),
         "k1_launches": normal_eq.launches - launches0,
         "k1_launches_batched": normal_eq.launches_batched - batched0,
+        "k1_launches_f32": normal_eq.launches_f32 - f32_0,
         "phase_report": getattr(be, "phase_report", None),
         "setup": dict(getattr(be, "setup_report", {}), generate_s=t_gen),
     }
@@ -256,6 +267,8 @@ def sharded_solve(world: World, spec: dict) -> dict:
         out.update(_scenario_fields(be, result))
     if getattr(be, "clock", None) is not None:
         out["stage_clock"] = be.clock.report()
+    if getattr(be, "_pcg", False):  # the dense and sharded backends' PCG tally
+        out["cg_report"] = be.cg_report()
     return out
 
 
@@ -473,7 +486,8 @@ def _supervised_case(world: World, spec: dict) -> dict:
     name = spec.get("backend", "sharded")
     be = backend_class(name)(device=world.device, **_world_mesh_kw(world, name))
     runtime.restore_devices()
-    launches0, batched0 = normal_eq.launches, normal_eq.launches_batched
+    launches0, batched0, f32_0 = (normal_eq.launches, normal_eq.launches_batched,
+                                  normal_eq.launches_f32)
     t0 = time.perf_counter()
     faults = lambda fs: [{"kind": f.kind.value, "iteration": f.iteration, "action": f.action,
                           "devices": list(f.devices), "backend": f.backend,

@@ -136,10 +136,13 @@ def test_mixed_precision_factor_uses_a_precast_copy():
 
 def test_unported_options_raise():
     pt, _ = _pair("random_dense_lp:0")
-    # The dense backend runs solve_mode="pcg" (tests/test_torch_dense_pcg.py);
-    # the sharded backend's PCG (its column-sharded preconditioner) is not ported.
+    # The dense and sharded backends run solve_mode="pcg"
+    # (tests/test_torch_dense_pcg.py, tests/test_torch_sharded_pcg.py);
+    # the block tier's PCG is not ported.
+    r = solve(pt, backend=get_backend("sharded", device="cpu"), solve_mode="pcg")
+    assert r.status == Status.OPTIMAL
     with pytest.raises(NotImplementedError, match="item 5b"):
-        solve(pt, backend=get_backend("sharded", device="cpu"), solve_mode="pcg")
+        solve(pt, backend=get_backend("block", device="cpu"), solve_mode="pcg")
     # The warm cache is ported (serve/warmcache.py) and no longer raises.
     from distributedlpsolver_tpu_torch.serve.warmcache import WarmCache
 

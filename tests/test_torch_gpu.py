@@ -14,7 +14,9 @@ count refused), and the row-sharded tier (the ELL kernel on a rank's row
 block, an NCCL world of one against ``mesh=None`` bit for bit, a gloo world
 of two sharing the card), and the scenario tier's lane mesh and pdlp's
 column mesh (a mesh of one, local and an NCCL world, against ``mesh=None``
-bit for bit), on the card.
+bit for bit), and the sharded backend's PCG (an NCCL world of one against a
+local mesh of one bit for bit and captured, its factorization with TF32
+off), on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card, which
 skips the test where there is none. Run on a machine with a card with
@@ -1256,3 +1258,75 @@ def test_pdlp_mesh_shape_of_one_matches_mesh_none_bit_for_bit(cuda):
         assert r.status == r0.status and r.iterations == r0.iterations
         assert np.array_equal(r.x, r0.x)
     assert bw.mesh.pg_backend == "nccl"
+
+
+# -- the sharded backend's PCG ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("loop", [{}, {"segment_iters": 2}], ids=["fused", "segmented"])
+def test_sharded_pcg_nccl_world_of_one_matches_a_local_mesh_of_one(cuda, loop):
+    """Forced PCG on the sharded backend over an NCCL world of one and a
+    local mesh of one on the card: the same code (the identity all-reduce,
+    a one-part sum), x bit for bit, each loop captured with the panels'
+    and CG's sums in it. A repeat on the world gives the same bits, and a
+    run of replays alone adds nothing to the card's reserved bytes past
+    one small-pool segment."""
+    from distributedlpsolver_tpu_torch.backends.sharded import ShardedTorchBackend
+    from distributedlpsolver_tpu_torch.ipm import device_loop
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    p = random_dense_lp(48, 120, seed=11)
+    grown, real_run = [], device_loop.DeviceLoop.run
+
+    def run(self, *args, **kw):
+        replays, before = self.captures > 0, torch.cuda.memory_reserved()
+        out = real_run(self, *args, **kw)
+        if replays:
+            grown.append(torch.cuda.memory_reserved() - before)
+        return out
+
+    world = _nccl_world_of_one()
+    try:
+        rw = []
+        for _ in range(2):
+            bw = ShardedTorchBackend()
+            device_loop.DeviceLoop.run = run
+            try:
+                rw.append(solve(p, backend=bw, tol=1e-8, solve_mode="pcg", **loop))
+            finally:
+                device_loop.DeviceLoop.run = real_run
+            assert bw.mesh.pg_backend == "nccl"
+            assert all(row["captured"] is True for row in bw.phase_report)
+    finally:
+        world.close()
+    bl = ShardedTorchBackend(mesh=mesh_lib.make_mesh(axis_names=("cols",), devices=["cuda:0"]))
+    rl = solve(p, backend=bl, tol=1e-8, solve_mode="pcg", **loop)
+    assert all(row["captured"] is True for row in bl.phase_report)
+    assert (bl._closure is not None) == bool(loop)
+    for r in rw:
+        assert r.status == rl.status == Status.OPTIMAL and r.iterations == rl.iterations
+        assert np.array_equal(r.x, rl.x)
+    assert all(g <= 2 << 20 for g in grown), grown
+
+
+def test_sharded_pcg_factorization_runs_with_tf32_off(cuda, monkeypatch):
+    """``setup`` turns TF32 off for the library's f32 products; the panel
+    factorization and inverse of the sharded preconditioner run with it
+    off."""
+    from distributedlpsolver_tpu_torch.backends.sharded import ShardedTorchBackend
+    from distributedlpsolver_tpu_torch.ops import dist_chol
+    from distributedlpsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    seen, real = [], dist_chol.chol_tri_inv_mesh
+
+    def spy(Ms, *args):
+        seen.append((Ms.dtype, torch.backends.cuda.matmul.allow_tf32))
+        return real(Ms, *args)
+
+    monkeypatch.setattr(dist_chol, "chol_tri_inv_mesh", spy)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    be = ShardedTorchBackend(mesh=mesh_lib.make_mesh(axis_names=("cols",), devices=["cuda:0"]))
+    r = solve(random_dense_lp(48, 128, seed=4), backend=be, tol=1e-8, solve_mode="pcg",
+              fused_loop=False)
+    assert r.status == Status.OPTIMAL and seen
+    assert all(dt == torch.float32 and not tf32 for dt, tf32 in seen)

@@ -44,6 +44,13 @@ IDS = [f"{g}_{m}x{n}_s{s}" for g, m, n, s in CASES]
 LINOPS = {"check": "linops", "m": 15, "n": 37, "seed": 2, "vec_seed": 7}
 # A 2-D mesh over the world of 4: columns over the inner axis of 2.
 HYBRID = {"m": 24, "n": 64, "seed": 0, "tol": TOL, "hybrid": [2, 2]}
+# The sharded PCG (tests/test_torch_sharded_pcg.py): a reference mesh
+# instance forced, and the three-phase plan of the TPU schedule.
+PCG_CASES = [
+    {"m": 48, "n": 120, "seed": 11, "tol": TOL, "solve_mode": "pcg"},
+    {"m": 40, "n": 100, "seed": 1, "tol": TOL, "solve_mode": "pcg", "schedule_platform": "tpu"},
+]
+PCG_IDS = ["pcg_48x120_s11", "tpu_pcg_40x100_s1"]
 
 
 def _port_problem(g, m, n, s):
@@ -62,7 +69,8 @@ def worlds(tmp_path_factory):
     out = {}
     for k in (2, 4):
         extra = [HYBRID] if k == 4 else []
-        out[k] = run_world("sharded_cases", {"cases": cases + extra + [LINOPS]}, world_size=k,
+        out[k] = run_world("sharded_cases",
+                           {"cases": cases + extra + PCG_CASES + [LINOPS]}, world_size=k,
                            workdir=str(tmp_path_factory.mktemp(f"world{k}")), device=CPU,
                            timeout=240)
     return out
@@ -76,6 +84,25 @@ def jax_sharded():
         for case in CASES:
             be = ShardedJaxBackend(mesh=jmake_mesh(devices=jax.devices()[:k]))
             out[k, case] = jsolve(_jax_problem(*case), backend=be, tol=TOL)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_sharded_pcg():
+    """The JAX sharded backend's PCG on meshes of 2 and 4 virtual devices
+    (the TPU schedule's case under its platform gate, forced open)."""
+    out = {}
+    for k in (2, 4):
+        for i, case in enumerate(PCG_CASES):
+            be = ShardedJaxBackend(mesh=jmake_mesh(devices=jax.devices()[:k]))
+            p = jgen.random_dense_lp(case["m"], case["n"], seed=case["seed"])
+            with pytest.MonkeyPatch.context() as mp:
+                if case.get("schedule_platform") == "tpu":
+                    mp.setattr(jax, "default_backend", lambda: "tpu")
+                r = jsolve(p, backend=be, tol=TOL, solve_mode="pcg", use_pallas=False)
+            # The JAX package reports phases on its segmented routes alone.
+            phases = [(ph["mode"], ph["iters"]) for ph in getattr(be, "phase_report", [])]
+            out[k, i] = r, phases or [("pcg", r.iterations)]
     return out
 
 
@@ -96,6 +123,25 @@ def test_gloo_world_matches_the_jax_sharded_backend(worlds, jax_sharded, k, case
         assert o["iterations"] == ref.iterations, (rank, o["iterations"], ref.iterations)
         assert _close(o["objective"], ref.objective), (rank, o["objective"], ref.objective)
         assert res[rank]["world_size"] == k and res[rank]["pg_backend"] == "gloo"
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("i", range(len(PCG_CASES)), ids=PCG_IDS)
+def test_gloo_world_pcg_matches_the_jax_sharded_backend(worlds, jax_sharded_pcg, k, i):
+    """The sharded PCG over gloo worlds of 2 and 4 (each rank its block
+    and its ``L⁻¹`` slab): every rank the same x bits and the JAX sharded
+    backend's status, iterations, phases and objective on its mesh of k."""
+    ref, ref_phases = jax_sharded_pcg[k, i]
+    at = len(CASES) + (k == 4) + i  # the world of 4 runs HYBRID first
+    outs = [worlds[k][r]["cases"][at] for r in range(k)]
+    assert len({o["x_sha256"] for o in outs}) == 1
+    for rank, o in enumerate(outs):
+        assert o["status"] == ref.status.value == "optimal", (rank, o)
+        assert o["iterations"] == ref.iterations, (rank, o["iterations"], ref.iterations)
+        assert _close(o["objective"], ref.objective), (rank, o["objective"], ref.objective)
+        assert [(ph["mode"], ph["iters"]) for ph in o["phase_report"]] == ref_phases
+        assert o["cg_report"]["solves"] > 0 and o["cg_report"]["cg_live"] > 0
+        assert o["shard_shape"] == [PCG_CASES[i]["m"], PCG_CASES[i]["n"] // k]
 
 
 def test_a_hybrid_mesh_splits_columns_over_its_inner_axis(worlds):
@@ -158,13 +204,21 @@ def test_world_of_one_in_process(jax_sharded, case):
 
 @pytest.mark.parametrize("name", ["sharded", "tpu-sharded", "mesh"])
 def test_the_names_resolve_and_the_unported_seams_raise(name):
-    """``prec_sharding`` is still refused (item 5b); ``reshard`` (item 13b,
-    once refused) hands back a fresh backend on the given mesh, on the
-    same device, that solves as the original does."""
+    """``prec_sharding`` (item 5b-1, once refused) is the column split of
+    the mesh's variable axis, known from setup on; the block tier's PCG
+    is still refused (item 5b). ``reshard`` (item 13b, once refused) hands
+    back a fresh backend on the given mesh, on the same device, that
+    solves as the original does."""
     be = get_backend(name, device=CPU)
     assert isinstance(be, ShardedTorchBackend) and be.name == "sharded"
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(RuntimeError, match="setup"):
         be.prec_sharding()
+    be.setup(to_interior_form(random_dense_lp(12, 30, seed=1)), SolverConfig())
+    prec = be.prec_sharding()
+    assert (prec.mesh, prec.axis, prec.dim) == (be.mesh, "cols", 1)
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        solve(random_dense_lp(12, 30, seed=1), backend=get_backend("block", device=CPU),
+              solve_mode="pcg")
     mesh = mesh_lib.make_mesh(device=CPU)
     fresh = be.reshard(mesh)
     assert isinstance(fresh, ShardedTorchBackend) and fresh is not be

@@ -250,8 +250,15 @@ def test_sharded_two_phase_on_a_local_mesh_of_one(tpu_gate, monkeypatch):
     assert [(ph["mode"], ph["iters"]) for ph in bt.phase_report] == \
         [(ph["mode"], ph["iters"]) for ph in bj.phase_report]
     assert bt.reshard(mesh).schedule_platform == "tpu"
-    # Its automatic PCG is the sharded PCG, which is not ported.
+    # Its automatic PCG is the sharded PCG (item 5b-1, once refused): the
+    # three-phase plan over the column-split preconditioner. The dense
+    # endgame past 2²⁸ entries is still refused (item 5b).
     monkeypatch.setattr(tdense, "_PCG_AUTO_ENTRIES", 1)
+    ba = ShardedTorchBackend(mesh=mesh, schedule_platform="tpu")
+    ra = solve(tgen.random_dense_lp(24, 64, seed=11), backend=ba, tol=TOL)
+    assert ba._pcg and [ph["mode"] for ph in ba.phase_report] == ["f32", "pcg", "f64"]
+    assert ra.status == Status.OPTIMAL and ba.prec_sharding().axis == "cols"
+    monkeypatch.setattr(tdense, "_ENDGAME_ENTRIES", 1)
     with pytest.raises(NotImplementedError, match="item 5b"):
         ShardedTorchBackend(mesh=mesh, schedule_platform="tpu").setup(
             to_interior_form(tgen.random_dense_lp(24, 64, seed=11)), SolverConfig(tol=TOL))
